@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit, torch and CUDA versions;
-2. builds the port's CUDA kernels from kernels/csrc with nvcc;
-3. checks each kernel against its plain PyTorch version on the card, at
-   the shapes of the side-250 max-cut solve, and times both;
-4. solves maxcut_problem(random_graph_weights(0, 250)) with
-   Options(hybrid_precision=False) through proxsdp_tpu_torch.solve twice,
-   times the second solve, counts each kernel's launches in it, and checks
-   status, objective and the returned X.
+1. prints the card's name and power limit, torch and CUDA versions, and
+   builds the port's CUDA kernels from kernels/csrc with nvcc (one process
+   per source, in parallel);
+2. phase A: solves maxcut_problem(random_graph_weights(0, 250)) with
+   Options(hybrid_precision=False) (the f64 program, dense eigh) twice,
+   times the second solve, counts its launches, and checks status,
+   objective and X against the JAX package's constants;
+3. phase B: checks each kernel entry point of the default path against its
+   plain PyTorch version on the card at that path's side-250 shapes (f64
+   and f32 K1-K4, K5-K8 at k = 24 in f32 and k = 16 in the mixed f64
+   polish), and times it beside the plain version and, where one PyTorch
+   call computes the same function, that call;
+4. phase C: solves the same instance with the default Options() (the
+   hybrid f32 race and f64 polish) twice, times the second, counts its
+   launches, checks status, objective and X, and prints its phase events
+   beside the JAX package's.
 
 Any failed phase exits non-zero.  The last line is a JSON object with the
 device; the line before it lists the kernels.  It needs no network and
@@ -19,7 +27,10 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -28,22 +39,38 @@ import time
 import numpy as np
 
 SIDE = 250
-# the JAX package's solve of this instance under the same options (f64,
-# CPU): status 1, 598 iterations, final rank 8
+# the JAX package's solve of this instance with Options(hybrid_precision=
+# False) (f64, CPU): status 1, 598 iterations, final rank 8
 REF_OBJ = 1250.6130819530558
 REF_ITERS = 598
 # max|diag(X) - 1| of the reference's X.  The solver stops at feasibility
 # max|A x - b| / (1 + ||b||) <= tol_feasibility in rhs-scaled units, i.e.
 # |X_ii - 1| <= 1e-4 * (1 + 1) * sqrt(250) = 3.16e-3 in user units; the
-# check below holds the port to that bound, the solver's own.
+# checks hold the port to that bound, the solver's own.
 REF_DIAG_ERR = 0.003009914531918012
-# kernel vs plain version on the card, f64.  Elementwise outputs round
-# identically (the kernels are built with -fmad=false and keep the plain
-# version's operation order); only the reductions sum in another order,
-# ~n * eps = 1.4e-11 relative in the worst case at n = 62,500, ~1e-14 in
-# practice for these well-conditioned sums.
-KERNEL_RTOL = 1e-12
+# the JAX package's default Options(chunk_iters=256) solve (the port's
+# fixed chunk) on one CPU thread: status 1, 598 iterations, the race's
+# subspace rank 24 (observed 14), the hand-over at 597, the polish rank 16
+# (observed 8), 143 polar reseeds and 0 dense-eigh fallbacks
+HYB_REF_OBJ = 1250.5958191446912
+HYB_REF_ITERS = 598
+HYB_REF_RACE_RANK = 24
+HYB_REF_HANDOVER = 597
+HYB_REF_POLISH_RANK = 16
+HYB_REF_RESEEDS = 143
+HYB_REF_DENSE = 0
+HYB_REF_DIAG_ERR = 0.003048931860007542
+# kernel vs plain version on the card.  f64: elementwise outputs round
+# alike (-fmad=false, the plain version's operation order); reductions
+# differ in summation order only, ~1e-14 in practice.  f32: the GEMM sums
+# in another order than the plain version's (2e-5 of the output's scale);
+# K3's f32 program and K8's Ritz sums in the mixed polish are f64 slots.
+RTOL = {"f64": 1e-12, "f32": 2e-5}
 REPS = 50
+# peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and the CUDA-core
+# (not tensor-core) rates per type
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 
 
 def fail(msg: str):
@@ -72,91 +99,225 @@ def median_ms(torch, fn) -> float:
 
 
 def compare(torch, got, want):
-    """(max abs error, max relative error) of a kernel's outputs against
-    the plain version's; equal entries (incl. -inf) count as 0."""
-    got = torch.cat([g.reshape(-1) for g in got])
-    want = torch.cat([w.reshape(-1) for w in want])
-    diff = torch.where(got == want, torch.zeros_like(got), (got - want).abs())
+    """(max abs error, max error relative to the largest finite value) of a
+    kernel's outputs against the plain version's; equal entries (incl. inf
+    and NaN pairs) count as 0."""
+    got = torch.cat([g.reshape(-1).double() for g in got])
+    want = torch.cat([w.reshape(-1).double() for w in want])
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    diff = torch.where(same, torch.zeros_like(got), (got - want).abs())
     finite = want[torch.isfinite(want)]
     scale = float(finite.abs().max()) if finite.numel() else 1.0
     err = float(diff.max())
     return err, err / max(scale, 1e-300)
 
 
-def kernel_checks(torch, kernels, setup, M, rng):
-    """Each kernel against its plain version at the slice's shapes."""
-    dev = torch.device("cuda")
+def nbytes(tensors) -> int:
+    """Bytes of distinct tensors (one read or write each)."""
+    seen, total = set(), 0
+    for t in tensors:
+        if t is None or t.data_ptr() in seen:
+            continue
+        seen.add(t.data_ptr())
+        total += t.numel() * t.element_size()
+    return total
+
+
+def solve_timed(torch, kernels, solve, problem, opts, capture=False):
+    """Warm-up solve, then the timed one with the launch counts set to 0
+    just before it and read just after; (result, wall s, counts by wrapper,
+    counts by entry point, captured stdout)."""
+    solve(problem, opts.replace(log_verbose=False, timer_verbose=False))
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf) if capture else contextlib.nullcontext():
+        res = solve(problem, opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, wall, dict(kernels.launch_counts), dict(kernels.entry_counts),
+            buf.getvalue())
+
+
+def check_solution(res, Xidx, ref_obj, diag_tol, label):
+    X = res.primal[Xidx]
+    diag_err = float(np.max(np.abs(np.diag(X) - 1.0)))
+    lam_min = float(np.linalg.eigvalsh(X)[0])
+    fro = float(np.linalg.norm(X))
+    check(res.status == 1, f"{label}: status {res.status}, want 1 (OPTIMAL)")
+    check(abs(res.objval - ref_obj) <= 1e-4 * (1 + abs(ref_obj)),
+          f"{label}: objval {res.objval} vs {ref_obj}")
+    check(np.all(np.isfinite(X)) and X.shape == (SIDE, SIDE),
+          f"{label}: X not finite")
+    check(diag_err <= diag_tol, f"{label}: max|diag(X)-1| = {diag_err} > {diag_tol}")
+    check(lam_min >= -1e-6 * fro, f"{label}: lambda_min(X) = {lam_min}")
+    return diag_err, lam_min, fro
+
+
+def kernel_checks(torch, kernels, setup, rng, dev):
+    """Each entry point of the default path against its plain version at
+    the path's shapes on ``dev``; rows of the kernels line (launches
+    filled in later)."""
+    import torch.nn.functional as F
+
+    from proxsdp_tpu_torch.ops.cones import POLAR_QA, POLAR_QB, POLAR_QC
+    from proxsdp_tpu_torch.ops.linop import build_linop
+
     n, p, m = setup.layout.n, setup.layout.p, setup.layout.m
-    f64 = torch.float64
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    rows = []
 
-    def vec(k, scale=1.0):
-        return torch.tensor(scale * rng.standard_normal(k), dtype=f64, device=dev)
+    def add(name, sfx, source, replaces, call, plain, inputs, outputs, flops,
+            library=None, compare_fn=None):
+        entry = f"{name}_{sfx}"
+        kernels.reset_launch_counts()
+        got = call(getattr(kernels, name))
+        torch.cuda.synchronize()
+        check(kernels.entry_counts.get(entry, 0) >= 1,
+              f"{entry}: the wrapper launched no kernel")
+        want = call(plain)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err, rel = (compare_fn or (lambda g, w: compare(torch, g, w)))(got, want)
+        tol = RTOL["f64" if all(w.dtype != torch.float32 for w in want) else "f32"]
+        ms = median_ms(torch, lambda: call(getattr(kernels, name)))
+        plain_ms = median_ms(torch, lambda: call(plain))
+        lib_ms = median_ms(torch, library) if library else None
+        t_bytes = nbytes(list(inputs) + list(outputs)) / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_FLOPS[sfx[:3]] * 1e3
+        print(f"kernel {entry:22s} max_abs_err {err:.3e} rel {rel:.3e} "
+              f"(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms "
+              f"bound {max(t_bytes, t_ops) * 1e3:.3f} us")
+        check(rel <= tol, f"{entry}: relative error {rel:.3e} > {tol}")
+        rows.append({
+            "name": entry, "route": "cuda",
+            "source": f"proxsdp_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        })
 
-    def scalar(v):
-        return torch.tensor(v, dtype=f64, device=dev)
+    # ---- K1-K4 in both programs (the f32 race and the f64 polish)
+    for sfx, dt in dtypes.items():
+        M = build_linop(setup.A, setup.G, dt, device=dev)
 
-    b = torch.tensor(setup.b, dtype=f64, device=dev)
-    h = torch.tensor(setup.h, dtype=f64, device=dev)
-    c = torch.tensor(setup.c, dtype=f64, device=dev)
-    x, x_old, Mty, Mty_old = vec(n), vec(n), vec(n, 1e-2), vec(n, 1e-2)
-    y, y_old, Mx, Mx_old = vec(p + m), vec(p + m), vec(p + m), vec(p + m)
-    tau, sigma, theta = scalar(0.37), scalar(0.21), scalar(0.93)
+        def vec(k, scale=1.0, dt=dt):
+            return torch.tensor(scale * rng.standard_normal(k), dtype=dt,
+                                device=dev)
 
-    cases = {
-        "ell_spmv": (
-            "proxsdp_tpu/ops/linop.py:123",
+        def scalar(v, dt=dt):
+            return torch.tensor(v, dtype=dt, device=dev)
+
+        b = torch.tensor(setup.b, dtype=dt, device=dev)
+        h = torch.tensor(setup.h, dtype=dt, device=dev)
+        c = torch.tensor(setup.c, dtype=dt, device=dev)
+        x, x_old, Mty, Mty_old = vec(n), vec(n), vec(n, 1e-2), vec(n, 1e-2)
+        y, y_old, Mx, Mx_old = vec(p + m), vec(p + m), vec(p + m), vec(p + m)
+        tau, sigma, theta = scalar(0.37), scalar(0.21), scalar(0.93)
+        csr_row = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(p + m, device=dev).repeat_interleave(
+                M.row_cols.shape[1]), M.row_cols.reshape(-1).long()]),
+            M.row_vals.reshape(-1), (p + m, n)).to_sparse_csr()
+        csr_col = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(n, device=dev).repeat_interleave(
+                M.col_rows.shape[1]), M.col_rows.reshape(-1).long()]),
+            M.col_vals.reshape(-1), (n, p + m)).to_sparse_csr()
+        out_pm, out_n = vec(p + m), vec(n)
+        add("ell_spmv", sfx, "ell_spmv.cu", "proxsdp_tpu/ops/linop.py:123",
             lambda f: (f(M.row_cols, M.row_vals, x), f(M.col_rows, M.col_vals, y)),
             kernels.ell_spmv_plain,
-        ),
-        "ls_dual_update": (
+            (M.row_cols, M.row_vals, x, M.col_rows, M.col_vals, y),
+            (out_pm, out_n), 2 * (M.row_vals.numel() + M.col_vals.numel()),
+            library=lambda: (torch.sparse.mm(csr_row, x[:, None]),
+                             torch.sparse.mm(csr_col, y[:, None])))
+        add("ls_dual_update", sfx, "ls_dual_update.cu",
             "proxsdp_tpu/solver.py:452",
             lambda f: f(y, Mx, Mx_old, b, h, y_old, sigma, theta, p, m),
             kernels.ls_dual_update_plain,
-        ),
-        "sq_dist": (
-            "proxsdp_tpu/solver.py:459",
-            lambda f: (f(Mty, Mty_old),),
-            kernels.sq_dist_plain,
-        ),
-        "residuals": (
-            "proxsdp_tpu/solver.py:545",
+            (y, Mx, Mx_old, b, h, y_old, sigma, theta), (out_pm, tau),
+            10 * (p + m))
+        add("sq_dist", sfx, "ls_dual_update.cu", "proxsdp_tpu/solver.py:459",
+            lambda f: (f(Mty, Mty_old),), kernels.sq_dist_plain,
+            (Mty, Mty_old), (tau,), 3 * n,
+            library=lambda: F.mse_loss(Mty, Mty_old, reduction="sum"))
+        add("residuals", sfx, "residuals.cu", "proxsdp_tpu/solver.py:545",
             lambda f: (f(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,
                          sigma, b, h, c, p, m, SIDE),),
             kernels.residuals_plain,
-        ),
-        "primal_update_sym": (
+            (x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma, b, h, c),
+            (torch.empty(9, dtype=torch.float64, device=dev),),
+            10 * n + 10 * (p + m))
+        add("primal_update_sym", sfx, "primal_update_sym.cu",
             "proxsdp_tpu/solver.py:308",
             lambda f: (f(x, Mty, c, tau, SIDE),),
-            kernels.primal_update_sym_plain,
-        ),
-    }
-    sources = {
-        "ell_spmv": "ell_spmv.cu", "ls_dual_update": "ls_dual_update.cu",
-        "sq_dist": "ls_dual_update.cu", "residuals": "residuals.cu",
-        "primal_update_sym": "primal_update_sym.cu",
-    }
-    rows = {}
-    for name, (replaces, call, plain) in cases.items():
-        wrapper = getattr(kernels, name)
-        kernels.reset_launch_counts()
-        got = call(wrapper)
-        torch.cuda.synchronize()
-        launched = kernels.launch_counts[name]
-        check(launched >= 1, f"{name}: the wrapper launched no kernel")
-        want = call(plain)
-        err, rel = compare(torch, got, want)
-        ms = median_ms(torch, lambda: call(wrapper))
-        plain_ms = median_ms(torch, lambda: call(plain))
-        print(f"kernel {name:18s} max_abs_err {err:.3e} rel {rel:.3e} "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"(median of {REPS}, launches in check {launched})")
-        check(rel <= KERNEL_RTOL, f"{name}: relative error {rel:.3e} > {KERNEL_RTOL}")
-        rows[name] = {
-            "name": name, "route": "cuda",
-            "source": f"proxsdp_tpu_torch/kernels/csrc/{sources[name]}",
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-        }
+            kernels.primal_update_sym_plain, (x, Mty, c, tau), (out_n,), 5 * n)
+
+    # ---- K5-K8: a side-250 matrix with the race's spectrum (a few large
+    # positive eigenvalues, a negative bulk), its Newton-Schulz iterate, and
+    # the subspace bases (k = 24 in the f32 race, 16 in the mixed polish)
+    f32, f64 = torch.float32, torch.float64
+    V, _ = np.linalg.qr(rng.standard_normal((SIDE, SIDE)))
+    w = np.concatenate([np.linspace(40.0, 1.0, 14),
+                        -np.linspace(0.05, 5.0, SIDE - 14)])
+    X64 = torch.tensor((V * w) @ V.T, dtype=f64, device=dev)
+    X = X64.float()
+    Y, _ = kernels.fro_scale_plain(X, f32)
+    A = kernels.ns_gemm_plain(Y, Y)
+    S = kernels.sym_plain(Y)
+    P = kernels.ns_gemm_plain(S, X, X, 0.5, 0.5)
+    mat = torch.empty_like(X)
+    cube = 2 * SIDE ** 3
+    add("ns_gemm", "f32", "ns_gemm.cu", "proxsdp_tpu/ops/cones.py:89",
+        lambda f: (f(A, A, A, POLAR_QB, POLAR_QC),), kernels.ns_gemm_plain,
+        (A,), (mat,), cube + 3 * SIDE * SIDE,
+        library=lambda: torch.addmm(A, A, A, beta=POLAR_QB, alpha=POLAR_QC))
+    add("ns_gemm", "f32", "ns_gemm.cu", "proxsdp_tpu/ops/cones.py:90",
+        lambda f: (f(Y, A, Y, POLAR_QA, 1.0),), kernels.ns_gemm_plain,
+        (Y, A), (mat,), cube + 3 * SIDE * SIDE,
+        library=lambda: torch.addmm(Y, Y, A, beta=POLAR_QA, alpha=1.0))
+    rows[-1]["name"] = "ns_gemm_f32 (Y = QA Y + Y B)"
+    add("fro_scale", "f32", "polar_sym.cu", "proxsdp_tpu/ops/cones.py:85",
+        lambda f: f(X, f32), kernels.fro_scale_plain, (X,), (mat,),
+        3 * SIDE * SIDE)
+    add("sym", "f32", "polar_sym.cu", "proxsdp_tpu/ops/cones.py:94",
+        lambda f: (f(Y),), kernels.sym_plain, (Y,), (mat,), 2 * SIDE * SIDE)
+    add("sym_guard", "f32", "polar_sym.cu", "proxsdp_tpu/ops/cones.py:96",
+        lambda f: f(P, S, X), kernels.sym_guard_plain,
+        (P, torch.diagonal(S).contiguous()), (mat,), 3 * SIDE * SIDE)
+    for sfx, k, dt in (("f32", 24, f32), ("f32", 16, f32)):
+        Yk = torch.matmul(X, torch.tensor(rng.standard_normal((SIDE, k)),
+                                          dtype=dt, device=dev))
+        add("cholqr", sfx, "cholqr.cu", "proxsdp_tpu/ops/cones.py:247",
+            lambda f, Yk=Yk: (f(Yk, kernels.CHOLQR_EPS[f32]),),
+            kernels.cholqr_plain, (Yk,), (Yk,),
+            3 * SIDE * k * k + k ** 3 // 3)
+        rows[-1]["name"] = f"cholqr_f32 (k={k})"
+    # K8: the race's f32 test (theta from the eigh) at k = 24, and the
+    # mixed polish's f64 test (f64 Rayleigh quotients) at k = 16
+    for sfx, k, dt in (("f32", 24, f32), ("f64", 16, f64)):
+        Wk = torch.tensor(V[:, :k], dtype=dt, device=dev)
+        Xk = X64.to(dt)
+        XW = torch.matmul(Xk, Wk)
+        th = (torch.tensor(w[:k], dtype=dt, device=dev) if sfx == "f32"
+              else None)
+        at = torch.tensor(1e-4, dtype=dt, device=dev)
+        tol = 1e-9 if sfx == "f32" else 4e-6
+
+        def exact_flags(g, wnt):
+            check(torch.equal(g[2].cpu(), wnt[2].cpu()),
+                  f"ritz_accept_{sfx}: flags {g[2].tolist()} vs {wnt[2].tolist()}")
+            return compare(torch, g[:2], wnt[:2])
+
+        add("ritz_accept", sfx, "ritz_accept.cu",
+            "proxsdp_tpu/ops/cones.py:443",
+            lambda f, Wk=Wk, XW=XW, th=th, at=at, tol=tol: f(
+                Wk, XW, th, at, tol, 1e-7, False),
+            kernels.ritz_accept_plain, (Wk, XW, th, at),
+            (torch.empty(k + 3, dtype=dt, device=dev),), 8 * SIDE * k,
+            compare_fn=exact_flags)
     return rows
 
 
@@ -182,7 +343,6 @@ def main() -> int:
     from proxsdp_tpu_torch import Options, kernels, solve
     from proxsdp_tpu_torch.kernels import build
     from proxsdp_tpu_torch.models.maxcut import maxcut_problem, random_graph_weights
-    from proxsdp_tpu_torch.ops.linop import EllOp, build_linop
     from proxsdp_tpu_torch.problem import preprocess, to_square_form
 
     # ---- 1. build
@@ -194,55 +354,75 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             print("  " + line.strip())
 
-    # ---- 2. kernels against their plain versions, slice shapes
     problem, Xidx = maxcut_problem(random_graph_weights(0, SIDE))
     setup = to_square_form(preprocess(problem))
-    M = build_linop(setup.A, setup.G, torch.float64, device="cuda")
-    check(isinstance(M, EllOp), f"the side-{SIDE} operator is {type(M).__name__}")
+    diag_tol = 1e-4 * (1.0 + setup.norm_b) * setup.rhs_scale
     print(f"slice shapes: n={setup.layout.n} p={setup.layout.p} "
-          f"m={setup.layout.m} block {SIDE}x{SIDE}, ELL rows "
-          f"{tuple(M.row_cols.shape)} cols {tuple(M.col_rows.shape)}")
-    rows = kernel_checks(torch, kernels, setup, M, np.random.default_rng(0))
+          f"m={setup.layout.m} block {SIDE}x{SIDE}")
 
-    # ---- 3. the main path, twice; the second solve is timed and counted
-    opts = Options(hybrid_precision=False)
-    solve(problem, opts, device="cuda")
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = solve(problem, opts, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(kernels.launch_counts)
-    X = res.primal[Xidx]
-    diag_err = float(np.max(np.abs(np.diag(X) - 1.0)))
-    lam_min = float(np.linalg.eigvalsh(X)[0])
-    fro = float(np.linalg.norm(X))
+    # ---- 2. phase A: the f64 program (hybrid_precision=False)
+    res, wall, counts, _, _ = solve_timed(torch, kernels, solve, problem,
+                                          Options(hybrid_precision=False))
+    diag_err, lam_min, fro = check_solution(res, Xidx, REF_OBJ, diag_tol, "A")
+    print(f"phase A (hybrid_precision=False): status {res.status} objval "
+          f"{res.objval!r} (reference {REF_OBJ!r}, diff {res.objval - REF_OBJ:.3e}) "
+          f"iterations {res.iter} (reference {REF_ITERS}) wall {wall:.3f} s, "
+          f"{res.iter / wall:.1f} iterations/s; max|diag(X)-1| {diag_err:.6e} "
+          f"(reference {REF_DIAG_ERR:.6e}, bound {diag_tol:.3e}), "
+          f"lambda_min(X) {lam_min:.3e}")
+    print("phase A launches: " + json.dumps(counts))
+    check(counts["ell_spmv"] >= 2 * res.iter, "A: ell_spmv launched < 2x iterations")
+    for name in ("ls_dual_update", "sq_dist", "residuals", "primal_update_sym"):
+        check(counts[name] >= res.iter, f"A: {name} launched < iterations")
+
+    # ---- 3. phase B: every entry point of the default path vs its plain version
+    rows = kernel_checks(torch, kernels, setup, np.random.default_rng(0),
+                         torch.device("cuda"))
+
+    # ---- 4. phase C: the default Options() -- hybrid race and polish
+    opts = Options(log_verbose=True, timer_verbose=True)
+    res, wall, counts, entries, log = solve_timed(torch, kernels, solve,
+                                                  problem, opts, capture=True)
+    for line in log.splitlines():
+        if line.startswith("  [") or "total" in line or "status:" in line:
+            print("  | " + line.strip())
+    diag_err, lam_min, fro = check_solution(res, Xidx, HYB_REF_OBJ, diag_tol, "C")
+    race = re.search(r"f32 race: subspace rank (\d+) \(observed (\d+)\)", log)
+    hand = re.search(r"f32 -> f64 at iter (\d+)", log)
+    pol = re.search(r"f64 polish: subspace rank (\d+) \(observed (\d+)\)", log)
+    fb = re.search(r"f32 polar-reseed=(\d+), dense-eigh=(\d+)", log)
     iters = res.iter
-    print(f"solve side {SIDE}: status {res.status} ({res.status_string}) "
-          f"objval {res.objval!r} (reference {REF_OBJ!r}, "
-          f"diff {res.objval - REF_OBJ:.3e}) iterations {iters} "
-          f"(reference {REF_ITERS}, {100.0 * (iters - REF_ITERS) / REF_ITERS:+.1f}%) "
+    print(f"phase C (default Options()): status {res.status} objval "
+          f"{res.objval!r} (reference {HYB_REF_OBJ!r}, diff "
+          f"{res.objval - HYB_REF_OBJ:.3e}, bound "
+          f"{1e-4 * (1 + abs(HYB_REF_OBJ)):.3f}) iterations {iters} (reference "
+          f"{HYB_REF_ITERS}, {100.0 * (iters - HYB_REF_ITERS) / HYB_REF_ITERS:+.1f}%) "
           f"final rank {res.final_rank} gap {res.gap:.3e}")
-    diag_tol = opts.tol_feasibility * (1.0 + setup.norm_b) * setup.rhs_scale
-    print(f"solve wall {wall:.3f} s, {iters / wall:.1f} iterations/s; "
-          f"max|diag(X)-1| {diag_err:.6e} (reference {REF_DIAG_ERR:.6e}, "
+    print(f"phase C events: race rank {race and race.group(1)} (observed "
+          f"{race and race.group(2)}; reference {HYB_REF_RACE_RANK}), hand-over "
+          f"at {hand and hand.group(1)} (reference {HYB_REF_HANDOVER}), polish "
+          f"rank {pol and pol.group(1)} (observed {pol and pol.group(2)}; "
+          f"reference {HYB_REF_POLISH_RANK}), polar reseeds "
+          f"{fb and fb.group(1)} (reference {HYB_REF_RESEEDS}), dense-eigh "
+          f"fallbacks {fb and fb.group(2)} (reference {HYB_REF_DENSE})")
+    if abs(iters - HYB_REF_ITERS) > 0.25 * HYB_REF_ITERS:
+        print(f"phase C FINDING: iterations {iters} differ from the "
+              f"reference's {HYB_REF_ITERS} by more than 25 %")
+    print(f"phase C wall {wall:.3f} s, {iters / wall:.1f} iterations/s; "
+          f"max|diag(X)-1| {diag_err:.6e} (reference {HYB_REF_DIAG_ERR:.6e}, "
           f"bound {diag_tol:.3e}), lambda_min(X) {lam_min:.3e}, "
           f"||X||_F {fro:.3e}")
-    print("launches in the timed solve: " + json.dumps(counts))
-    check(res.status == 1, f"status {res.status}, want 1 (OPTIMAL)")
-    check(abs(res.objval - REF_OBJ) <= 1e-4 * (1 + abs(REF_OBJ)),
-          f"objval {res.objval} vs {REF_OBJ}")
-    check(np.all(np.isfinite(X)) and X.shape == (SIDE, SIDE), "X not finite")
-    check(diag_err <= diag_tol, f"max|diag(X)-1| = {diag_err} > {diag_tol}")
-    check(lam_min >= -1e-6 * fro, f"lambda_min(X) = {lam_min}")
-    check(counts["ell_spmv"] >= 2 * iters, "ell_spmv launched < 2x iterations")
-    for name in ("ls_dual_update", "sq_dist", "residuals", "primal_update_sym"):
-        check(counts[name] >= iters, f"{name} launched < iterations")
-    for name, row in rows.items():
-        row["launches"] = counts[name]
+    print("phase C launches: " + json.dumps(entries))
+    for name in kernels.KERNELS:
+        check(counts[name] > 0, f"C: {name} launched no kernel")
+    for name in ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
+                 "primal_update_sym"):
+        check(entries.get(f"{name}_f32", 0) > 0, f"C: {name}_f32 not launched")
+    for row in rows:
+        row["launches"] = entries.get(row["name"].split(" ")[0], 0)
+        check(row["launches"] > 0, f"C: {row['name']} launched no kernel")
 
-    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

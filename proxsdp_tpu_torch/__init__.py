@@ -5,10 +5,11 @@ names match (``solver``, ``ops/cones``, ``ops/linop``, ...), and each slice
 is accepted only when it matches ``proxsdp_tpu`` on the same input.  It
 imports ``torch``, numpy and scipy -- never jax, never ``proxsdp_tpu``.
 
-Ported so far: the non-hybrid f64 solve of one square-form PSD block,
-``solve(problem, Options(hybrid_precision=False), device=...)``, with its
-hot work in four hand-written CUDA kernels (``kernels/csrc``).  The
-device is explicit; every tensor has an explicit dtype.
+Ported so far: solves of one square-form PSD block -- the default
+``solve(problem)`` (the hybrid f32 race and f64 polish) and single f64
+or f32 programs -- with their hot work in eight hand-written CUDA
+kernels (``kernels/csrc``).  ``solve`` runs on the CUDA card unless the
+caller passes ``device="cpu"``; every tensor has an explicit dtype.
 """
 
 from __future__ import annotations

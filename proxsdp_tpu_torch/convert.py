@@ -53,12 +53,14 @@ def state_to_numpy(state) -> dict:
 
 
 def operands_from_numpy(*, M, b, h, c, norm_b, norm_h, norm_c, obj_scale,
-                        device):
-    """Operands on ``device``; ``M`` is a port operator (moved there)."""
+                        device, dtype: torch.dtype = torch.float64):
+    """Operands on ``device`` in ``dtype`` (f64 host values rounded once);
+    ``M`` is a port operator (moved there, its values already in
+    ``dtype``)."""
     from .solver import Operands
 
     def vec(a):
-        return torch.tensor(np.asarray(a, np.float64), dtype=torch.float64,
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
                             device=device)
 
     return Operands(

@@ -3,8 +3,9 @@
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 PyTorch version beside it (the tests' path); on a CUDA device it launches
 the kernel from ``csrc/`` (built at first use by ``build.py``) or raises --
-nothing falls back.  Each launch adds one to ``launch_counts[name]``,
-which shows that a run really went through the kernels.
+nothing falls back.  Each launch adds one to ``launch_counts[name]``
+and to ``entry_counts`` under its entry point ("residuals_f32"), which
+shows that a run really went through the kernels.
 
 | wrapper            | replaces (JAX package)                           |
 |--------------------|--------------------------------------------------|
@@ -13,6 +14,16 @@ which shows that a run really went through the kernels.
 | sq_dist            | solver.py:459-461 the accept test's norms        |
 | residuals          | solver.py:545-612 _residuals_and_gap reductions  |
 | primal_update_sym  | solver.py:308 + ops/cones.py:172-173             |
+| ns_gemm            | ops/cones.py:84-95, 285-297 the polar products   |
+| fro_scale          | ops/cones.py:85-86, 279-284 Frobenius scaling    |
+| sym                | ops/cones.py:94, 292 S = (Y + Y^T) / 2           |
+| sym_guard          | ops/cones.py:96-109, 294-310 Xp, guard and rank  |
+| cholqr             | ops/cones.py:243-263 one CholeskyQR pass         |
+| ritz_accept        | ops/cones.py:443-489 the Ritz acceptance test    |
+
+The f32 and f64 instantiations share one source each; ``fro_scale`` and
+``sym_guard`` also take the mixed f64/f32 pairs of the f64 program's
+f32-compute polar reseed.
 """
 
 from __future__ import annotations
@@ -27,34 +38,47 @@ from ..ops.cones import box_projection
 from . import build
 
 KERNELS = ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
-           "primal_update_sym")
+           "primal_update_sym", "ns_gemm", "fro_scale", "sym", "sym_guard",
+           "cholqr", "ritz_accept")
 
 launch_counts = {name: 0 for name in KERNELS}
+# the same launches by entry point, e.g. "residuals_f32", "sym_guard_f32_f64"
+entry_counts: dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+    entry_counts.clear()
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+_D = ctypes.c_double
 _ARGTYPES = {
     "ell_spmv": [_P, _P, _P, _P, _I, _I, _P],
     "ls_dual_update": [_P] * 11 + [_I, _I, _P],
     "sq_dist": [_P, _P, _P, _P, _I, _P],
     "residuals": [_P] * 15 + [_I] * 4 + [_P],
     "primal_update_sym": [_P] * 5 + [_I, _I, _P],
+    "ns_gemm": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _D, _D, _P],
+    "fro_scale": [_P] * 4 + [_I, _P],
+    "sym": [_P, _P, _I, _P],
+    "sym_guard": [_P] * 7 + [_I, _P],
+    "cholqr": [_P, _P, _I, _I, _D, _P],
+    "ritz_accept": [_P] * 4 + [_I, _I, _D, _D, _I] + [_P] * 4,
 }
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+# entry points of mixed type pairs: (input, output) dtype suffixes
+_MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",)}
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = build.load()
     for name, argtypes in _ARGTYPES.items():
-        for sfx in _SUFFIX.values():
+        for sfx in (*_SUFFIX.values(), *_MIXED.get(name, ())):
             fn = getattr(lib, f"proxsdp_{name}_{sfx}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -66,13 +90,18 @@ def load() -> None:
     _library()
 
 
-def _launch(name: str, dtype: torch.dtype, device: torch.device, *args):
-    fn = getattr(_library(), f"proxsdp_{name}_{_SUFFIX[dtype]}")
+def _launch(name: str, dtype, device: torch.device, *args):
+    """Launch ``proxsdp_{name}_{suffix}``; ``dtype`` is a torch dtype or an
+    entry-point suffix such as "f64_f32"."""
+    sfx = dtype if isinstance(dtype, str) else _SUFFIX[dtype]
+    fn = getattr(_library(), f"proxsdp_{name}_{sfx}")
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
     launch_counts[name] += 1
+    entry = f"{name}_{sfx}"
+    entry_counts[entry] = entry_counts.get(entry, 0) + 1
 
 
 # reduce.cuh: pass-1 grid of a two-pass reduction over n elements
@@ -80,19 +109,24 @@ def _reduce_grid(n: int) -> int:
     return min(max(-(-n // 256), 1), 1024)
 
 
-def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
-    """Validate a wrapper's tensor arguments; True for the CPU path."""
+def _on_cpu(name: str, *tensors: torch.Tensor, mixed: bool = False,
+            strided: bool = False) -> bool:
+    """Validate a wrapper's tensor arguments; True for the CPU path.
+    ``mixed`` allows f32 and f64 tensors in one call; ``strided`` skips the
+    contiguity check (the caller checked the strides its kernel takes)."""
     dev = tensors[0].device
     dtype = None
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
+        if not strided and not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous tensor")
         if t.is_floating_point():
+            if t.dtype not in _SUFFIX:
+                raise TypeError(f"{name}: dtype {t.dtype} not supported")
             if dtype is None:
                 dtype = t.dtype
-            elif t.dtype != dtype:
+            elif t.dtype != dtype and not mixed:
                 raise TypeError(f"{name}: mixed dtypes {t.dtype}, {dtype}")
     if dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {dtype} not supported")
@@ -206,6 +240,25 @@ def _max_abs(v):
     return torch.amax(torch.abs(v)) if v.numel() else v.new_zeros(())
 
 
+DOT_CHUNK = 128  # the JAX f32 program's dot chunk (solver.py:526-537)
+
+
+def _chunk_dot(a, b):
+    """f32 dot in two stages: products summed in 128-element chunks in the
+    order of residuals.cu's warps (lane l adds elements l, l+32, l+64,
+    l+96, then a shuffle tree folds the lanes 16, 8, 4, 2, 1 apart), then
+    the chunk sums added in f64."""
+    prod = a * b
+    pad = (-prod.numel()) % DOT_CHUNK
+    if pad:
+        prod = torch.cat([prod, prod.new_zeros(pad)])
+    s = prod.view(-1, 4, 32)
+    s = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
+    for half in (16, 8, 4, 2, 1):
+        s = s[:, :half] + s[:, half : 2 * half]
+    return torch.sum(s[:, 0].double())
+
+
 def residuals_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
                     b, h, c, p: int, m: int, side: int):
     w = _offdiag_weight(x.shape[0], side, x.dtype, x.device)
@@ -215,23 +268,26 @@ def residuals_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
     py = y - sigma * Mx
     ineq = (torch.amax(Mx[p:] - h) if m
             else torch.tensor(-math.inf, dtype=x.dtype, device=x.device))
-    return torch.stack([
+    maxima = torch.stack([
         _max_abs((px - px_old) * w),
         _max_abs(px_old * w),
         _max_abs(py - py_old),
         _max_abs(py_old),
         _max_abs(Mx[:p] - b),
         ineq,
-        torch.dot(c, x),
-        torch.dot(b, y[:p]),
-        torch.dot(h, y[p:]),
-    ])
+    ]).double()
+    if x.dtype == torch.float64:
+        dots = [torch.dot(c, x), torch.dot(b, y[:p]), torch.dot(h, y[p:])]
+    else:
+        dots = [_chunk_dot(c, x), _chunk_dot(b, y[:p]), _chunk_dot(h, y[p:])]
+    return torch.cat([maxima, torch.stack(dots)])
 
 
 def residuals(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
               b, h, c, p: int, m: int, side: int):
-    """The nine reductions of residuals.cu (see its header) as a (9,) tensor;
-    the square PSD block of ``side`` sits at offset 0 of x."""
+    """The nine reductions of residuals.cu (see its header) as a (9,) f64
+    tensor; the square PSD block of ``side`` sits at offset 0 of x.  For
+    f32 inputs the maxima are f32 values and the dots two-stage sums."""
     name = "residuals"
     n = x.shape[0]
     for t, what in ((x, "x"), (x_old, "x_old"), (Mty, "Mty"),
@@ -248,9 +304,14 @@ def residuals(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
     args = (x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma, b, h, c)
     if _on_cpu(name, *args):
         return residuals_plain(*args, p, m, side)
-    partials = torch.empty(_reduce_grid(max(n, p + m)) * RESIDUAL_SLOTS,
-                           dtype=x.dtype, device=x.device)
-    out = torch.empty(RESIDUAL_SLOTS, dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float64:
+        grid = _reduce_grid(max(n, p + m))
+    else:  # residuals.cu:f32_grid, one warp per 128-element chunk
+        chunks = sum(-(-k // DOT_CHUNK) for k in (n, p, m))
+        grid = _reduce_grid(32 * chunks)
+    partials = torch.empty(grid * RESIDUAL_SLOTS, dtype=torch.float64,
+                           device=x.device)
+    out = torch.empty(RESIDUAL_SLOTS, dtype=torch.float64, device=x.device)
     _launch(name, x.dtype, x.device, *map(_ptr, args + (partials, out)),
             n, p, m, side)
     return out
@@ -283,3 +344,231 @@ def primal_update_sym(x, Mty, c, tau, side: int):
     _launch(name, x.dtype, x.device, _ptr(x), _ptr(Mty), _ptr(c), _ptr(tau),
             _ptr(out), n, side)
     return out
+
+
+# ---------------------------------------------- K5 GEMM with axpby epilogue
+
+
+def _check_matrix(name: str, t: torch.Tensor, what: str) -> None:
+    """2-d with unit column stride (a column slice of a row-major matrix
+    is fine: the kernel takes the row stride)."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"{name}: {what} must be 2-d with contiguous rows")
+
+
+def _row_stride(t: torch.Tensor) -> int:
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def ns_gemm_plain(A, B, C=None, alpha: float = 0.0, beta: float = 1.0):
+    prod = beta * torch.matmul(A, B)
+    return prod if C is None else alpha * C + prod
+
+
+def ns_gemm(A, B, C=None, alpha: float = 0.0, beta: float = 1.0):
+    """out = alpha * C + beta * (A @ B) (C may be None: beta * (A @ B)), a
+    new contiguous (M, N) tensor; each product alpha * C, beta * (A @ B)
+    is rounded, then the two are added."""
+    name = "ns_gemm"
+    mats = (A, B) if C is None else (A, B, C)
+    for t, what in zip(mats, ("A", "B", "C")):
+        _check_matrix(name, t, what)
+    M, K = A.shape
+    if B.shape[0] != K or (C is not None and C.shape != (M, B.shape[1])):
+        raise ValueError(f"{name}: shapes {tuple(A.shape)} @ {tuple(B.shape)}"
+                         f" + {None if C is None else tuple(C.shape)}")
+    if _on_cpu(name, *mats, strided=True):
+        return ns_gemm_plain(A, B, C, alpha, beta)
+    N = B.shape[1]
+    out = torch.empty((M, N), dtype=A.dtype, device=A.device)
+    if out.numel() == 0:  # nothing to compute (a zero-sized grid)
+        return out
+    _launch(name, A.dtype, A.device, _ptr(A), _row_stride(A), _ptr(B),
+            _row_stride(B), None if C is None else _ptr(C),
+            0 if C is None else _row_stride(C), _ptr(out), M, N, K,
+            float(alpha), float(beta))
+    return out
+
+
+# ------------------------------------ K6 Frobenius scaling, sym and guard
+
+
+def fro_scale_plain(X, dtype):
+    Xc = X.to(dtype)
+    s = torch.sqrt(torch.sum(Xc * Xc)) + 1e-30
+    return Xc / s, Xc
+
+
+def fro_scale(X, dtype=None):
+    """(Y, Xc): Xc = X cast to the compute type ``dtype`` (default X's) and
+    Y = Xc / (||Xc||_F + 1e-30) (polar_psd's scaling)."""
+    name = "fro_scale"
+    dtype = dtype or X.dtype
+    if _on_cpu(name, X):
+        return fro_scale_plain(X, dtype)
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name}: compute dtype {dtype} not supported")
+    if X.dtype != dtype and (X.dtype, dtype) != (torch.float64, torch.float32):
+        raise TypeError(f"{name}: {X.dtype} -> {dtype} not supported")
+    n = X.numel()
+    Y = torch.empty(X.shape, dtype=dtype, device=X.device)
+    Xc = X if X.dtype == dtype else torch.empty_like(Y)
+    partials = torch.empty(_reduce_grid(n), dtype=dtype, device=X.device)
+    sfx = _SUFFIX[dtype] if X.dtype == dtype else "f64_f32"
+    _launch(name, sfx, X.device, _ptr(X), _ptr(partials), _ptr(Y),
+            None if Xc is X else _ptr(Xc), n)
+    return Y, Xc
+
+
+def sym_plain(Y):
+    return 0.5 * (Y + Y.T)
+
+
+def _check_square(name: str, t: torch.Tensor, side: int, what: str) -> None:
+    if t.shape != (side, side):
+        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                         f"want ({side}, {side})")
+
+
+def sym(Y):
+    """S = 0.5 * (Y + Y^T) for a square Y."""
+    name = "sym"
+    side = Y.shape[0]
+    _check_square(name, Y, side, "Y")
+    if _on_cpu(name, Y):
+        return sym_plain(Y)
+    S = torch.empty_like(Y)
+    _launch(name, Y.dtype, Y.device, _ptr(Y), _ptr(S), side)
+    return S
+
+
+def sym_guard_plain(P, S, X):
+    side = X.shape[0]
+    Xp = (0.5 * (P + P.T)).to(X.dtype)
+    bad = ~torch.all(torch.isfinite(Xp))
+    rank = torch.clamp(torch.round(0.5 * (side + torch.trace(S))), 0, side)
+    return (torch.where(bad, X, Xp),
+            torch.where(bad, side, rank).to(torch.int32), bad)
+
+
+def sym_guard(P, S, X):
+    """(Xp, rank, bad) of a polar projection: Xp = 0.5 * (P + P^T) in X's
+    dtype; bad (0-d bool) when a value of Xp is not finite, and then Xp = X
+    and rank = side; else rank = clip(round((side + tr S) / 2), 0, side)."""
+    name = "sym_guard"
+    side = X.shape[0]
+    for t, what in ((P, "P"), (S, "S"), (X, "X")):
+        _check_square(name, t, side, what)
+    if S.dtype != P.dtype:
+        raise TypeError(f"{name}: P and S must share the compute dtype")
+    if _on_cpu(name, P, S, X, mixed=True):
+        return sym_guard_plain(P, S, X)
+    pair = (P.dtype, X.dtype)
+    if P.dtype == X.dtype:
+        sfx = _SUFFIX[P.dtype]
+    elif pair == (torch.float32, torch.float64):
+        sfx = "f32_f64"
+    else:
+        raise TypeError(f"{name}: P {P.dtype} with X {X.dtype} not supported")
+    nt = -(-side // 32)
+    flags = torch.empty(nt * nt, dtype=torch.int32, device=X.device)
+    Xp = torch.empty_like(X)
+    rank = torch.empty((), dtype=torch.int32, device=X.device)
+    bad = torch.empty((), dtype=torch.bool, device=X.device)
+    _launch(name, sfx, X.device, _ptr(P), _ptr(S), _ptr(X), _ptr(Xp),
+            _ptr(flags), _ptr(rank), _ptr(bad), side)
+    return Xp, rank, bad
+
+
+# -------------------------------------------------------- K7 CholeskyQR
+
+# the jitter of _cholqr2, keyed on the compute dtype (cones.py:249-256)
+CHOLQR_EPS = {torch.float32: 1e-6, torch.float64: 1e-12}
+# shared memory for G (k * k words) in cholqr.cu's single block
+CHOLQR_SMEM_BYTES = 200 * 1024
+
+
+def cholqr_plain(Y, eps: float):
+    k = Y.shape[1]
+    G = Y.T @ Y
+    jit = eps * (torch.trace(G) / k + 1.0)
+    L, info = torch.linalg.cholesky_ex(
+        G + jit * torch.eye(k, dtype=Y.dtype, device=Y.device))
+    # torch.linalg.cholesky raises on a non-positive pivot; the JAX
+    # factor is NaN there, which the callers' finite guards rely on
+    L = torch.where(info != 0, torch.nan, L)
+    return torch.linalg.solve_triangular(L, Y.T, upper=False).T.contiguous()
+
+
+def cholqr(Y, eps: float | None = None):
+    """One CholeskyQR pass: Q = Y L^{-T} with L = chol(Y^T Y + eps *
+    (tr(Y^T Y) / k + 1) I); NaN everywhere if a pivot is not positive."""
+    name = "cholqr"
+    if Y.dim() != 2:
+        raise ValueError(f"{name}: Y must be 2-d")
+    eps = CHOLQR_EPS[Y.dtype] if eps is None else eps
+    if _on_cpu(name, Y):
+        return cholqr_plain(Y, eps)
+    side, k = Y.shape
+    if k * k * Y.element_size() > CHOLQR_SMEM_BYTES:
+        raise ValueError(f"{name}: k = {k} does not fit one block's shared "
+                         f"memory ({CHOLQR_SMEM_BYTES} bytes for G)")
+    Q = torch.empty_like(Y)
+    _launch(name, Y.dtype, Y.device, _ptr(Y), _ptr(Q), side, k, float(eps))
+    return Q
+
+
+# ------------------------------------------- K8 Ritz acceptance test
+
+RITZ_MAX_K = 256
+
+
+def ritz_accept_plain(W, XW, theta, accept_tol, tol: float, tol_psd: float,
+                      force_full: bool):
+    if theta is None:
+        theta = torch.sum(W * XW, dim=0) / torch.sum(W * W, dim=0)
+    rn = torch.sqrt(torch.sum((XW - W * theta[None, :]) ** 2, dim=0))
+    pos = theta > 0.0
+    scale = torch.clamp_min(torch.amax(torch.abs(theta)), 1.0)
+    thresh = torch.tensor(tol, dtype=W.dtype, device=W.device)
+    if accept_tol is not None:
+        thresh = torch.maximum(thresh, accept_tol)
+    ok = torch.all(torch.where(pos, rn <= thresh * scale, True))
+    tmin = torch.amin(theta)
+    stats = torch.stack([torch.amax(torch.where(pos, rn, 0.0)) / scale, tmin,
+                         torch.sum(pos).to(W.dtype)])
+    conv = ok & (tmin <= tol_psd) & (not force_full)
+    flags = torch.stack([conv.to(torch.int32),
+                         torch.sum(theta > tol_psd).to(torch.int32)])
+    return torch.clamp_min(theta, 0.0), stats, flags
+
+
+def ritz_accept(W, XW, theta, accept_tol, tol: float, tol_psd: float,
+                force_full: bool):
+    """(lam, stats, flags) of a subspace step's acceptance test (see
+    ritz_accept.cu): lam = max(theta, 0), stats = PsdProjResult.sub_stats,
+    flags = int32 [conv_ok, current rank].  theta None: the Rayleigh
+    quotients of W's columns; accept_tol a 0-d tensor or None."""
+    name = "ritz_accept"
+    if W.dim() != 2 or XW.shape != W.shape:
+        raise ValueError(f"{name}: W and XW must be one (side, k) shape")
+    side, k = W.shape
+    extra = [t for t in (theta, accept_tol) if t is not None]
+    if theta is not None:
+        _check_vec(name, theta, k, "theta")
+    if accept_tol is not None:
+        _check_scalar(name, accept_tol, "accept_tol")
+    if _on_cpu(name, W, XW, *extra):
+        return ritz_accept_plain(W, XW, theta, accept_tol, tol, tol_psd,
+                                 force_full)
+    if k > RITZ_MAX_K:
+        raise ValueError(f"{name}: k = {k} > {RITZ_MAX_K}")
+    lam = torch.empty(k, dtype=W.dtype, device=W.device)
+    stats = torch.empty(3, dtype=W.dtype, device=W.device)
+    flags = torch.empty(2, dtype=torch.int32, device=W.device)
+    _launch(name, W.dtype, W.device, _ptr(W), _ptr(XW),
+            None if theta is None else _ptr(theta),
+            None if accept_tol is None else _ptr(accept_tol), side, k,
+            float(tol), float(tol_psd), int(bool(force_full)), _ptr(lam),
+            _ptr(stats), _ptr(flags))
+    return lam, stats, flags

@@ -6,6 +6,8 @@ built at first use into ``build/proxsdp_tpu_torch/`` at the root of the
 checkout, named by a hash of the sources and flags so a stale library is
 never loaded, and written under a temporary name then moved into place
 with ``os.replace`` so concurrent builders never see a half-written file.
+Each source compiles in its own nvcc process, all started together, and
+one more links the objects.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "proxsdp_tpu_torch"
 # (the kernels are bandwidth-bound; FMA buys them nothing).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 )
 
@@ -70,18 +72,35 @@ def load() -> ctypes.CDLL:
     BuildInfo.path = path
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{BuildInfo.log}"
-            )
-        os.replace(tmp, path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            srcs = sorted(CSRC.glob("*.cu"))
+            objs = [Path(tmpdir) / f"{src.stem}.o" for src in srcs]
+            procs = [
+                subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                  str(src)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(srcs, objs)
+            ]
+            logs, failed = [], []
+            for src, proc in zip(srcs, procs):
+                out, _ = proc.communicate()
+                logs.append(f"== {src.name}\n{out}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+            tmp = Path(tmpdir) / path.name
+            if not failed:
+                link = subprocess.run(
+                    [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                     "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True)
+                logs.append(link.stdout + link.stderr)
+                if link.returncode != 0:
+                    failed.append("link")
+            BuildInfo.seconds = time.perf_counter() - t0
+            BuildInfo.log = "\n".join(logs)
+            if failed:
+                raise RuntimeError(
+                    f"nvcc failed ({', '.join(failed)}):\n{BuildInfo.log}")
+            os.replace(tmp, path)
     return ctypes.CDLL(str(path))

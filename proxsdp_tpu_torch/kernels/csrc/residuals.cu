@@ -22,6 +22,17 @@
 // all nine accumulators in registers and writes per-block partials, then
 // the fixed-order single-block second pass of reduce.cuh (no atomics, so
 // the gap and feasibility bits repeat from run to run).
+//
+// f32 programs follow the JAX f32 program (solver.py:512-537) instead: the
+// maxima run on the f32 values (they carry no accumulation error), and
+// each dot is taken in two stages -- f32 products summed in chunks of 128
+// consecutive elements of the dot's own range, then the chunk sums added
+// in f64 (a plain f32 dot over 62,500 terms carries ~1e-4 relative noise,
+// the solver's own tolerance).  All nine outputs are f64.  One warp takes
+// one chunk: lane l sums its elements l, l+32, l+64, l+96 in that order,
+// then a shuffle tree with offsets 16, 8, 4, 2, 1 folds the lanes -- the
+// plain version (kernels/__init__.py:_chunk_dot) repeats exactly this
+// order, so kernel and plain version agree on every chunk sum bit for bit.
 #include "reduce.cuh"
 
 namespace {
@@ -86,6 +97,100 @@ __global__ void residuals_kernel(
   }
 }
 
+constexpr int kChunk = 128;  // the JAX f32 program's dot chunk
+
+// f32 elementwise terms, f64 outputs: see the header.  The work list is
+// the 128-element chunks of three ranges -- [0, n) for the primal slots,
+// [0, p) and [p, p + m) for the dual ones -- one warp per chunk.
+__global__ void residuals_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ x_old,
+    const float* __restrict__ Mty, const float* __restrict__ Mty_old,
+    const float* __restrict__ tau_ptr, const float* __restrict__ y,
+    const float* __restrict__ y_old, const float* __restrict__ Mx,
+    const float* __restrict__ Mx_old, const float* __restrict__ sigma_ptr,
+    const float* __restrict__ b, const float* __restrict__ h,
+    const float* __restrict__ c, double* __restrict__ partials, int64_t n,
+    int64_t p, int64_t m, int64_t side) {
+  const float tau = *tau_ptr;
+  const float sigma = *sigma_ptr;
+  const float sqrt2 = 1.4142135623730951f;
+  float mx[6] = {0.f, 0.f, 0.f, 0.f, 0.f, -INFINITY};
+  double dots[3] = {0.0, 0.0, 0.0};
+  const int lane = threadIdx.x & 31;
+  const int64_t nx = (n + kChunk - 1) / kChunk;
+  const int64_t nb = (p + kChunk - 1) / kChunk;
+  const int64_t nh = (m + kChunk - 1) / kChunk;
+  const int64_t sq_end = side * side;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t nwarps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  for (int64_t t = warp; t < nx + nb + nh; t += nwarps) {
+    float s = 0.f;
+    int slot;
+    if (t < nx) {
+      slot = 0;
+      for (int j = 0; j < 4; ++j) {
+        const int64_t i = t * kChunk + lane + 32 * j;
+        float prod = 0.f;
+        if (i < n) {
+          const float w = (i < sq_end && i / side != i % side) ? sqrt2 : 1.f;
+          const float px_old = x_old[i] - tau * Mty_old[i];
+          const float px = x[i] - tau * Mty[i];
+          mx[0] = nan_max(mx[0], fabsf((px - px_old) * w));
+          mx[1] = nan_max(mx[1], fabsf(px_old * w));
+          prod = c[i] * x[i];
+        }
+        s = j ? s + prod : prod;
+      }
+    } else {
+      const bool eq = t < nx + nb;
+      slot = eq ? 1 : 2;
+      const int64_t base = (eq ? t - nx : t - nx - nb) * kChunk;
+      const int64_t len = eq ? p : m;
+      for (int j = 0; j < 4; ++j) {
+        const int64_t r = base + lane + 32 * j;
+        float prod = 0.f;
+        if (r < len) {
+          const int64_t i = eq ? r : p + r;
+          const float py_old = y_old[i] - sigma * Mx_old[i];
+          const float py = y[i] - sigma * Mx[i];
+          mx[2] = nan_max(mx[2], fabsf(py - py_old));
+          mx[3] = nan_max(mx[3], fabsf(py_old));
+          if (eq) {
+            mx[4] = nan_max(mx[4], fabsf(Mx[i] - b[r]));
+            prod = b[r] * y[i];
+          } else {
+            mx[5] = nan_max(mx[5], Mx[i] - h[r]);
+            prod = h[r] * y[i];
+          }
+        }
+        s = j ? s + prod : prod;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) dots[slot] += static_cast<double>(s);
+  }
+  double acc[kSlots];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) acc[k] = static_cast<double>(mx[k]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[6 + k] = dots[k];
+  proxsdp::block_reduce<double, kSlots, kMaxMask>(acc);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k)
+      partials[static_cast<int64_t>(blockIdx.x) * kSlots + k] = acc[k];
+  }
+}
+
+// the f32 kernel's grid: one warp per chunk, capped like reduce_grid
+inline int f32_grid(int64_t n, int64_t p, int64_t m) {
+  const int64_t chunks = (n + kChunk - 1) / kChunk + (p + kChunk - 1) / kChunk +
+                         (m + kChunk - 1) / kChunk;
+  return proxsdp::reduce_grid(32 * chunks);
+}
+
 template <typename T>
 int launch(const void* x, const void* x_old, const void* Mty,
            const void* Mty_old, const void* tau, const void* y,
@@ -121,12 +226,26 @@ extern "C" int proxsdp_residuals_f64(
                         sigma, b, h, c, partials, out, n, p, m, side, stream);
 }
 
+// f32 inputs; partials (f32_grid(n, p, m) * 9 doubles) and out (9
+// doubles) are f64.
 extern "C" int proxsdp_residuals_f32(
     const void* x, const void* x_old, const void* Mty, const void* Mty_old,
     const void* tau, const void* y, const void* y_old, const void* Mx,
     const void* Mx_old, const void* sigma, const void* b, const void* h,
     const void* c, void* partials, void* out, int64_t n, int64_t p, int64_t m,
     int64_t side, void* stream) {
-  return launch<float>(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,
-                       sigma, b, h, c, partials, out, n, p, m, side, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = f32_grid(n, p, m);
+  residuals_f32_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(x_old),
+      static_cast<const float*>(Mty), static_cast<const float*>(Mty_old),
+      static_cast<const float*>(tau), static_cast<const float*>(y),
+      static_cast<const float*>(y_old), static_cast<const float*>(Mx),
+      static_cast<const float*>(Mx_old), static_cast<const float*>(sigma),
+      static_cast<const float*>(b), static_cast<const float*>(h),
+      static_cast<const float*>(c), static_cast<double*>(partials), n, p, m,
+      side);
+  proxsdp::finalize_kernel<double, kSlots, kMaxMask><<<1, kThreads, 0, s>>>(
+      static_cast<const double*>(partials), grid, static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@ Every field and default is identical to the JAX package's, so one
 ``Options`` value means the same thing in both packages (a test compares
 the two field by field).  The field comments of the JAX package explain
 each knob; here they only say which ones the port honours.  The port
-runs the non-hybrid f64 single-block path: ``solver.solve`` raises
-``NotImplementedError`` (naming the ROADMAP item) for a value outside it.
+runs one square-form PSD block under the default hybrid driver or a
+single f64/f32 program: ``solver.solve`` raises ``NotImplementedError``
+(naming the ROADMAP item) for a value outside it.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class Options:
-    # printing (reference src/options.jl:3-16); the port prints nothing
+    # printing (reference src/options.jl:3-16); extended_log2's
+    # dual-feasibility column is not computed by the port
     log_verbose: bool = False
     log_freq: int = 1000
     timer_verbose: bool = False
@@ -127,7 +129,8 @@ class Options:
     # True: Frobenius bound for ||M||; False: host power iteration
     approx_norm: bool = True
 
-    # precision: the port runs dtype="float64" with hybrid_precision=False
+    # precision: the hybrid f32 race -> f64 polish (default), or one
+    # program in dtype
     dtype: str = "float64"
     hybrid_precision: bool = True
     hybrid_switch_factor: float = 10.0
@@ -141,7 +144,8 @@ class Options:
     square_form: bool = True
     mixed_projection: bool = False
 
-    # persistent-subspace projection (ROADMAP B5 in the port)
+    # persistent-subspace projection; subspace_sign and
+    # subspace_accept_always are ROADMAP B5' and B13 in the port
     subspace_rank: int = 0
     subspace_tol: float = 1e-9
     subspace_reseed_freq: int = 256
@@ -153,7 +157,7 @@ class Options:
     polish_subspace: bool = True
     race_subspace: bool = True
     race_subspace_warmup: int = 100
-    projection: str = "auto"  # "auto" | "eigh" | "polar" (polar: B4)
+    projection: str = "auto"  # "auto" | "eigh" | "polar"
     polar_aggressive: int = 7
     polar_polish: int = 4
     polar_min_side: int = 100

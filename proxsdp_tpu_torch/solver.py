@@ -1,21 +1,25 @@
 """PDHG (Chambolle-Pock) solver core -- the port of ``proxsdp_tpu/solver.py``.
 
-The slice ported here is the non-hybrid f64 program on one square-form PSD
-block: per iteration
+One square-form PSD block, in f64 or f32; per iteration
 
-1. ``_primal_step``: kernel K4 (update + symmetrise), the dense-eigh
-   projection (``ops.cones``), then ``M x`` (kernel K1 for ELL);
+1. ``_primal_step``: kernel K4 (update + symmetrise), the PSD projection
+   (``ops.cones``: dense eigh, the polar projection on K5/K6, or the
+   subspace step on K7/K8 with a polar or dense fallback), then ``M x``
+   (kernel K1 for ELL);
 2. ``_linesearch``: the Malitsky-Pock trials, each kernel K2, K1 on M'y and
    the squared distance of K2's file; the host reads one accept flag per
    trial, at most ``max_linsearch_steps`` of them;
-3. ``_residuals_and_gap``: kernel K3 and the ring-buffer writes;
+3. ``_residuals_and_gap``: kernel K3's nine f64 reductions, the scalar
+   formulas in f64, a cast to the program's dtype at the ring writes;
 4. ``_control``: the branch-free scalar control with adaptive
    restart-to-average, plain torch on 0-d device tensors (no sync).
 
 The iteration is plain functions on a ``State`` dataclass of tensors.
-``solve`` is the reduced host driver (solver.py:1209-2357, non-hybrid
-path).  Anything outside the slice raises ``NotImplementedError`` naming
-its ROADMAP item; nothing falls back.
+``solve`` is the host driver (solver.py:1209-2357): the default
+``Options()`` runs the hybrid f32 race -> f64 polish with its subspace
+entries, watchdog and logging; ``hybrid_precision=False`` one program.
+Anything outside the port raises ``NotImplementedError`` naming its
+ROADMAP item; nothing falls back.
 """
 
 from __future__ import annotations
@@ -129,9 +133,10 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(State))
 
 def init_state(layout: ConeLayout, opts: Options, setup: SetupProblem) -> dict:
     """Initial solver state as a dict of NumPy arrays (solver.py:158-278,
-    cold start, no subspace basis); ``convert.state_from_numpy`` moves it
-    to a device."""
-    dtype = np.float64
+    cold start) in ``opts.dtype``, with an orthonormal (side, k) start
+    basis for a subspace program; ``convert.state_from_numpy`` moves it to
+    a device."""
+    dtype = np.float64 if opts.dtype == "float64" else np.float32
     n, pm = layout.n, layout.p + layout.m
     nb = max(len(layout.sdp_sides), 1)
     L = 2 * opts.convergence_window
@@ -159,9 +164,14 @@ def init_state(layout: ConeLayout, opts: Options, setup: SetupProblem) -> dict:
     rng = np.random.RandomState(opts.eigsolver_resid_seed)
     warm_vecs = []
     for side in layout.sdp_sides:
-        v = rng.randn(side)
-        v /= max(np.linalg.norm(v), 1e-12)
-        warm_vecs.append(v.astype(dtype))
+        k_sub = int(min(opts.subspace_rank, side))
+        if 0 < k_sub < side // 2:
+            Q, _ = np.linalg.qr(rng.randn(side, k_sub))
+            warm_vecs.append(Q.astype(dtype))
+        else:
+            v = rng.randn(side)
+            v /= max(np.linalg.norm(v), 1e-12)
+            warm_vecs.append(v.astype(dtype))
     if not layout.sdp_sides:
         warm_vecs.append(z(1))
 
@@ -248,23 +258,42 @@ def _max_abs_cyclic_diff(buf):
     return torch.amax(torch.abs(buf - torch.roll(buf, 1)))
 
 
-def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
-    """x <- proj_K(x - tau*(M'y + c)); Mx <- M x (pdhg.jl:611-637)."""
+def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
+                 k: int):
+    """x <- proj_K(x - tau*(M'y + c)); Mx <- M x (pdhg.jl:611-637).
+
+    ``k`` is the iteration count before the step (the host knows it): the
+    subspace program's forced reseed pulse is a host flag."""
     side = layout.sdp_sides[0]
     u = kernels.primal_update_sym(s.x, s.Mty, o.c, s.primal_step, side)
     s2 = side * side
-    res = psd_projection_block(u[:s2].view(side, side), s.warm[0],
-                               tol_psd=opts.tol_psd)
+    # relative-inexactness budget of the subspace test: the latest combined
+    # PPA residual, clamped (solver.py:315-325); 0 before the first one
+    accept_tol = None
+    force_full = False
+    if opts.subspace_rank > 0:
+        if opts.subspace_rel_accept > 0:
+            comb_prev = torch.abs(s.buf_comb[(k - 1) % s.buf_comb.shape[0]])
+            accept_tol = torch.clamp_max(opts.subspace_rel_accept * comb_prev,
+                                         opts.subspace_accept_cap)
+        freq = opts.subspace_reseed_freq
+        force_full = freq > 0 and k % freq == freq - 1
+    if 0 < opts.full_eig_freq and opts.full_eig_len > 0:
+        force_full = force_full or k % opts.full_eig_freq < opts.full_eig_len
+    res = psd_projection_block(u[:s2].view(side, side), s.warm[0], opts=opts,
+                               accept_tol=accept_tol, force_full=force_full)
     x = res.block.reshape(-1)
     if s2 < u.shape[0]:
         x = torch.cat([x, u[s2:]])
     return s.replace(
         x=x,
         Mx=o.M.matvec(x),
-        min_eig=res.min_eig.reshape(1),
+        min_eig=res.min_eig.reshape(1).to(s.min_eig.dtype),
         current_rank=res.current_rank.reshape(1),
         warm=(res.warm,),
-        proj_fallbacks=s.proj_fallbacks + int(res.used_full),
+        proj_fallbacks=s.proj_fallbacks + 1 if res.used_full else s.proj_fallbacks,
+        sub_stats=res.sub_stats,
+        sub_worst=torch.maximum(s.sub_worst, res.sub_stats[0]),
     )
 
 
@@ -313,8 +342,10 @@ def _dual_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
 
 
 def _residuals_and_gap(s: State, o: Operands, layout: ConeLayout, opts: Options):
-    """compute_residual! + compute_gap! (residuals.jl:2-71): K3's nine
-    reductions, the scalar formulas of solver.py:563-621, ring writes."""
+    """compute_residual! + compute_gap! (residuals.jl:2-71): K3's nine f64
+    reductions, the scalar formulas of solver.py:563-612 in f64, and the
+    ring writes in the program's dtype (an f32 program casts there, as
+    the JAX f32 program does)."""
     p, m = layout.p, layout.m
     L = s.buf_gap.shape[0]
     idx = torch.remainder(s.iter, L)  # (k - 1) % L with k = iter + 1
@@ -323,45 +354,49 @@ def _residuals_and_gap(s: State, o: Operands, layout: ConeLayout, opts: Options)
         s.Mx, s.Mx_old, s.dual_step, o.b, o.h, o.c, p, m,
         layout.sdp_sides[0],
     )
+    norm_b, norm_h, norm_c = o.norm_b.double(), o.norm_h.double(), o.norm_c.double()
     # primal PPA residual (sqrt of the tri-equivalent coordinate count,
     # residuals.jl:46-55)
     pres = (
         math.sqrt(float(layout.n_tri)) * r[0]
-        / torch.clamp_min(torch.maximum(r[1], torch.maximum(o.norm_b, o.norm_h)), 1.0)
+        / torch.clamp_min(torch.maximum(r[1], torch.maximum(norm_b, norm_h)), 1.0)
     )
     dres = (
         math.sqrt(float(p + m)) * r[2]
-        / torch.clamp_min(torch.maximum(r[3], o.norm_c), 1.0)
+        / torch.clamp_min(torch.maximum(r[3], norm_c), 1.0)
     )
     comb = torch.maximum(pres, dres)
-    zero = torch.zeros((), dtype=s.x.dtype, device=s.x.device)
-    equa = r[4] / (1.0 + o.norm_b) if p else s.equa_feas
-    ineq = r[5] / (1.0 + o.norm_h) if m else s.ineq_feas
+    zero = torch.zeros((), dtype=torch.float64, device=r.device)
+    equa = r[4] / (1.0 + norm_b) if p else s.equa_feas.double()
+    ineq = r[5] / (1.0 + norm_h) if m else s.ineq_feas.double()
     feas = torch.maximum(equa if p else zero, ineq if m else zero)
     dual_obj = zero
     if p:
         dual_obj = dual_obj - r[7]
     if m:
         dual_obj = dual_obj - r[8]
-    prim_obj = r[6] * o.obj_scale
-    dual_obj = dual_obj * o.obj_scale
+    obj_scale = o.obj_scale.double()
+    prim_obj = r[6] * obj_scale
+    dual_obj = dual_obj * obj_scale
     gap = torch.abs(prim_obj - dual_obj) / (
         1.0 + torch.abs(prim_obj) + torch.abs(dual_obj)
     )
+    v = torch.stack([pres, dres, comb, feas, gap, prim_obj, dual_obj, equa,
+                     ineq]).to(s.x.dtype)
     return s.replace(
         x_old=s.x,
         y_old=s.y,
         Mty_old=s.Mty,
         Mx_old=s.Mx,
-        buf_pres=_set(s.buf_pres, idx, pres),
-        buf_dres=_set(s.buf_dres, idx, dres),
-        buf_comb=_set(s.buf_comb, idx, comb),
-        buf_feas=_set(s.buf_feas, idx, feas),
-        buf_gap=_set(s.buf_gap, idx, gap),
-        buf_prim_obj=_set(s.buf_prim_obj, idx, prim_obj),
-        buf_dual_obj=_set(s.buf_dual_obj, idx, dual_obj),
-        equa_feas=equa,
-        ineq_feas=ineq,
+        buf_pres=_set(s.buf_pres, idx, v[0]),
+        buf_dres=_set(s.buf_dres, idx, v[1]),
+        buf_comb=_set(s.buf_comb, idx, v[2]),
+        buf_feas=_set(s.buf_feas, idx, v[3]),
+        buf_gap=_set(s.buf_gap, idx, v[4]),
+        buf_prim_obj=_set(s.buf_prim_obj, idx, v[5]),
+        buf_dual_obj=_set(s.buf_dual_obj, idx, v[6]),
+        equa_feas=v[7] if p else s.equa_feas,
+        ineq_feas=v[8] if m else s.ineq_feas,
     )
 
 
@@ -587,8 +622,10 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
     _check_slice_layout(layout, opts)
     sides_arr = torch.tensor(layout.sdp_sides, dtype=torch.int32, device=device)
 
-    def iteration(s: State, o: Operands) -> State:
-        s = _primal_step(s, o, layout, opts)
+    def iteration(s: State, o: Operands, k: int | None = None) -> State:
+        # k: the iteration count s.iter, when the caller knows it (else
+        # read from the device)
+        s = _primal_step(s, o, layout, opts, int(s.iter) if k is None else k)
         if opts.line_search_flag:
             s = _linesearch(s, o, layout, opts)
         else:
@@ -599,7 +636,7 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
     def run_chunk(s: State, o: Operands, chunk_end: int) -> State:
         k = int(s.iter)
         while k < chunk_end:
-            s = iteration(s, o)
+            s = iteration(s, o, k)
             k += 1
             if int(s.status) != 0:
                 break
@@ -640,18 +677,11 @@ def _unsupported(what: str, item: str):
 
 
 def _check_slice_options(opts: Options) -> None:
-    if opts.dtype != "float64":
-        _unsupported("dtype='float32'", "A4h (hybrid driver, f32 K1-K4)")
-    if opts.hybrid_precision:
-        _unsupported(
-            "hybrid_precision=True (the default Options(); pass "
-            "hybrid_precision=False)",
-            "A4h (hybrid driver, kernels B4/B5)",
-        )
-    if opts.subspace_rank > 0:
-        _unsupported("subspace_rank > 0", "B5")
-    if opts.projection == "polar":
-        _unsupported("projection='polar'", "B4")
+    if opts.subspace_sign:
+        _unsupported("subspace_sign=True (the sign-based subspace body)",
+                     "B5 (_subspace_body_sign)")
+    if opts.subspace_accept_always:
+        _unsupported("subspace_accept_always=True (the batch mode)", "B13")
     if opts.tp_shards:
         _unsupported("tp_shards", "A12")
     if opts.checkpoint_path:
@@ -662,8 +692,6 @@ def _check_slice_options(opts: Options) -> None:
         _unsupported("block_equilibration=True", "A6")
     if opts.linop == "coo":
         _unsupported("linop='coo'", "B2'")
-    if opts.log_verbose or opts.timer_verbose or opts.timer_file:
-        _unsupported("progress logging and timer reports", "A4 (logging)")
     if not opts.square_form:
         _unsupported("square_form=False", "A7 / B12")
 
@@ -697,6 +725,80 @@ def _row_norm_spread(setup) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Host-side subspace sizing and the precision hand-over (solver.py:1031-1125)
+# ---------------------------------------------------------------------------
+
+
+def _sub_bucket(k: int) -> int:
+    """Round a subspace width up to a bounded set of buckets; 0 = rank too
+    large, use the dense eigh (solver.py:1031-1044)."""
+    for b in (16, 24, 32, 48, 64, 96, 128, 192, 256):
+        if k <= b:
+            return b
+    return 0
+
+
+def _estimate_subspace(state: State, layout: ConeLayout, opts: Options, c_host):
+    """Host eigh of the PRE-projection matrix x - tau*(M'y + c): its
+    relative-threshold rank and exact basis (solver.py:1047-1096).
+
+    Returns (k_bucket, r_obs, specs) with specs = [(side, V, r_blk)];
+    k_bucket == 0 means the observed rank is too large for subspace mode."""
+    x_host = state.x.cpu().numpy().astype(np.float64) - float(state.primal_step) * (
+        state.Mty.cpu().numpy().astype(np.float64) + np.asarray(c_host, np.float64)
+    )
+    specs = []
+    for off, side in zip(layout.sdp_offsets, layout.sdp_sides):
+        Xm = x_host[off : off + side * side].reshape(side, side)
+        Xm = 0.5 * (Xm + Xm.T)
+        w, V = np.linalg.eigh(Xm)
+        lam_max = max(float(w[-1]), 0.0)
+        r_blk = int(np.sum(w > max(opts.tol_psd, 1e-4 * max(lam_max, 1e-12))))
+        specs.append((side, V, r_blk))
+    r_obs = max(r for _, _, r in specs)
+    k = _sub_bucket(r_obs + opts.polish_subspace_guard)
+    if not (k and any(k < side // 2 for side in layout.sdp_sides)):
+        return 0, r_obs, specs
+    return k, r_obs, specs
+
+
+def _seed_subspace_warm(state: State, specs, k: int, dtype) -> State:
+    """Warm bases := the exact top-k eigenvectors from _estimate_subspace
+    for the blocks that run in subspace mode (solver.py:1099-1110)."""
+    warm = []
+    for bi, (side, V, _r) in enumerate(specs):
+        k_sub = int(min(k, side))
+        if 0 < k_sub < side // 2:
+            Vk = V[:, -k_sub:][:, ::-1].copy()
+            warm.append(torch.tensor(Vk, dtype=dtype, device=state.x.device))
+        else:
+            warm.append(state.warm[bi].to(dtype))
+    return state.replace(warm=tuple(warm))
+
+
+def _collapse_warm(state: State) -> State:
+    """A (side, k) basis becomes its dominant column (the vector warm start
+    of a program without the subspace step)."""
+    return state.replace(warm=tuple(w[:, 0].contiguous() if w.dim() == 2 else w
+                                    for w in state.warm))
+
+
+def _cast_state(s: State, dtype) -> State:
+    """Float fields to ``dtype`` (the hybrid hand-over) with the status
+    cleared, so the target program re-judges convergence
+    (solver.py:1113-1125)."""
+    kw = {}
+    for name in STATE_FIELDS:
+        v = getattr(s, name)
+        if name == "warm":
+            kw[name] = tuple(w.to(dtype) for w in v)
+        else:
+            kw[name] = v.to(dtype) if v.is_floating_point() else v
+    kw["status"] = torch.zeros_like(s.status)
+    return State(**kw)
+
+
+# ---------------------------------------------------------------------------
 # Host driver
 # ---------------------------------------------------------------------------
 
@@ -713,6 +815,10 @@ class _Budget:
         self.time_limit = opts.time_limit
 
 
+# The port's chunk: a fixed number of iterations between host checks.  The
+# JAX driver sizes chunks from measured rates (solver.py:1454-1514,
+# 1650-1670), so its hybrid switch points move with the clock; this one
+# does not (ROADMAP C9).
 DEFAULT_CHUNK = 256
 
 _SNAP_FIELDS = (
@@ -720,20 +826,38 @@ _SNAP_FIELDS = (
     "buf_dual_obj", "buf_feas", "buf_pres", "buf_dres",
 )
 
+_SCALARS = ("iter", "status", "gap", "feas", "prim_obj", "dual_obj", "pres",
+            "dres", "comb", "sum_target_rank", "proj_fallbacks",
+            "sub_rel_resid", "sub_min_theta", "sub_npos")
+_INT_SCALARS = {"iter", "status", "sum_target_rank", "proj_fallbacks",
+                "sub_npos"}
 
-def solve(problem, options: Options | None = None, *, device, **kwargs) -> Result:
+
+def solve(problem, options: Options | None = None, *, device="cuda",
+          **kwargs) -> Result:
     """Solve a ConicProblem (or a preprocessed SetupProblem) on ``device``.
 
-    A reduced driver following solver.py:1209-2357 on the non-hybrid f64
-    path: preprocessing, the chunk loop with time and iteration limits,
-    best-iterate tracking, the polish watchdog's guarded step restart,
-    limit statuses and solution recovery.  ``device`` has no default.
+    The host driver of solver.py:1209-2357.  Under the default
+    ``Options()`` (f64 with ``hybrid_precision``) an f32 race runs first --
+    the polar projection, then from ``race_subspace_warmup`` on the f32
+    subspace step with a polar reseed -- and hands over to an f64 polish on
+    the mixed-precision subspace step, which alone may declare OPTIMAL;
+    ``hybrid_precision=False`` runs one program.  Also: the iteration and
+    time limits, best-iterate tracking, the polish watchdog (guarded step
+    restart, subspace re-estimate), limit statuses, logging, the timer
+    report and solution recovery.  ``device`` defaults to the CUDA card;
+    without one it raises (pass ``device="cpu"`` for the plain PyTorch
+    path).
     """
     opts = options or Options()
     if kwargs:
         opts = opts.replace(**kwargs)
     _check_slice_options(opts)
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "solve: no CUDA card is available (torch.cuda.is_available() is "
+            "false); pass device='cpu' for the plain PyTorch path")
 
     t0 = time.time()
     setup = (
@@ -742,6 +866,8 @@ def solve(problem, options: Options | None = None, *, device, **kwargs) -> Resul
         if isinstance(problem, ConicProblem)
         else problem
     )
+    if opts.log_verbose:
+        _print_header(setup.layout, opts, device)
     if opts.block_equilibration == "auto":
         # the probe race (solver.py:1249-1257) or the static gate (1267-1268)
         spread = _row_norm_spread(setup)
@@ -755,30 +881,71 @@ def solve(problem, options: Options | None = None, *, device, **kwargs) -> Resul
     setup_h = setup
     setup = to_square_form(setup)
     layout = setup.layout
-    run_chunk, _, fetch = make_chunk_runner(layout, opts, device=device)
 
-    dtype = torch.float64
-    M = build_linop(setup.A, setup.G, dtype, device=device,
-                    force=None if opts.linop == "auto" else opts.linop)
-    operands = convert.operands_from_numpy(
-        M=M, b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
-        norm_h=setup.norm_h, norm_c=setup.norm_c,
-        obj_scale=setup.obj_scale * setup.rhs_scale, device=device,
-    )
-    state = convert.state_from_numpy(init_state(layout, opts, setup), device)
-    tau0 = float(state.primal_step)
+    def make_operands(dt):
+        M = build_linop(setup.A, setup.G, dt, device=device,
+                        force=None if opts.linop == "auto" else opts.linop)
+        return convert.operands_from_numpy(
+            M=M, b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
+            norm_h=setup.norm_h, norm_c=setup.norm_c,
+            obj_scale=setup.obj_scale * setup.rhs_scale, device=device,
+            dtype=dt,
+        )
+
+    def runner(po: Options):
+        run, _, fetch_ = make_chunk_runner(layout, po, device=device)
+        return run, fetch_
+
+    dtype = torch.float64 if opts.dtype == "float64" else torch.float32
+    operands = make_operands(dtype)
+    run_chunk, fetch = runner(opts)
+    # race and polish on the f32 and f64 programs: only the f64 program
+    # ever declares OPTIMAL
+    hybrid = opts.dtype == "float64" and opts.hybrid_precision
+    if hybrid:
+        opts32 = opts.replace(dtype="float32")
+        if opts.projection == "auto":
+            # race: the matmul-only polar projection, and polar reseeds as
+            # the subspace step's fallback
+            opts32 = opts32.replace(projection="polar",
+                                    subspace_fallback="polar")
+        operands32 = make_operands(torch.float32)
+        run_chunk32, fetch32 = runner(opts32)
+        state = convert.state_from_numpy(init_state(layout, opts32, setup),
+                                         device)
+        phase32 = True
+    else:
+        state = convert.state_from_numpy(init_state(layout, opts, setup), device)
+        phase32 = False
+
+    # race subspace entry: retried while the observed rank is too large
+    sub32 = {"entered": False, "tries": 0, "retry_at": opts.race_subspace_warmup}
+    # polish watchdog: on a gap stall restart the steps and re-estimate the
+    # subspace rank (escalate the bucket or drop to the dense program);
+    # "guard" holds the pre-restart state for the rollback
+    polish = {"k_sub": 0, "best": float("inf"), "since": None,
+              "window_mult": 1, "guard": None}
+    # above polar_fallback_min_side the f64 subspace programs reseed with
+    # the f32-compute polar projection instead of a dense f64 eigh
+    big_side = max(layout.sdp_sides) > min(opts.full_eig_max_side,
+                                           opts.polar_fallback_min_side)
+    polish_fb = {"subspace_fallback": "polar"} if big_side else {}
 
     budget = _Budget(opts, True)
     chunk = opts.chunk_iters or DEFAULT_CHUNK
+    log_next = opts.log_freq
     stall_window = max(3 * opts.convergence_window, 1500)
-    big_side = max(layout.sdp_sides) > min(opts.full_eig_max_side,
-                                           opts.polar_fallback_min_side)
+    hybrid_best = {"value": float("inf"), "since": 0}
     # best iterate by max(gap, feas), snapshot at most every 2 s
     best = {"score": float("inf"), "snap": None, "t": t0}
-    # watchdog of the f64 program (solver.py:1946-1999): on a gap stall
-    # restart the step machinery; roll back if that blows the metric up
-    polish = {"best": float("inf"), "since": None, "window_mult": 1,
-              "guard": None}
+    tau0 = float(state.primal_step)
+    timers = {"setup": time.time() - t0, "f32 loop": 0.0, "f64 loop": 0.0,
+              "host sync": 0.0, "snapshot": 0.0, "finalize": 0.0}
+    chunk_counts = {"f32": 0, "f64": 0}
+    # projection fallbacks of the race are polar reseeds, not dense eighs:
+    # the counter at the hand-over splits the report
+    fb_ctx = {"f32": 0,
+              "f32_is_polar": hybrid and opts32.subspace_fallback == "polar"}
     final_status = None
     status_string = None
 
@@ -787,11 +954,21 @@ def solve(problem, options: Options | None = None, *, device, **kwargs) -> Resul
         step_n = 1 if (time.time() - t0) >= budget.time_limit else chunk
         target = min(k0 + step_n, budget.max_iter)
         if not (target <= k0 and k0 > 0):
-            state = run_chunk(state, operands, max(target, k0 + 1))
-        v = fetch(state)
-        sc = {"iter": int(v[0]), "status": int(v[1]), "gap": float(v[2]),
-              "feas": float(v[3]), "prim_obj": float(v[4]),
-              "dual_obj": float(v[5])}
+            target = max(target, k0 + 1)
+            t_chunk = time.time()
+            if phase32:
+                state = run_chunk32(state, operands32, target)
+            else:
+                state = run_chunk(state, operands, target)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            timers["f32 loop" if phase32 else "f64 loop"] += time.time() - t_chunk
+            chunk_counts["f32" if phase32 else "f64"] += 1
+        t_sync = time.time()
+        v = (fetch32 if phase32 else fetch)(state)
+        sc = {name: int(x) if name in _INT_SCALARS else float(x)
+              for name, x in zip(_SCALARS, v)}
+        timers["host sync"] += time.time() - t_sync
         k, st = sc["iter"], sc["status"]
         elapsed = time.time() - t0
 
@@ -799,24 +976,119 @@ def solve(problem, options: Options | None = None, *, device, **kwargs) -> Resul
             score = max(sc["gap"], sc["feas"])
             if (np.isfinite(score) and score < 0.95 * best["score"]
                     and time.time() - best["t"] >= 2.0):
-                best["t"] = time.time()
+                t_snap = time.time()
+                best["t"] = t_snap
                 best["score"] = score
                 host = convert.state_to_numpy(state)
                 best["snap"] = {f: host[f] for f in _SNAP_FIELDS}
+                timers["snapshot"] += time.time() - t_snap
 
+        if opts.log_verbose and k >= log_next:
+            _log_progress(sc, elapsed, opts)
+            log_next += opts.log_freq
+
+        if phase32:
+            # hand over on any f32 status, at a budget boundary, or when the
+            # race stalls (near tolerance: a quarter-length window); the f64
+            # program re-judges everything (solver.py:1736-1905)
+            metric = max(sc["gap"], sc["feas"])
+            if metric < hybrid_best["value"] / 1.2:
+                hybrid_best.update(value=metric, since=k)
+            near = (sc["gap"] <= opts.hybrid_switch_factor * opts.tol_gap
+                    and sc["feas"] <= opts.hybrid_switch_factor
+                    * opts.tol_feasibility)
+            no_improve = k - hybrid_best["since"]
+            switch = (
+                st != 0
+                or (near and no_improve >= max(stall_window // 4,
+                                               2 * opts.convergence_check))
+                or no_improve >= stall_window
+                or k >= budget.max_iter
+                or elapsed >= budget.time_limit
+            )
+            if switch:
+                stalled = no_improve >= stall_window and st == 0
+                blew_up = not (np.isfinite(sc["comb"])
+                               and np.isfinite(sc["prim_obj"])
+                               and np.isfinite(sc["dual_obj"]))
+                if opts.log_verbose:
+                    print(f"  [hybrid] f32 -> f64 at iter {k} "
+                          f"(st={st}, stalled={stalled}, nan={blew_up})")
+                fb_ctx["f32"] = sc["proj_fallbacks"]
+                phase32 = False
+                if blew_up:
+                    # the race diverged: restart clean in f64
+                    fresh = init_state(layout, opts, setup)
+                    fresh["iter"] = np.int32(k)
+                    state = convert.state_from_numpy(fresh, device)
+                    continue
+                state = _cast_state(state, torch.float64)
+                entered_polish = False
+                if opts.polish_subspace and opts.subspace_rank == 0:
+                    k_sub, r_obs, specs = _estimate_subspace(state, layout,
+                                                             opts, setup.c)
+                    if k_sub:
+                        run_chunk, fetch = runner(
+                            opts.replace(subspace_rank=k_sub, **polish_fb))
+                        state = _seed_subspace_warm(state, specs, k_sub,
+                                                    torch.float64)
+                        entered_polish = True
+                        polish["k_sub"] = k_sub
+                        if opts.log_verbose:
+                            print(f"  [hybrid] f64 polish: subspace rank "
+                                  f"{k_sub} (observed {r_obs})")
+                if (not entered_polish and opts.subspace_rank == 0
+                        and state.warm[0].dim() == 2):
+                    state = _collapse_warm(state)
+                if stalled:
+                    # the race wedged its step machinery: restart the steps
+                    # at the hand-over, keeping the iterates
+                    state = state.replace(**_step_reset(
+                        opts, device, tau0, tau0, beta=opts.initial_beta))
+            elif (opts.race_subspace and not sub32["entered"]
+                  and sub32["tries"] < 5 and opts.subspace_rank == 0
+                  and k >= sub32["retry_at"]):
+                # past the cold start: size an f32 subspace program from the
+                # observed rank and seed it with the exact top-k basis
+                sub32["tries"] += 1
+                k_sub, r_obs, specs = _estimate_subspace(state, layout, opts,
+                                                         setup.c)
+                if not k_sub:
+                    sub32["retry_at"] = k + max(opts.race_subspace_warmup,
+                                                opts.convergence_check)
+                else:
+                    sub32["entered"] = True
+                    run_chunk32, fetch32 = runner(
+                        opts32.replace(subspace_rank=k_sub))
+                    state = _seed_subspace_warm(state, specs, k_sub,
+                                                torch.float32)
+                    if opts.log_verbose:
+                        print(f"  [hybrid] f32 race: subspace rank {k_sub} "
+                              f"(observed {r_obs})")
+            continue
+
+        # guarded-restart rollback: a step restart that blew the metric up
+        # (or led to a 5/6 declaration) within one chunk is undone and
+        # further restarts are suppressed (solver.py:1909-1944)
         g = polish["guard"]
         if g is not None and k > g[2]:
-            g_state, g_metric, _ = g
+            g_state, g_metric, _, g_k_sub = g
             polish["guard"] = None
             metric_now = max(sc["gap"], sc["feas"])
-            if (not np.isfinite(metric_now)
+            if g_k_sub == polish["k_sub"] and (
+                    not np.isfinite(metric_now)
                     or metric_now > 5 * max(g_metric, 1e-12) or st in (5, 6)):
                 g_state.update(iter=np.int32(k), status=np.int32(0),
                                infeas_block_until=np.int32(k + stall_window))
                 state = convert.state_from_numpy(g_state, device)
                 polish.update(window_mult=16, since=k, best=g_metric)
+                if opts.log_verbose:
+                    print(f"  [polish] restart hurt (metric {g_metric:.2e} -> "
+                          f"{metric_now:.2e}): rolled back, restarts "
+                          "suppressed")
                 continue
 
+        # polish watchdog (solver.py:1946-2052)
         if st == 0 and sc["gap"] > opts.tol_gap:
             metric = max(sc["gap"], sc["feas"])
             if polish["since"] is None:
@@ -828,20 +1100,39 @@ def solve(problem, options: Options | None = None, *, device, **kwargs) -> Resul
             ):
                 polish.update(since=k, best=metric,
                               window_mult=min(2 * polish["window_mult"], 16))
-                polish["guard"] = (convert.state_to_numpy(state), metric, k)
+                polish["guard"] = (convert.state_to_numpy(state), metric, k,
+                                   polish["k_sub"])
+                # re-split the steps around sqrt(beta): the learned balance
+                # stays, the stability product tau_p * tau_d does too
                 sq = math.sqrt(float(state.beta))
-
-                def scalar(v):
-                    return torch.tensor(v, dtype=dtype, device=device)
-
-                state = state.replace(
-                    primal_step=scalar(tau0 / sq),
-                    primal_step_old=scalar(tau0 / sq),
-                    dual_step=scalar(tau0 * sq),
-                    theta=scalar(opts.initial_theta),
-                    adapt_level=scalar(opts.initial_adapt_level),
-                    ada_count=torch.zeros((), dtype=torch.int32, device=device),
-                )
+                state = state.replace(**_step_reset(
+                    opts, device, tau0 / sq, tau0 * sq))
+                if opts.log_verbose:
+                    print(f"  [polish] stall at gap {sc['gap']:.2e}: "
+                          "step restart")
+                k_cur = polish["k_sub"]
+                if k_cur:
+                    k_new, r_obs, specs = _estimate_subspace(state, layout,
+                                                             opts, setup.c)
+                    if k_new > k_cur:
+                        run_chunk, fetch = runner(
+                            opts.replace(subspace_rank=k_new, **polish_fb))
+                        state = _seed_subspace_warm(state, specs, k_new,
+                                                    torch.float64)
+                        polish["k_sub"] = k_new
+                        if opts.log_verbose:
+                            print(f"  [polish] stall at gap {sc['gap']:.2e}: "
+                                  f"subspace rank {k_cur} -> {k_new} "
+                                  f"(pre-projection rank {r_obs})")
+                    elif k_new == 0 and not big_side:
+                        # rank too large for any bucket: the dense program
+                        run_chunk, fetch = runner(opts)
+                        state = _collapse_warm(state)
+                        polish["k_sub"] = 0
+                        if opts.log_verbose:
+                            print(f"  [polish] stall at gap {sc['gap']:.2e}: "
+                                  f"subspace rank {k_cur} -> dense eigh "
+                                  f"(pre-projection rank {r_obs})")
 
         if st == 1:
             if opts.check_dual_feas:
@@ -898,7 +1189,37 @@ def solve(problem, options: Options | None = None, *, device, **kwargs) -> Resul
         exact_project=big_side,
     )
     res.iter = total_k
-    return _annotate_limit_feas(res, setup_h, opts)
+    res = _annotate_limit_feas(res, setup_h, opts)
+    timers["finalize"] = time.time() - t0 - sum(
+        v for name, v in timers.items() if name != "finalize")
+    if opts.timer_verbose or opts.timer_file:
+        report = _timer_report(timers, chunk_counts, res,
+                               int(state.proj_fallbacks), fb_ctx)
+        if opts.timer_verbose:
+            print(report)
+        if opts.timer_file:
+            with open("time.log", "w") as f:
+                f.write(report + "\n")
+    if opts.log_verbose:
+        _log_final(res)
+    return res
+
+
+def _step_reset(opts: Options, device, tau_p: float, tau_d: float,
+                beta: float | None = None) -> dict:
+    """f64 step scalars for a restart of the step machinery (the stalled
+    hand-over and the polish watchdog, solver.py:1853-1866, 1985-1994)."""
+
+    def f64(v):
+        return torch.tensor(v, dtype=torch.float64, device=device)
+
+    kw = dict(primal_step=f64(tau_p), primal_step_old=f64(tau_p),
+              dual_step=f64(tau_d), theta=f64(opts.initial_theta),
+              adapt_level=f64(opts.initial_adapt_level),
+              ada_count=torch.zeros((), dtype=torch.int32, device=device))
+    if beta is not None:
+        kw["beta"] = f64(beta)
+    return kw
 
 
 def _declare_string(st, sc):
@@ -1065,3 +1386,102 @@ def _cache_solution(fields: dict, setup: SetupProblem, opts: Options, t0: float,
         certificate_found=False,
         result_count=1,
     )
+
+
+# ---------------------------------------------------------------------------
+# Printing (solver.py:2504-2537, 2886-2950)
+# ---------------------------------------------------------------------------
+
+
+def _timer_report(timers, chunk_counts, res, proj_fallbacks: int, fb_ctx) -> str:
+    """Phase-timing report (reference: TimerOutputs print,
+    MOI_wrapper.jl:317-330); the race's polar reseeds are split from the
+    dense-eigh fallbacks."""
+    total = sum(timers.values())
+    lines = [
+        "-" * 58,
+        f"  {'phase':<12} {'time (s)':>10} {'share':>8}   chunks",
+        "-" * 58,
+    ]
+    for name, v in timers.items():
+        extra = ""
+        if name == "f32 loop":
+            extra = f"  {chunk_counts['f32']}"
+        elif name == "f64 loop":
+            extra = f"  {chunk_counts['f64']}"
+        lines.append(f"  {name:<12} {v:>10.3f} {v / max(total, 1e-9):>7.1%}{extra}")
+    lines.append("-" * 58)
+    tail = f"  total {total:.3f}s  iters={res.iter}"
+    if proj_fallbacks >= 0 and res.iter > 0:
+        f32_fb = fb_ctx["f32"]
+        f64_fb = max(proj_fallbacks - f32_fb, 0)
+        if f32_fb and fb_ctx["f32_is_polar"]:
+            tail += (f"  proj fallbacks: f32 polar-reseed={f32_fb}, "
+                     f"dense-eigh={f64_fb} "
+                     f"({f64_fb / max(res.iter, 1):.1%} of iters)")
+        else:
+            tail += (f"  proj dense-eigh iters={proj_fallbacks}"
+                     f" ({proj_fallbacks / max(res.iter, 1):.1%})")
+    lines.append(tail)
+    return "\n".join(lines)
+
+
+def _print_header(layout: ConeLayout, opts: Options, device):
+    """Banner + problem/parameter summary (reference printing.jl:1-95)."""
+    bar = "=" * 74
+    print(bar)
+    print(f"  proxsdp_tpu_torch — PDHG conic solver  [device: {device}]")
+    print(bar)
+    print(f"  variables      : {layout.n} (free: {layout.n_free})")
+    print(f"  equalities     : {layout.p}    inequalities: {layout.m}")
+    if layout.sdp_sides:
+        sides = ", ".join(str(s) for s in layout.sdp_sides)
+        print(f"  PSD blocks     : {len(layout.sdp_sides)} (sides: {sides})")
+    if layout.soc_lens:
+        lens = ", ".join(str(s) for s in layout.soc_lens)
+        print(f"  SOC blocks     : {len(layout.soc_lens)} (lens: {lens})")
+    print(f"  tol_gap={opts.tol_gap:.1e}  tol_feas={opts.tol_feasibility:.1e}  "
+          f"tol_psd={opts.tol_psd:.1e}  dtype={opts.dtype}"
+          + ("+hybrid" if opts.hybrid_precision and opts.dtype == "float64" else ""))
+    print(bar)
+
+
+def _progress_columns(opts: Options) -> str:
+    """Column header for the progress table (reference printing.jl:69-93)."""
+    cols = ("    iter        prim obj   rel. gap    feasb.  prim res  "
+            "dual res  rank   time(s)")
+    if opts.extended_log or opts.extended_log2:
+        cols += "    dual obj"
+    if opts.extended_log2:
+        cols += "   d feasb."
+    return cols
+
+
+def _log_progress(sc, elapsed, opts: Options):
+    """One progress-table row (reference print_progress, printing.jl:96-150);
+    extended_log adds the dual objective.  The dual-feasibility column of
+    extended_log2 is not computed here (nan)."""
+    if opts.log_repeat_header:
+        print(_progress_columns(opts))
+    row = (
+        f"  iter={sc['iter']:>8d}  obj={sc['prim_obj']:+.6e}  "
+        f"gap={sc['gap']:.2e}  feas={sc['feas']:.2e}  "
+        f"pres={sc['pres']:.2e}  dres={sc['dres']:.2e}  "
+        f"rank={sc['sum_target_rank']}  t={elapsed:.1f}s"
+    )
+    if opts.extended_log or opts.extended_log2:
+        row += f"  dobj={sc['dual_obj']:+.6e}"
+    if opts.extended_log2:
+        row += f"  dfeas={float('nan'):.2e}"
+    print(row)
+
+
+def _log_final(res: Result):
+    print("-" * 74)
+    print(f"  status: {res.status_string}")
+    print(
+        f"  obj={res.objval:+.6e}  dual={res.dual_objval:+.6e}  "
+        f"gap={res.gap:.2e}  iters={res.iter}  rank={res.final_rank}  "
+        f"time={res.time:.2f}s"
+    )
+    print("-" * 74)

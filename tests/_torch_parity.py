@@ -72,35 +72,36 @@ def jax_setup(name: str):
     return to_square_form(preprocess(build_problem(jx, name)))
 
 
-def jax_operands(setup):
-    M = jlinop.build_linop(setup.A, setup.G, jnp.float64)
+def jax_operands(setup, dtype=jnp.float64):
+    M = jlinop.build_linop(setup.A, setup.G, dtype)
     return jsolver.Operands(
         M=M,
-        b=jnp.asarray(setup.b, jnp.float64),
-        h=jnp.asarray(setup.h, jnp.float64),
-        c=jnp.asarray(setup.c, jnp.float64),
-        norm_b=jnp.asarray(setup.norm_b, jnp.float64),
-        norm_h=jnp.asarray(setup.norm_h, jnp.float64),
-        norm_c=jnp.asarray(setup.norm_c, jnp.float64),
+        b=jnp.asarray(setup.b, dtype),
+        h=jnp.asarray(setup.h, dtype),
+        c=jnp.asarray(setup.c, dtype),
+        norm_b=jnp.asarray(setup.norm_b, dtype),
+        norm_h=jnp.asarray(setup.norm_h, dtype),
+        norm_c=jnp.asarray(setup.norm_c, dtype),
         chunk_end=jnp.asarray(0, jnp.int32),
-        obj_scale=jnp.asarray(setup.obj_scale * setup.rhs_scale, jnp.float64),
+        obj_scale=jnp.asarray(setup.obj_scale * setup.rhs_scale, dtype),
     )
 
 
-def torch_operands_from_jax(o_jax, setup):
+def torch_operands_from_jax(o_jax, setup, dtype=torch.float64):
     """The port's Operands from the JAX operands' arrays (via convert)."""
     M = o_jax.M
     if isinstance(M, jlinop.EllOp):
         tM = convert.linop_from_tables(
             row_cols=np.asarray(M.row_cols), row_vals=np.asarray(M.row_vals),
             col_rows=np.asarray(M.col_rows), col_vals=np.asarray(M.col_vals),
-            device=DEV)
+            device=DEV, dtype=dtype)
     else:
-        tM = convert.linop_from_tables(mat=np.asarray(M.mat), device=DEV)
+        tM = convert.linop_from_tables(mat=np.asarray(M.mat), device=DEV,
+                                       dtype=dtype)
     return convert.operands_from_numpy(
         M=tM, b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
         norm_h=setup.norm_h, norm_c=setup.norm_c,
-        obj_scale=setup.obj_scale * setup.rhs_scale, device=DEV)
+        obj_scale=setup.obj_scale * setup.rhs_scale, device=DEV, dtype=dtype)
 
 
 def jax_state_numpy(s) -> dict:

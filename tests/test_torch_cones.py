@@ -45,8 +45,7 @@ def test_psd_projection_block(side):
         jnp.asarray(X.reshape(-1)), side, jnp.asarray(2, jnp.int32),
         jnp.asarray(warm), opt=opts, allow_lanczos=True)
     got = tcones.psd_projection_block(
-        torch.tensor(X, dtype=F64), torch.tensor(warm, dtype=F64),
-        tol_psd=opts.tol_psd)
+        torch.tensor(X, dtype=F64), torch.tensor(warm, dtype=F64), opts=opts)
     fro = np.linalg.norm(X)
     np.testing.assert_allclose(got.block.numpy().reshape(-1),
                                np.asarray(want.block), rtol=0,
@@ -61,9 +60,10 @@ def test_psd_projection_block(side):
 
 def test_projection_is_psd_and_idempotent():
     X = torch.tensor(_random_symmetric(30, seed=11), dtype=F64)
+    opts = tp.torch_opts()
     P = tcones.psd_projection_block(X, torch.zeros(30, dtype=F64),
-                                    tol_psd=1e-7).block
+                                    opts=opts).block
     assert float(torch.linalg.eigvalsh(P)[0]) >= -1e-12
     P2 = tcones.psd_projection_block(P, torch.zeros(30, dtype=F64),
-                                     tol_psd=1e-7).block
+                                     opts=opts).block
     torch.testing.assert_close(P2, P, rtol=0, atol=1e-12)

@@ -119,6 +119,142 @@ def test_iterations_match_cpu(cuda, side):
             np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-11, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("side, k", [(33, 16), (100, 16), (250, 24)])
+def test_new_kernels_match_plain(cuda, dtype, side, k):
+    """K5-K8 against their plain versions at the polar and subspace
+    steps' shapes, including the guard's bad path and the mixed-type
+    entry points."""
+    rng = np.random.default_rng(side + k)
+
+    def mat(*shape, dt=dtype):
+        return torch.tensor(rng.standard_normal(shape), dtype=dt, device=cuda)
+
+    Y, C, X = mat(side, side), mat(side, side), mat(side, side)
+    X = 0.5 * (X + X.T)
+    W = mat(side, k + 1)
+    cases = [
+        (kernels.ns_gemm, kernels.ns_gemm_plain, (Y, Y)),
+        (kernels.ns_gemm, kernels.ns_gemm_plain, (Y, C, C, -4.775, 2.0315)),
+        (kernels.ns_gemm, kernels.ns_gemm_plain, (Y, C, Y, 1.5, -0.5)),
+        (kernels.ns_gemm, kernels.ns_gemm_plain,  # strided column slices
+         (Y, W[:, :-1], W[:, :-1], 0.5, 0.5)),
+        (kernels.ns_gemm, kernels.ns_gemm_plain, (Y, W[:, -1:], W[:, -1:], 0.5, -0.5)),
+        (kernels.fro_scale, kernels.fro_scale_plain, (X, dtype)),
+        (kernels.sym, kernels.sym_plain, (Y,)),
+        (kernels.sym_guard, kernels.sym_guard_plain, (Y, X, C)),
+        (kernels.cholqr, kernels.cholqr_plain,
+         (W[:, :k].contiguous(), kernels.CHOLQR_EPS[dtype])),
+    ]
+    if dtype == torch.float64:
+        f32 = X.float()
+        cases += [
+            (kernels.fro_scale, kernels.fro_scale_plain, (X, torch.float32)),
+            (kernels.sym_guard, kernels.sym_guard_plain, (f32, f32, X)),
+        ]
+    bad = Y.clone()
+    bad[1, 2] = float("nan")
+    cases.append((kernels.sym_guard, kernels.sym_guard_plain, (bad, X, C)))
+    for wrapper, plain, args in cases:
+        kernels.reset_launch_counts()
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts.values()) == 1, wrapper.__name__
+        want = plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, wrapper.__name__
+            if not g.is_floating_point():
+                assert torch.equal(g.cpu(), w.cpu()), wrapper.__name__
+                continue
+            nan = torch.isnan(w)
+            assert torch.equal(torch.isnan(g), nan), wrapper.__name__
+            g, w = g[~nan], w[~nan]
+            if w.numel():
+                _close((g,), (w,), w.dtype)
+    # a non-positive pivot gives NaN, as jnp.linalg.cholesky does
+    Q = kernels.cholqr(torch.zeros(side, k, dtype=dtype, device=cuda), -1.0)
+    assert torch.isnan(Q).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["accept", "reject", "force_full", "nan"])
+def test_ritz_accept_matches_plain(cuda, dtype, case):
+    """K8: the same accept decision and rank as its plain version; the
+    Rayleigh quotients (theta None, the mixed f64 mode) and the stats to
+    RTOL of the dtype."""
+    side, k = 250, 16
+    rng = np.random.default_rng(7)
+    Wn, _ = np.linalg.qr(rng.standard_normal((side, k)))
+    theta = np.concatenate([np.linspace(9.0, 1.0, 8), -np.linspace(0.5, 4.0, 8)])
+    noise = {"reject": 1e-2}.get(case, 1e-9)
+    XW = Wn * theta + noise * rng.standard_normal((side, k))
+    if case == "nan":
+        XW[5, 3] = np.nan
+    W = torch.tensor(Wn, dtype=dtype, device=cuda)
+    XWt = torch.tensor(XW, dtype=dtype, device=cuda)
+    th = None if dtype == torch.float64 else torch.tensor(theta, dtype=dtype,
+                                                          device=cuda)
+    at = torch.tensor(1e-4, dtype=dtype, device=cuda)
+    args = (W, XWt, th, at, 1e-9, 1e-7, case == "force_full")
+    kernels.reset_launch_counts()
+    lam, stats, flags = kernels.ritz_accept(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["ritz_accept"] == 1
+    plam, pstats, pflags = kernels.ritz_accept_plain(*args)
+    assert torch.equal(flags.cpu(), pflags.cpu()), (flags, pflags)
+    assert int(flags[0]) == (case == "accept")
+    for g, w in ((lam, plam), (stats, pstats)):
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan)
+        _close((g[~nan],), (w[~nan],), dtype)
+
+
+@pytest.mark.parametrize("side, n_free, p, m", [(7, 5, 3, 4), (250, 0, 250, 0)])
+def test_residuals_f32_matches_repaired_plain(cuda, side, n_free, p, m):
+    """K3's f32 program: f32 maxima and two-stage dots, f64 outputs; the
+    plain version repeats the kernel's chunk order, so every slot agrees
+    to f64 rounding (the f64 sum of the chunks runs in another order)."""
+    rng = np.random.default_rng(side)
+    n = side * side + n_free
+
+    def vec(k):
+        return torch.tensor(rng.standard_normal(k), dtype=torch.float32,
+                            device=cuda)
+
+    x, x_old, Mty, Mty_old, c = (vec(n) for _ in range(5))
+    y, y_old, Mx, Mx_old = (vec(p + m) for _ in range(4))
+    b, h = vec(p), vec(m)
+    tau = torch.tensor(0.37, dtype=torch.float32, device=cuda)
+    sigma = torch.tensor(0.21, dtype=torch.float32, device=cuda)
+    args = (x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma, b, h, c,
+            p, m, side)
+    got = kernels.residuals(*args)
+    torch.cuda.synchronize()
+    want = kernels.residuals_plain(*args)
+    assert got.dtype == want.dtype == torch.float64
+    same = got == want
+    err = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    assert float((err / want.abs().clamp_min(1e-30)).max()) <= 1e-12
+
+
+def test_hybrid_solve_on_card_matches_cpu(cuda):
+    """The default Options() (hybrid race and polish) at side 50 on the card
+    against the CPU path; every kernel of the path launches."""
+    problem, _ = maxcut_problem(random_graph_weights(0, 50))
+    opts = tx.Options(chunk_iters=256)
+    kernels.reset_launch_counts()
+    got = tx.solve(problem, opts)  # the card is the default device
+    counts = dict(kernels.launch_counts)
+    want = tx.solve(problem, opts, device="cpu")
+    assert got.status == want.status == 1
+    assert abs(got.iter - want.iter) <= max(5, 0.05 * want.iter)
+    assert abs(got.objval - want.objval) <= 1e-4 * (1 + abs(want.objval))
+    for name in kernels.KERNELS:
+        assert counts[name] > 0, name
+
+
 def test_solve_on_card_matches_cpu(cuda):
     problem, _ = maxcut_problem(random_graph_weights(0, 50))
     opts = tx.Options(hybrid_precision=False)

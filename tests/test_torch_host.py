@@ -4,7 +4,10 @@ The port copies the NumPy host layer (options, problem building,
 preprocess, to_square_form, init_state) instead of importing it, because
 importing ``proxsdp_tpu`` loads jax.  These tests hold the copies to the
 originals exactly (``np.array_equal``), check that the port never imports
-jax, and that options outside the ported slice raise."""
+jax, and that options outside the port raise.  (The default hybrid
+driver, the polar and subspace projections and f32 programs, which raised
+here before they were ported, are solved against the JAX package in
+tests/test_torch_hybrid.py.)"""
 
 import dataclasses
 import subprocess
@@ -13,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 import _torch_parity as tp
 import proxsdp_tpu as jx
@@ -53,13 +57,17 @@ def test_problem_and_preprocess_equal(name):
     _assert_setup_equal(j_sq(sj), t_sq(st))
 
 
+@pytest.mark.parametrize("kw", [{}, {"dtype": "float32"}, {"subspace_rank": 8}],
+                         ids=["f64", "f32", "subspace"])
 @pytest.mark.parametrize("name", CASES)
-def test_init_state_equal(name):
+def test_init_state_equal(name, kw):
+    """f64 and f32 states, and the orthonormal (side, k) start basis of a
+    subspace program (maxcut30, maxcut50; the README block is too small)."""
     sj = tp.jax_setup(name)
     st = t_sq(t_pre(tp.build_problem(tx, name)))
     want = tp.jax_state_numpy(
-        jsolver.init_state(sj.layout, tp.jax_opts(), sj))
-    got = tsolver.init_state(st.layout, tp.torch_opts(), st)
+        jsolver.init_state(sj.layout, tp.jax_opts(**kw), sj))
+    got = tsolver.init_state(st.layout, tp.torch_opts(**kw), st)
     assert set(got) == set(want) == set(jsolver.State._fields)
     for k in want:
         if k == "warm":
@@ -120,10 +128,8 @@ def _two_block_problem():
 @pytest.mark.parametrize(
     "problem, options",
     [
-        ("readme", tx.Options()),  # default: the hybrid driver
-        ("readme", tp.torch_opts(projection="polar")),
-        ("readme", tp.torch_opts(subspace_rank=8)),
-        ("readme", tp.torch_opts(dtype="float32")),
+        ("readme", tx.Options(subspace_sign=True)),
+        ("readme", tx.Options(subspace_accept_always=True)),
         ("readme", tp.torch_opts(square_form=False)),
         ("readme", tp.torch_opts(block_equilibration=True)),
         ("readme", tp.torch_opts(equilibration=True)),
@@ -133,7 +139,7 @@ def _two_block_problem():
         ("soc", tp.torch_opts()),
         ("two_blocks", tp.torch_opts()),
     ],
-    ids=["default", "polar", "subspace", "float32", "tri_layout", "beq",
+    ids=["subspace_sign", "accept_always", "tri_layout", "beq",
          "equilibration", "coo", "checkpoint", "tp_shards", "soc",
          "two_blocks"],
 )
@@ -144,6 +150,9 @@ def test_unsupported_raises(problem, options):
         tx.solve(prob, options, device="cpu")
 
 
-def test_solve_requires_device():
-    with pytest.raises(TypeError):
-        tx.solve(tp.build_problem(tx, "readme"), tp.torch_opts())
+def test_solve_requires_device(monkeypatch):
+    """solve() runs on the card by default; where there is none it raises
+    and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tx.solve(tp.build_problem(tx, "readme"))

@@ -128,3 +128,42 @@ def test_wrappers_reject_what_kernels_do_not_take():
     with pytest.raises(ValueError, match="exceeds"):
         kernels.primal_update_sym(a, a, a, torch.zeros((), dtype=F64), 3)
 
+
+
+def test_polar_and_subspace_wrappers_reject_bad_input():
+    """K5-K8's wrappers check shapes and type pairs before any launch."""
+    f32 = torch.float32
+    A = torch.zeros(4, 3, dtype=f32)
+    with pytest.raises(ValueError, match="shapes"):
+        kernels.ns_gemm(A, torch.zeros(4, 2, dtype=f32))
+    with pytest.raises(ValueError, match="contiguous rows"):
+        kernels.ns_gemm(torch.zeros(3, 4, dtype=f32).T, A)
+    with pytest.raises(TypeError):
+        kernels.ns_gemm(A, torch.zeros(3, 2, dtype=F64))
+    with pytest.raises(ValueError, match="want"):
+        kernels.sym(A)
+    S = torch.zeros(4, 4, dtype=f32)
+    with pytest.raises(TypeError, match="compute dtype"):
+        kernels.sym_guard(S, S.double(), S)
+    with pytest.raises(ValueError, match="2-d"):
+        kernels.cholqr(torch.zeros(5, dtype=f32))
+    with pytest.raises(ValueError, match="one"):
+        kernels.ritz_accept(A, A[:, :2].contiguous(), None, None, 1e-9,
+                            1e-7, False)
+
+
+def test_ns_gemm_plain_matches_jax_polar_steps():
+    """The plain version of K5 repeats the JAX expressions' rounding: each
+    of alpha * C and beta * (A @ B) is rounded, then they are added."""
+    rng = np.random.RandomState(4)
+    Y = rng.randn(30, 30).astype(np.float32)
+    A = Y @ Y
+    jY, jA = jnp.asarray(Y), jnp.asarray(A)
+    want = np.asarray(jcones.POLAR_QB * jA + jcones.POLAR_QC * (jA @ jA))
+    got = kernels.ns_gemm(torch.tensor(A), torch.tensor(A), torch.tensor(A),
+                          jcones.POLAR_QB, jcones.POLAR_QC)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    want = np.asarray(1.5 * jY - 0.5 * (jY @ jA))
+    got = kernels.ns_gemm(torch.tensor(Y), torch.tensor(A), torch.tensor(Y),
+                          1.5, -0.5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)

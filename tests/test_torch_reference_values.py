@@ -1,24 +1,31 @@
 """The constants chip_smoke.py holds the port to on the card stay true.
 
-chip_smoke.py solves maxcut_problem(random_graph_weights(0, 250)) with
-Options(hybrid_precision=False) on a CUDA card and compares it with the
-JAX package's solve of the same instance.  This test re-solves that
-instance with the JAX package on the CPU, so a change to the reference
-cannot leave the card's constants stale.
+chip_smoke.py solves maxcut_problem(random_graph_weights(0, 250)) on a
+CUDA card twice: with Options(hybrid_precision=False) (phase A) and with
+the default Options() (phase C, the hybrid race and polish), and compares
+each with the JAX package's solve of the same instance.  This test
+re-solves both with the JAX package on the CPU -- the default one with
+chunk_iters=256, the port's fixed chunk, so that its hand-over points do
+not move with the clock -- so a change to the reference cannot leave the
+card's constants stale.
 
-The solve runs in a child process on one thread (XLA's Eigen pool and
+The solves run in one child process on one thread (XLA's Eigen pool and
 BLAS threads off).  In the test process XLA would use every core; beside
 the suite's other multi-threaded XLA tests under xdist the two
-oversubscribed the cores and both ran 5-6x slower (on an 8-core host this
-solve took ~480 s instead of ~10 s).  On one thread it takes ~7 s there
-and gives the same status and iterations, with the objective and the
-diagonal error equal to 1e-13 relative.
+oversubscribed the cores and both ran 5-6x slower (on an 8-core host the
+f64 solve took ~480 s instead of ~10 s).  On one thread they take ~7 s
+and ~11 s there.  The f64 solve gives the same status and iterations with
+the objective and the diagonal error equal to 1e-13 relative; the hybrid
+solve repeats exactly (its f32 sums depend on the thread count, so the
+constants are those of one thread).
 """
 
 import ast
+import functools
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -26,7 +33,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMOKE = ROOT / "chip_smoke.py"
 
 CHILD = """
-import json, sys
+import contextlib, io, json, sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
@@ -34,11 +41,18 @@ import numpy as np
 import proxsdp_tpu as jx
 from proxsdp_tpu.models.maxcut import maxcut_problem, random_graph_weights
 problem, Xidx = maxcut_problem(random_graph_weights(0, int(sys.argv[1])))
-res = jx.solve(problem, jx.Options(hybrid_precision=False))
-diag_err = float(np.max(np.abs(np.diag(res.primal[Xidx]) - 1.0)))
-print(json.dumps({"status": res.status, "status_string": res.status_string,
-                  "objval": res.objval, "iter": res.iter,
-                  "diag_err": diag_err}))
+out = {}
+for key, opts in (("f64", jx.Options(hybrid_precision=False)),
+                  ("hybrid", jx.Options(chunk_iters=256, log_verbose=True,
+                                        timer_verbose=True))):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = jx.solve(problem, opts)
+    out[key] = {"status": res.status, "status_string": res.status_string,
+                "objval": res.objval, "iter": res.iter,
+                "diag_err": float(np.max(np.abs(np.diag(res.primal[Xidx]) - 1.0))),
+                "log": buf.getvalue()}
+print(json.dumps(out))
 """
 
 ONE_THREAD = {
@@ -56,22 +70,49 @@ def _constants() -> dict:
     for node in tree.body:
         if isinstance(node, ast.Assign) and len(node.targets) == 1:
             name = getattr(node.targets[0], "id", None)
-            if name in ("SIDE", "REF_OBJ", "REF_ITERS", "REF_DIAG_ERR"):
+            if name == "SIDE" or (name or "").startswith(("REF_", "HYB_REF_")):
                 out[name] = ast.literal_eval(node.value)
     return out
+
+
+@functools.lru_cache(maxsize=1)
+def _reference(side: int) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, str(side)],
+        cwd=ROOT, env={**os.environ, **ONE_THREAD},
+        capture_output=True, text=True, timeout=900,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def test_side250_reference_values():
     k = _constants()
     assert k["SIDE"] == 250
-    proc = subprocess.run(
-        [sys.executable, "-c", CHILD, str(k["SIDE"])],
-        cwd=ROOT, env={**os.environ, **ONE_THREAD},
-        capture_output=True, text=True, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res = _reference(k["SIDE"])["f64"]
     assert res["status"] == 1, res["status_string"]
     assert abs(res["objval"] - k["REF_OBJ"]) <= 1e-6 * abs(k["REF_OBJ"])
     assert abs(res["iter"] - k["REF_ITERS"]) <= 2
     assert abs(res["diag_err"] - k["REF_DIAG_ERR"]) <= 1e-6 * k["REF_DIAG_ERR"]
+
+
+def test_side250_hybrid_reference_values():
+    """The default path's constants: objective, iterations, the race's
+    subspace rank, the hand-over iteration, the polish rank, the polar
+    reseeds and dense-eigh fallbacks, the diagonal error."""
+    k = _constants()
+    res = _reference(k["SIDE"])["hybrid"]
+    log = res["log"]
+    assert res["status"] == 1, res["status_string"]
+    assert abs(res["objval"] - k["HYB_REF_OBJ"]) <= 1e-9 * abs(k["HYB_REF_OBJ"])
+    assert res["iter"] == k["HYB_REF_ITERS"]
+    race = re.search(r"f32 race: subspace rank (\d+)", log)
+    hand = re.search(r"f32 -> f64 at iter (\d+)", log)
+    pol = re.search(r"f64 polish: subspace rank (\d+)", log)
+    fb = re.search(r"f32 polar-reseed=(\d+), dense-eigh=(\d+)", log)
+    assert int(race.group(1)) == k["HYB_REF_RACE_RANK"]
+    assert int(hand.group(1)) == k["HYB_REF_HANDOVER"]
+    assert int(pol.group(1)) == k["HYB_REF_POLISH_RANK"]
+    assert int(fb.group(1)) == k["HYB_REF_RESEEDS"]
+    assert int(fb.group(2)) == k["HYB_REF_DENSE"]
+    assert abs(res["diag_err"] - k["HYB_REF_DIAG_ERR"]) <= 1e-9 * k["HYB_REF_DIAG_ERR"]

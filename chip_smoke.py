@@ -13,8 +13,11 @@
 3. phase B: checks each kernel entry point of the default path against its
    plain PyTorch version on the card at that path's side-250 shapes (f64
    and f32 K1-K4, K5-K8 at k = 24 in f32 and k = 16 in the mixed f64
-   polish), and times it beside the plain version and, where one PyTorch
-   call computes the same function, that call;
+   polish, K5 also on the polar reseed's column slices of the basis), and
+   times it beside the plain version and, where one PyTorch call computes
+   the same function, that call; the mixed-type entry points of the f64
+   program's polar reseed, which the side-250 solves do not run, are
+   checked alike;
 4. phase C: solves the same instance with the default Options() (the
    hybrid f32 race and f64 polish) twice, times the second, counts its
    launches, checks status, objective and X, and prints its phase events
@@ -125,8 +128,8 @@ def nbytes(tensors) -> int:
 
 def solve_timed(torch, kernels, solve, problem, opts, capture=False):
     """Warm-up solve, then the timed one with the launch counts set to 0
-    just before it and read just after; (result, wall s, counts by wrapper,
-    counts by entry point, captured stdout)."""
+    just before it and read just after; (result, wall s, counts by entry
+    point, counts by kernel, captured stdout)."""
     solve(problem, opts.replace(log_verbose=False, timer_verbose=False))
     torch.cuda.synchronize()
     buf = io.StringIO()
@@ -136,7 +139,7 @@ def solve_timed(torch, kernels, solve, problem, opts, capture=False):
         res = solve(problem, opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (res, wall, dict(kernels.launch_counts), dict(kernels.entry_counts),
+    return (res, wall, dict(kernels.launch_counts), kernels.kernel_launches(),
             buf.getvalue())
 
 
@@ -157,8 +160,9 @@ def check_solution(res, Xidx, ref_obj, diag_tol, label):
 
 def kernel_checks(torch, kernels, setup, rng, dev):
     """Each entry point of the default path against its plain version at
-    the path's shapes on ``dev``; rows of the kernels line (launches
-    filled in later)."""
+    the path's shapes on ``dev``; (rows of the kernels line, launches
+    filled in later; rows of entry points the side-250 solves do not run,
+    checked alike but left out of that line)."""
     import torch.nn.functional as F
 
     from proxsdp_tpu_torch.ops.cones import POLAR_QA, POLAR_QB, POLAR_QC
@@ -166,33 +170,37 @@ def kernel_checks(torch, kernels, setup, rng, dev):
 
     n, p, m = setup.layout.n, setup.layout.p, setup.layout.m
     dtypes = {"f64": torch.float64, "f32": torch.float32}
-    rows = []
+    rows, off_path = [], []
 
     def add(name, sfx, source, replaces, call, plain, inputs, outputs, flops,
-            library=None, compare_fn=None):
+            library=None, compare_fn=None, tol=None, on_path=True, label=""):
         entry = f"{name}_{sfx}"
+        row_name = f"{entry} ({label})" if label else entry
         kernels.reset_launch_counts()
         got = call(getattr(kernels, name))
         torch.cuda.synchronize()
-        check(kernels.entry_counts.get(entry, 0) >= 1,
+        check(kernels.launch_counts[entry] >= 1,
               f"{entry}: the wrapper launched no kernel")
         want = call(plain)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, rel = (compare_fn or (lambda g, w: compare(torch, g, w)))(got, want)
-        tol = RTOL["f64" if all(w.dtype != torch.float32 for w in want) else "f32"]
+        if tol is None:
+            tol = RTOL["f64" if all(w.dtype != torch.float32 for w in want)
+                       else "f32"]
         ms = median_ms(torch, lambda: call(getattr(kernels, name)))
         plain_ms = median_ms(torch, lambda: call(plain))
         lib_ms = median_ms(torch, library) if library else None
         t_bytes = nbytes(list(inputs) + list(outputs)) / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FLOPS[sfx[:3]] * 1e3
-        print(f"kernel {entry:22s} max_abs_err {err:.3e} rel {rel:.3e} "
+        t_ops = flops / PEAK_FLOPS["f32" if "f32" in sfx else "f64"] * 1e3
+        print(f"kernel {row_name:32s} max_abs_err {err:.3e} rel {rel:.3e} "
               f"(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms "
-              f"bound {max(t_bytes, t_ops) * 1e3:.3f} us")
+              f"bound {max(t_bytes, t_ops) * 1e3:.3f} us"
+              f"{'' if on_path else ' (not on the side-250 solves)'}")
         check(rel <= tol, f"{entry}: relative error {rel:.3e} > {tol}")
-        rows.append({
-            "name": entry, "route": "cuda",
+        (rows if on_path else off_path).append({
+            "name": row_name, "route": "cuda",
             "source": f"proxsdp_tpu_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -264,6 +272,9 @@ def kernel_checks(torch, kernels, setup, rng, dev):
                         -np.linspace(0.05, 5.0, SIDE - 14)])
     X64 = torch.tensor((V * w) @ V.T, dtype=f64, device=dev)
     X = X64.float()
+    # the sign of X and a warm (side, 24) basis: its top eigenvectors
+    Sgn = torch.tensor((V * np.sign(w)) @ V.T, dtype=f32, device=dev)
+    wb = torch.tensor(V[:, :24], dtype=f32, device=dev)
     Y, _ = kernels.fro_scale_plain(X, f32)
     A = kernels.ns_gemm_plain(Y, Y)
     S = kernels.sym_plain(Y)
@@ -277,8 +288,22 @@ def kernel_checks(torch, kernels, setup, rng, dev):
     add("ns_gemm", "f32", "ns_gemm.cu", "proxsdp_tpu/ops/cones.py:90",
         lambda f: (f(Y, A, Y, POLAR_QA, 1.0),), kernels.ns_gemm_plain,
         (Y, A), (mat,), cube + 3 * SIDE * SIDE,
-        library=lambda: torch.addmm(Y, Y, A, beta=POLAR_QA, alpha=1.0))
-    rows[-1]["name"] = "ns_gemm_f32 (Y = QA Y + Y B)"
+        library=lambda: torch.addmm(Y, Y, A, beta=POLAR_QA, alpha=1.0),
+        label="Y = QA Y + Y B")
+    # polar_reseed's P+ on the leading k - 1 columns and P- on the last:
+    # column slices of the basis, row stride k, partial tiles
+    for label, cols, sign, line in (("P+ warm", slice(None, -1), 0.5, 296),
+                                    ("P- last", slice(-1, None), -0.5, 297)):
+        Wc = wb[:, cols]
+        kc = Wc.shape[1]
+        add("ns_gemm", "f32", "ns_gemm.cu", f"proxsdp_tpu/ops/cones.py:{line}",
+            lambda f, Wc=Wc, sign=sign: (f(Sgn, Wc, Wc, 0.5, sign),),
+            kernels.ns_gemm_plain, (Sgn, Wc),
+            (torch.empty(SIDE, kc, dtype=f32, device=dev),),
+            2 * SIDE * SIDE * kc + 3 * SIDE * kc,
+            library=lambda Wc=Wc, sign=sign: torch.addmm(
+                Wc, Sgn, Wc, beta=0.5, alpha=sign),
+            label=f"{label}, strided")
     add("fro_scale", "f32", "polar_sym.cu", "proxsdp_tpu/ops/cones.py:85",
         lambda f: f(X, f32), kernels.fro_scale_plain, (X,), (mat,),
         3 * SIDE * SIDE)
@@ -287,14 +312,24 @@ def kernel_checks(torch, kernels, setup, rng, dev):
     add("sym_guard", "f32", "polar_sym.cu", "proxsdp_tpu/ops/cones.py:96",
         lambda f: f(P, S, X), kernels.sym_guard_plain,
         (P, torch.diagonal(S).contiguous()), (mat,), 3 * SIDE * SIDE)
+    # the f64 program's f32-compute polar reseed (subspace_fallback
+    # "polar"): the default path takes it in the polish above
+    # polar_fallback_min_side = 384, not at side 250
+    add("fro_scale", "f64_f32", "polar_sym.cu", "proxsdp_tpu/ops/cones.py:281",
+        lambda f: f(X64, f32), kernels.fro_scale_plain, (X64,),
+        (mat, torch.empty_like(mat)),
+        3 * SIDE * SIDE, on_path=False)
+    add("sym_guard", "f32_f64", "polar_sym.cu", "proxsdp_tpu/ops/cones.py:303",
+        lambda f: f(P, S, X64), kernels.sym_guard_plain,
+        (P, torch.diagonal(S).contiguous()), (X64,), 3 * SIDE * SIDE,
+        tol=RTOL["f32"], on_path=False)
     for sfx, k, dt in (("f32", 24, f32), ("f32", 16, f32)):
         Yk = torch.matmul(X, torch.tensor(rng.standard_normal((SIDE, k)),
                                           dtype=dt, device=dev))
         add("cholqr", sfx, "cholqr.cu", "proxsdp_tpu/ops/cones.py:247",
             lambda f, Yk=Yk: (f(Yk, kernels.CHOLQR_EPS[f32]),),
             kernels.cholqr_plain, (Yk,), (Yk,),
-            3 * SIDE * k * k + k ** 3 // 3)
-        rows[-1]["name"] = f"cholqr_f32 (k={k})"
+            3 * SIDE * k * k + k ** 3 // 3, label=f"k={k}")
     # K8: the race's f32 test (theta from the eigh) at k = 24, and the
     # mixed polish's f64 test (f64 Rayleigh quotients) at k = 16
     for sfx, k, dt in (("f32", 24, f32), ("f64", 16, f64)):
@@ -318,7 +353,7 @@ def kernel_checks(torch, kernels, setup, rng, dev):
             kernels.ritz_accept_plain, (Wk, XW, th, at),
             (torch.empty(k + 3, dtype=dt, device=dev),), 8 * SIDE * k,
             compare_fn=exact_flags)
-    return rows
+    return rows, off_path
 
 
 def main() -> int:
@@ -361,8 +396,8 @@ def main() -> int:
           f"m={setup.layout.m} block {SIDE}x{SIDE}")
 
     # ---- 2. phase A: the f64 program (hybrid_precision=False)
-    res, wall, counts, _, _ = solve_timed(torch, kernels, solve, problem,
-                                          Options(hybrid_precision=False))
+    res, wall, entries_a, counts, _ = solve_timed(
+        torch, kernels, solve, problem, Options(hybrid_precision=False))
     diag_err, lam_min, fro = check_solution(res, Xidx, REF_OBJ, diag_tol, "A")
     print(f"phase A (hybrid_precision=False): status {res.status} objval "
           f"{res.objval!r} (reference {REF_OBJ!r}, diff {res.objval - REF_OBJ:.3e}) "
@@ -370,18 +405,20 @@ def main() -> int:
           f"{res.iter / wall:.1f} iterations/s; max|diag(X)-1| {diag_err:.6e} "
           f"(reference {REF_DIAG_ERR:.6e}, bound {diag_tol:.3e}), "
           f"lambda_min(X) {lam_min:.3e}")
-    print("phase A launches: " + json.dumps(counts))
+    print("phase A launches: " + json.dumps(
+        {e: n for e, n in entries_a.items() if n}))
     check(counts["ell_spmv"] >= 2 * res.iter, "A: ell_spmv launched < 2x iterations")
     for name in ("ls_dual_update", "sq_dist", "residuals", "primal_update_sym"):
         check(counts[name] >= res.iter, f"A: {name} launched < iterations")
 
     # ---- 3. phase B: every entry point of the default path vs its plain version
-    rows = kernel_checks(torch, kernels, setup, np.random.default_rng(0),
-                         torch.device("cuda"))
+    rows, off_path = kernel_checks(torch, kernels, setup,
+                                   np.random.default_rng(0),
+                                   torch.device("cuda"))
 
     # ---- 4. phase C: the default Options() -- hybrid race and polish
     opts = Options(log_verbose=True, timer_verbose=True)
-    res, wall, counts, entries, log = solve_timed(torch, kernels, solve,
+    res, wall, entries, counts, log = solve_timed(torch, kernels, solve,
                                                   problem, opts, capture=True)
     for line in log.splitlines():
         if line.startswith("  [") or "total" in line or "status:" in line:
@@ -412,15 +449,27 @@ def main() -> int:
           f"max|diag(X)-1| {diag_err:.6e} (reference {HYB_REF_DIAG_ERR:.6e}, "
           f"bound {diag_tol:.3e}), lambda_min(X) {lam_min:.3e}, "
           f"||X||_F {fro:.3e}")
-    print("phase C launches: " + json.dumps(entries))
+    print("phase C launches: " + json.dumps(
+        {e: n for e, n in entries.items() if n}))
     for name in kernels.KERNELS:
         check(counts[name] > 0, f"C: {name} launched no kernel")
     for name in ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
                  "primal_update_sym"):
         check(entries.get(f"{name}_f32", 0) > 0, f"C: {name}_f32 not launched")
+    # launches: the f64 K1-K4 rows count phase A's solve (the f64
+    # program), every other row phase C's (the default path)
+    f64_program = {f"{name}_f64" for name in ("ell_spmv", "ls_dual_update",
+                                              "sq_dist", "residuals",
+                                              "primal_update_sym")}
     for row in rows:
-        row["launches"] = entries.get(row["name"].split(" ")[0], 0)
-        check(row["launches"] > 0, f"C: {row['name']} launched no kernel")
+        entry = row["name"].split(" ")[0]
+        row["launches"] = (entries_a if entry in f64_program else entries)[entry]
+        check(row["launches"] > 0, f"{row['name']} launched no kernel")
+    print("kernels line: launches of the f64 ell_spmv, ls_dual_update, "
+          "sq_dist, residuals and primal_update_sym rows from phase A, the "
+          "others from phase C; checked against the plain version but not "
+          "on the side-250 solves (the polish's polar reseed from side 384): "
+          + ", ".join(row["name"] for row in off_path))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

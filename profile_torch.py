@@ -123,7 +123,7 @@ def main() -> int:
     res = tsolver.solve(problem, opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(kernels.entry_counts)
+    counts = dict(kernels.launch_counts)
     print(f"solve: status {res.status} iterations {res.iter} objval "
           f"{res.objval!r} wall {wall:.3f} s ({res.iter / wall:.1f} it/s)")
 

@@ -3,9 +3,10 @@
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 PyTorch version beside it (the tests' path); on a CUDA device it launches
 the kernel from ``csrc/`` (built at first use by ``build.py``) or raises --
-nothing falls back.  Each launch adds one to ``launch_counts[name]``
-and to ``entry_counts`` under its entry point ("residuals_f32"), which
-shows that a run really went through the kernels.
+nothing falls back.  Each launch adds one to ``launch_counts`` under its
+entry point ("residuals_f32", "sym_guard_f32_f64"); ``kernel_launches``
+sums them by kernel.  They show that a run really went through the
+kernels.
 
 | wrapper            | replaces (JAX package)                           |
 |--------------------|--------------------------------------------------|
@@ -41,17 +42,6 @@ KERNELS = ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
            "primal_update_sym", "ns_gemm", "fro_scale", "sym", "sym_guard",
            "cholqr", "ritz_accept")
 
-launch_counts = {name: 0 for name in KERNELS}
-# the same launches by entry point, e.g. "residuals_f32", "sym_guard_f32_f64"
-entry_counts: dict[str, int] = {}
-
-
-def reset_launch_counts() -> None:
-    for name in KERNELS:
-        launch_counts[name] = 0
-    entry_counts.clear()
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
@@ -74,11 +64,31 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",)}
 
 
+def _suffixes(name: str) -> tuple[str, ...]:
+    return (*_SUFFIX.values(), *_MIXED.get(name, ()))
+
+
+# launches by entry point, e.g. "residuals_f32", "sym_guard_f32_f64"
+launch_counts = {f"{name}_{sfx}": 0 for name in KERNELS
+                 for sfx in _suffixes(name)}
+
+
+def reset_launch_counts() -> None:
+    for entry in launch_counts:
+        launch_counts[entry] = 0
+
+
+def kernel_launches() -> dict[str, int]:
+    """``launch_counts`` summed over each kernel's entry points."""
+    return {name: sum(launch_counts[f"{name}_{sfx}"] for sfx in _suffixes(name))
+            for name in KERNELS}
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = build.load()
     for name, argtypes in _ARGTYPES.items():
-        for sfx in (*_SUFFIX.values(), *_MIXED.get(name, ())):
+        for sfx in _suffixes(name):
             fn = getattr(lib, f"proxsdp_{name}_{sfx}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -99,9 +109,7 @@ def _launch(name: str, dtype, device: torch.device, *args):
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-    launch_counts[name] += 1
-    entry = f"{name}_{sfx}"
-    entry_counts[entry] = entry_counts.get(entry, 0) + 1
+    launch_counts[f"{name}_{sfx}"] += 1
 
 
 # reduce.cuh: pass-1 grid of a two-pass reduction over n elements

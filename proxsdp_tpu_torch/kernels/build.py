@@ -27,11 +27,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "proxsdp_tpu_torch"
 # -fmad=false: no fused multiply-add contraction, so each kernel rounds
 # every product and sum exactly where its plain PyTorch version does
 # (the kernels are bandwidth-bound; FMA buys them nothing).
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 )
+LINK_FLAGS = (*ARCH, "-shared")
 
 
 def _sources() -> list[Path]:
@@ -53,7 +54,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libproxsdp_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -91,8 +92,7 @@ def load() -> ctypes.CDLL:
             tmp = Path(tmpdir) / path.name
             if not failed:
                 link = subprocess.run(
-                    [_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-o", str(tmp), *map(str, objs)],
+                    [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
                     capture_output=True, text=True)
                 logs.append(link.stdout + link.stderr)
                 if link.returncode != 0:

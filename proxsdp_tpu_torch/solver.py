@@ -24,6 +24,7 @@ ROADMAP item; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -833,6 +834,24 @@ _INT_SCALARS = {"iter", "status", "sum_target_rank", "proj_fallbacks",
                 "sub_npos"}
 
 
+@contextlib.contextmanager
+def _ieee_f32_products():
+    """IEEE f32 in torch's own matrix products while the solve runs.  The
+    subspace step's tall-skinny products and reconstructions are
+    ``torch.matmul`` calls: a caller's ``set_float32_matmul_precision``
+    ("high" or "medium") would give them TF32 on the card or bf16 on the
+    CPU.  The caller's setting is put back afterwards."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    prev = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for b, p in zip(backends, prev):
+            b.fp32_precision = p
+
+
 def solve(problem, options: Options | None = None, *, device="cuda",
           **kwargs) -> Result:
     """Solve a ConicProblem (or a preprocessed SetupProblem) on ``device``.
@@ -847,8 +866,14 @@ def solve(problem, options: Options | None = None, *, device="cuda",
     restart, subspace re-estimate), limit statuses, logging, the timer
     report and solution recovery.  ``device`` defaults to the CUDA card;
     without one it raises (pass ``device="cpu"`` for the plain PyTorch
-    path).
+    path).  Library products run in IEEE f32 whatever the caller's
+    float32 matmul precision.
     """
+    with _ieee_f32_products():
+        return _solve(problem, options, device, kwargs)
+
+
+def _solve(problem, options: Options | None, device, kwargs) -> Result:
     opts = options or Options()
     if kwargs:
         opts = opts.replace(**kwargs)

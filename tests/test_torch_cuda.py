@@ -201,7 +201,7 @@ def test_ritz_accept_matches_plain(cuda, dtype, case):
     kernels.reset_launch_counts()
     lam, stats, flags = kernels.ritz_accept(*args)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["ritz_accept"] == 1
+    assert kernels.kernel_launches()["ritz_accept"] == 1
     plam, pstats, pflags = kernels.ritz_accept_plain(*args)
     assert torch.equal(flags.cpu(), pflags.cpu()), (flags, pflags)
     assert int(flags[0]) == (case == "accept")
@@ -246,7 +246,7 @@ def test_hybrid_solve_on_card_matches_cpu(cuda):
     opts = tx.Options(chunk_iters=256)
     kernels.reset_launch_counts()
     got = tx.solve(problem, opts)  # the card is the default device
-    counts = dict(kernels.launch_counts)
+    counts = kernels.kernel_launches()
     want = tx.solve(problem, opts, device="cpu")
     assert got.status == want.status == 1
     assert abs(got.iter - want.iter) <= max(5, 0.05 * want.iter)
@@ -260,7 +260,7 @@ def test_solve_on_card_matches_cpu(cuda):
     opts = tx.Options(hybrid_precision=False)
     kernels.reset_launch_counts()
     got = tx.solve(problem, opts, device="cuda")
-    counts = dict(kernels.launch_counts)
+    counts = kernels.kernel_launches()
     want = tx.solve(problem, opts, device="cpu")
     assert got.status == want.status == 1
     assert abs(got.iter - want.iter) <= max(2, 0.02 * want.iter)
@@ -268,3 +268,29 @@ def test_solve_on_card_matches_cpu(cuda):
     assert counts["ell_spmv"] >= 2 * got.iter
     for name in ("ls_dual_update", "sq_dist", "residuals", "primal_update_sym"):
         assert counts[name] >= got.iter, name
+
+
+@pytest.mark.parametrize("how", ["set_float32_matmul_precision", "fp32_precision"])
+def test_solve_ignores_tf32(cuda, how):
+    """A caller who turns TF32 on gets the same default solve: the solve
+    runs torch's own products (the subspace step's tall-skinny GEMMs and
+    reconstructions) in IEEE f32 and puts the caller's setting back.  The
+    solve's body without the pin does change under TF32, so the comparison
+    can fail."""
+    problem, _ = maxcut_problem(random_graph_weights(0, 50))
+    opts = tx.Options(chunk_iters=256)
+    want = tx.solve(problem, opts)
+    if how == "set_float32_matmul_precision":
+        torch.set_float32_matmul_precision("high")
+    else:
+        torch.backends.cuda.matmul.fp32_precision = "tf32"
+    try:
+        got = tx.solve(problem, opts)
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+        bare = tsolver._solve(problem, opts, "cuda", {})
+    finally:
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+    assert (got.status, got.iter, got.objval) == (want.status, want.iter,
+                                                   want.objval)
+    np.testing.assert_array_equal(got.primal, want.primal)
+    assert (bare.iter, bare.objval) != (want.iter, want.objval)

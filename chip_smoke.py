@@ -18,10 +18,23 @@
    the same function, that call; the mixed-type entry points of the f64
    program's polar reseed, which the side-250 solves do not run, are
    checked alike;
+   Phase B also holds the batch path's kernels to their plain versions:
+   K9 (the batched Jacobi PSD projection) at sides 2-64 in f32 and f64 on
+   1024 random, rank-deficient and non-finite matrices, K10 (the
+   packed-triangle gathers) and the batched K1-K4 entry points at phase
+   D's shapes;
 4. phase C: solves the same instance with the default Options() (the
    hybrid f32 race and f64 polish) twice, times the second, counts its
    launches, checks status, objective and X, and prints its phase events
-   beside the JAX package's.
+   beside the JAX package's;
+5. phase D: solve_batch of 1024 side-16 max-cut instances at
+   Options(tol_gap=1e-4, tol_feasibility=1e-4), a first solve then a
+   timed warm one: every status 1, each X within the solver's feasibility
+   bound and PSD, instances 0-15 against the JAX package's batch solve
+   under the same Options() (its f64 solve reported beside it); prints
+   instances/s, the iteration spread, the f32 race's length, and from a
+   profiled window of each program the launches per iteration and each
+   batch kernel's device time per launch.
 
 Any failed phase exits non-zero.  The last line is a JSON object with the
 device; the line before it lists the kernels.  It needs no network and
@@ -63,6 +76,37 @@ HYB_REF_POLISH_RANK = 16
 HYB_REF_RESEEDS = 143
 HYB_REF_DENSE = 0
 HYB_REF_DIAG_ERR = 0.003048931860007542
+# phase D: solve_batch of maxcut_problem(random_graph_weights(s, 16)) for s
+# in range(1024) at Options(tol_gap=1e-4, tol_feasibility=1e-4) (bench.py's
+# BENCH_MODE=batch sweep).  References, the JAX package on the CPU, one
+# thread (tests/test_torch_batch.py keeps them true): its batch solve of
+# these instances with the same Options() -- the hybrid race and f64
+# final phase that phase D runs, the check; each instance reaches an f32
+# status inside the race's one chunk and then runs alone, so instances
+# 0-15 come out alike in a batch of 16 and of 1024 -- and its f64 solve
+# (hybrid_precision=False) of instances 0-15, reported beside it.
+# The JAX package's own two modes differ by up to 1.14e-3 (1 + |obj|) on
+# this batch (19 % of the instances above 2e-4: each stops at the 1e-4
+# tolerances at another point), so the f64 one is not the check.
+# Objectives of instances 0-15, all status 1:
+BATCH_HYB_REF_OBJ = [
+    13.096346594152177, 15.824168555957952, 16.731458929630534,
+    16.868796674219332, 15.09873249280418, 15.383250456368378,
+    16.358025927318895, 16.652644927898177, 13.837881049053143,
+    13.086015867157379, 12.931857506459826, 15.701798501871084,
+    13.828233361294478, 13.686190227295912, 14.89206565235259,
+    15.42635530147343,
+]
+BATCH_SIDE = 16
+BATCH_SIZE = 1024
+BATCH_REF_OBJ = [
+    13.096354231526517, 15.823228353787306, 16.731964759981373,
+    16.868839224452948, 15.099546908667755, 15.383237994330926,
+    16.343638444673857, 16.65271693489418, 13.838146226795732,
+    13.08604412776561, 12.917495023848206, 15.70180393787491,
+    13.829341803692628, 13.686995447070771, 14.903252826900498,
+    15.426360692707982,
+]
 # kernel vs plain version on the card.  f64: elementwise outputs round
 # alike (-fmad=false, the plain version's operation order); reductions
 # differ in summation order only, ~1e-14 in practice.  f32: the GEMM sums
@@ -70,6 +114,7 @@ HYB_REF_DIAG_ERR = 0.003048931860007542
 # K3's f32 program and K8's Ritz sums in the mixed polish are f64 slots.
 RTOL = {"f64": 1e-12, "f32": 2e-5}
 REPS = 50
+SLOW_MS = 20.0
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and the CUDA-core
 # (not tensor-core) rates per type
 PEAK_BYTES = 3.35e12
@@ -86,11 +131,21 @@ def check(cond: bool, msg: str) -> None:
 
 
 def median_ms(torch, fn) -> float:
-    for _ in range(3):
+    """Median of REPS CUDA-event-timed calls after 3 warm-up calls; a call
+    slower than SLOW_MS (cuSOLVER's batched eigh above side 32 takes
+    ~0.5 s) gets one warm-up and 3 timed calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    slow = start.elapsed_time(end) > SLOW_MS
+    for _ in range(0 if slow else 2):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(3 if slow else REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -158,6 +213,46 @@ def check_solution(res, Xidx, ref_obj, diag_tol, label):
     return diag_err, lam_min, fro
 
 
+def check_entry(torch, kernels, out, name, sfx, source, replaces, call, plain,
+                inputs, outputs, flops, library=None, compare_fn=None,
+                tol=None, label="", note=""):
+    """Run one entry point on the card and its plain version on the same
+    inputs, compare, time both (and the library call), and append the
+    kernels-line row to ``out``; launches are filled in later."""
+    entry = f"{name}_{sfx}"
+    row_name = f"{entry} ({label})" if label else entry
+    kernels.reset_launch_counts()
+    got = call(getattr(kernels, name))
+    torch.cuda.synchronize()
+    check(kernels.launch_counts[entry] >= 1,
+          f"{entry}: the wrapper launched no kernel")
+    want = call(plain)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, rel = (compare_fn or (lambda g, w: compare(torch, g, w)))(got, want)
+    if tol is None:
+        tol = RTOL["f64" if all(w.dtype != torch.float32 for w in want)
+                   else "f32"]
+    ms = median_ms(torch, lambda: call(getattr(kernels, name)))
+    plain_ms = median_ms(torch, lambda: call(plain))
+    lib_ms = median_ms(torch, library) if library else None
+    t_bytes = nbytes(list(inputs) + list(outputs)) / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS["f32" if "f32" in sfx else "f64"] * 1e3
+    print(f"kernel {row_name:32s} max_abs_err {err:.3e} rel {rel:.3e} "
+          f"(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms "
+          f"bound {max(t_bytes, t_ops) * 1e3:.3f} us{note}")
+    check(rel <= tol, f"{entry}: relative error {rel:.3e} > {tol}")
+    out.append({
+        "name": row_name, "route": "cuda",
+        "source": f"proxsdp_tpu_torch/kernels/csrc/{source}",
+        "replaces": replaces, "launches": 0, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+    })
+
+
 def kernel_checks(torch, kernels, setup, rng, dev):
     """Each entry point of the default path against its plain version at
     the path's shapes on ``dev``; (rows of the kernels line, launches
@@ -172,41 +267,10 @@ def kernel_checks(torch, kernels, setup, rng, dev):
     dtypes = {"f64": torch.float64, "f32": torch.float32}
     rows, off_path = [], []
 
-    def add(name, sfx, source, replaces, call, plain, inputs, outputs, flops,
-            library=None, compare_fn=None, tol=None, on_path=True, label=""):
-        entry = f"{name}_{sfx}"
-        row_name = f"{entry} ({label})" if label else entry
-        kernels.reset_launch_counts()
-        got = call(getattr(kernels, name))
-        torch.cuda.synchronize()
-        check(kernels.launch_counts[entry] >= 1,
-              f"{entry}: the wrapper launched no kernel")
-        want = call(plain)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err, rel = (compare_fn or (lambda g, w: compare(torch, g, w)))(got, want)
-        if tol is None:
-            tol = RTOL["f64" if all(w.dtype != torch.float32 for w in want)
-                       else "f32"]
-        ms = median_ms(torch, lambda: call(getattr(kernels, name)))
-        plain_ms = median_ms(torch, lambda: call(plain))
-        lib_ms = median_ms(torch, library) if library else None
-        t_bytes = nbytes(list(inputs) + list(outputs)) / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_FLOPS["f32" if "f32" in sfx else "f64"] * 1e3
-        print(f"kernel {row_name:32s} max_abs_err {err:.3e} rel {rel:.3e} "
-              f"(tol {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms "
-              f"bound {max(t_bytes, t_ops) * 1e3:.3f} us"
-              f"{'' if on_path else ' (not on the side-250 solves)'}")
-        check(rel <= tol, f"{entry}: relative error {rel:.3e} > {tol}")
-        (rows if on_path else off_path).append({
-            "name": row_name, "route": "cuda",
-            "source": f"proxsdp_tpu_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-        })
+    def add(*args, on_path=True, **kw):
+        check_entry(torch, kernels, rows if on_path else off_path, *args,
+                    note="" if on_path else " (not on the side-250 solves)",
+                    **kw)
 
     # ---- K1-K4 in both programs (the f32 race and the f64 polish)
     for sfx, dt in dtypes.items():
@@ -329,7 +393,8 @@ def kernel_checks(torch, kernels, setup, rng, dev):
         add("cholqr", sfx, "cholqr.cu", "proxsdp_tpu/ops/cones.py:247",
             lambda f, Yk=Yk: (f(Yk, kernels.CHOLQR_EPS[f32]),),
             kernels.cholqr_plain, (Yk,), (Yk,),
-            3 * SIDE * k * k + k ** 3 // 3, label=f"k={k}")
+            3 * SIDE * k * k + k ** 3 // 3, label=f"k={k}",
+            library=lambda Yk=Yk: torch.linalg.qr(Yk))
     # K8: the race's f32 test (theta from the eigh) at k = 24, and the
     # mixed polish's f64 test (f64 Rayleigh quotients) at k = 16
     for sfx, k, dt in (("f32", 24, f32), ("f64", 16, f64)):
@@ -354,6 +419,310 @@ def kernel_checks(torch, kernels, setup, rng, dev):
             (torch.empty(k + 3, dtype=dt, device=dev),), 8 * SIDE * k,
             compare_fn=exact_flags)
     return rows, off_path
+
+
+EIGH_SIDES = (2, 10, 16, 31, 32, 33, 40, 64)
+# K9 against torch.linalg.eigh: two backward-stable eigensolvers, whose
+# projections and eigenvalues differ by a few s * eps * ||X||; held
+# relative to the batch's largest entry
+EIGH_RTOL = {"f64": 1e-11, "f32": 1e-4}
+TOL_PSD = 1e-7
+
+
+def eigh_inputs(torch, rng, side, dt, dev):
+    """BATCH_SIZE symmetric side x side matrices: random ones, every third
+    rank-deficient (half its eigenvalues exactly 0), instance 1 NaN."""
+    B = BATCH_SIZE
+    X = rng.standard_normal((B, side, side))
+    X = 0.5 * (X + X.transpose(0, 2, 1))
+    Q, _ = np.linalg.qr(rng.standard_normal((B // 3 + 1, side, side)))
+    w = 3.0 * rng.standard_normal((B // 3 + 1, side))
+    w[:, : side // 2] = 0.0
+    X[::3] = np.einsum("bik,bk,bjk->bij", Q, w, Q)[: len(X[::3])]
+    X[1, 0, side - 1] = np.nan
+    return torch.tensor(X, dtype=dt, device=dev)
+
+
+def eigh_compare(torch, X, tol):
+    """K9's outputs (Xp, w, rank, warm) against the plain version's: the
+    NaN instance alone NaN with rank 0; projection and eigenvalues to
+    ``tol`` of the largest entry; ranks equal wherever every eigenvalue
+    clears tol_psd by more than that; the top eigenvector up to sign where
+    the top eigenvalue is simple.  Returns (max abs error, relative)."""
+
+    def fn(got, want):
+        (Xp, w, rank, warm), (pXp, pw, prank, pwarm) = got, want
+        fin = torch.isfinite(X).all(dim=(1, 2))
+        for t in (Xp.flatten(1), w, warm):
+            check(torch.equal(torch.isnan(t).all(dim=1), ~fin),
+                  "batched_psd_eigh: NaN outside the non-finite instance")
+        check(bool((rank[~fin] == 0).all()), "batched_psd_eigh: NaN rank")
+        scale = float(X[fin].abs().max())
+        err = max(float((Xp[fin] - pXp[fin]).abs().max()),
+                  float((w[fin] - pw[fin]).abs().max()))
+        clear = ((pw[fin] - TOL_PSD).abs() > tol * scale).all(dim=1)
+        check(torch.equal(rank[fin][clear], prank[fin][clear]),
+              "batched_psd_eigh: ranks differ")
+        simple = (pw[fin][:, -1] - pw[fin][:, -2]) > 1e-3 * scale
+        dots = torch.sum(warm[fin] * pwarm[fin], dim=1).abs()[simple]
+        check(not dots.numel() or float((1 - dots).abs().max()) <= 1e-3,
+              "batched_psd_eigh: top eigenvectors differ")
+        return err, err / scale
+
+    return fn
+
+
+def batch_kernel_checks(torch, kernels, setups, rng, dev):
+    """Phase B rows of the batch path: K9 at every side of EIGH_SIDES (the
+    phase-D side 16 on the path, the others checked but off it), K10 and
+    the batched K1-K4 entry points at phase D's shapes, in f32 (the race)
+    and f64; (rows of the kernels line, off-path rows)."""
+    from proxsdp_tpu_torch.parallel.batch import _batch_operands
+
+    rows, off_path = [], []
+    B = len(setups)
+    lay = setups[0].layout
+    side, n, p, m = BATCH_SIDE, lay.n, lay.p, lay.m
+    tl = side * (side + 1) // 2
+    for sfx, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        for s in EIGH_SIDES:
+            X = eigh_inputs(torch, rng, s, dt, dev)
+            sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
+            kernels.batched_psd_eigh(X, TOL_PSD, sweeps)
+            ns = s + (s & 1)
+            # 9 n^3 flops a sweep, the reconstruction's 1.5 s^3 and the
+            # off-diagonal norm's 2 s^2 a sweep, for the sweeps this data ran
+            flops = (int(sweeps.sum()) * (9 * ns ** 3 + 2 * ns * ns)
+                     + B * 1.5 * s ** 3)
+            outs = (torch.empty_like(X), torch.empty(B, s, dtype=dt, device=dev),
+                    torch.empty(B, dtype=torch.int32, device=dev),
+                    torch.empty(B, s, dtype=dt, device=dev))
+            on = s == side
+            check_entry(
+                torch, kernels, rows if on else off_path, "batched_psd_eigh",
+                sfx, "batched_eigh.cu", "proxsdp_tpu/ops/cones.py:622",
+                lambda f, X=X: f(X, TOL_PSD), kernels.batched_psd_eigh_plain,
+                (X,), outs, flops,
+                library=lambda Xf=torch.nan_to_num(X): torch.linalg.eigh(Xf),
+                compare_fn=eigh_compare(torch, X, EIGH_RTOL[sfx]),
+                tol=EIGH_RTOL[sfx], label=f"side {s}",
+                note="" if on else f" (side {s}: not phase D's)")
+            print(f"  side {s} {sfx}: Jacobi sweeps min/mean/max "
+                  f"{int(sweeps[torch.arange(B, device=dev) != 1].min())}/"
+                  f"{float(sweeps.float().mean()):.2f}/{int(sweeps.max())}")
+
+        o = _batch_operands(setups, dt, dev, "auto")
+        M = o.M
+
+        def rows_of(k, scale=1.0, dt=dt):
+            return torch.tensor(scale * rng.standard_normal((B, k)), dtype=dt,
+                                device=dev)
+
+        def steps(dt=dt):
+            return torch.tensor(rng.uniform(0.1, 1.0, B), dtype=dt, device=dev)
+
+        x, x_old, Mty, Mty_old = rows_of(n), rows_of(n), rows_of(n, 1e-2), \
+            rows_of(n, 1e-2)
+        y, y_old, Mx, Mx_old = (rows_of(p + m) for _ in range(4))
+        tau, sigma, theta = steps(), steps(), steps()
+        out_pm, out_n = rows_of(p + m), rows_of(n)
+        csr_row = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(p + m, device=dev).repeat_interleave(
+                M.row_cols.shape[1]), M.row_cols.reshape(-1).long()]),
+            M.row_vals.reshape(-1), (p + m, n)).to_sparse_csr()
+        csr_col = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(n, device=dev).repeat_interleave(
+                M.col_rows.shape[1]), M.col_rows.reshape(-1).long()]),
+            M.col_vals.reshape(-1), (n, p + m)).to_sparse_csr()
+        xT, yT = x.T.contiguous(), y.T.contiguous()
+
+        def add(*args, **kw):
+            check_entry(torch, kernels, rows, *args, **kw)
+
+        add("ell_spmv_batch", sfx, "ell_spmv.cu", "proxsdp_tpu/ops/linop.py:123",
+            lambda f: (f(M.row_cols, M.row_vals, x), f(M.col_rows, M.col_vals, y)),
+            kernels.ell_spmv_batch_plain,
+            (M.row_cols, M.row_vals, x, M.col_rows, M.col_vals, y),
+            (out_pm, out_n), 2 * B * (M.row_vals.numel() + M.col_vals.numel()),
+            library=lambda: (torch.sparse.mm(csr_row, xT),
+                             torch.sparse.mm(csr_col, yT)))
+        add("ls_dual_update_batch", sfx, "ls_dual_update.cu",
+            "proxsdp_tpu/solver.py:452",
+            lambda f: f(y, Mx, Mx_old, o.b, o.h, y_old, sigma, theta, p, m),
+            kernels.ls_dual_update_batch_plain,
+            (y, Mx, Mx_old, o.b, o.h, y_old, sigma, theta), (out_pm, tau),
+            10 * B * (p + m))
+        add("sq_dist_batch", sfx, "ls_dual_update.cu",
+            "proxsdp_tpu/solver.py:459",
+            lambda f: (f(Mty, Mty_old),), kernels.sq_dist_batch_plain,
+            (Mty, Mty_old), (tau,), 3 * B * n)
+        add("residuals_batch", sfx, "residuals.cu", "proxsdp_tpu/solver.py:545",
+            lambda f: (f(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,
+                         sigma, o.b, o.h, o.c, p, m),),
+            kernels.residuals_batch_plain,
+            (x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma, o.b,
+             o.h, o.c),
+            (torch.empty(B, 9, dtype=torch.float64, device=dev),),
+            B * (10 * n + 10 * (p + m)))
+        add("primal_update_batch", sfx, "primal_update_sym.cu",
+            "proxsdp_tpu/solver.py:308",
+            lambda f: (f(x, Mty, o.c, tau),), kernels.primal_update_batch_plain,
+            (x, Mty, o.c, tau), (out_n,), 3 * B * n)
+        S = kernels.tri_to_square_plain(x, side)
+        add("tri_to_square", sfx, "tri_gather.cu", "proxsdp_tpu/ops/tri.py:39",
+            lambda f: (f(x, side),), kernels.tri_to_square_plain,
+            (x, *kernels._tri_maps(side, dt, dev)[:2]), (S,), B * side * side)
+        add("square_to_tri", sfx, "tri_gather.cu", "proxsdp_tpu/ops/tri.py:47",
+            lambda f: (f(S, side),), kernels.square_to_tri_plain,
+            (S, *kernels._tri_maps(side, dt, dev)[2:]), (x[:, :tl],), B * tl)
+    return rows, off_path
+
+
+# the batch path's CUDA functions as the profiler names them (K10's two
+# directions are one function)
+BATCH_DEVICE_FNS = {
+    "ell_spmv_batch": "ell_spmv_batch_kernel",
+    "ls_dual_update_batch": "ls_dual_update_batch_kernel",
+    "sq_dist_batch": "sq_dist_batch_kernel",
+    "residuals_batch": "residuals_batch_",
+    "primal_update_batch": "primal_update_batch_kernel",
+    "batched_psd_eigh": "batched_psd_eigh_kernel",
+    "tri_gather": "gather_scale_kernel",
+}
+
+
+def profile_steps(torch, kernels, setups, opts, steps=64):
+    """``steps`` iterations of the batch program of ``opts`` on the setups
+    (after 8 warm-up ones) under torch.profiler: (CUDA kernels per
+    iteration, the port's kernel launches per iteration, device-busy
+    share of the window, ms per iteration, device µs per launch of each
+    function of BATCH_DEVICE_FNS).  None where the profiler shows no
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+
+    dev = torch.device("cuda")
+    opts = tbatch._force_batch_options(opts)
+    dt = torch.float32 if opts.dtype == "float32" else torch.float64
+    layout = setups[0].layout
+    o = tbatch._batch_operands(setups, dt, dev, opts.linop)
+    st = tbatch._stack_states(layout, opts, setups, dev)
+    stats = tbatch.BatchStats()
+    run = tbatch.make_batch_runner(layout, opts, device=dev, stats=stats)[0]
+    st = run(st, o, 8)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    steps0 = stats.steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = run(st, o, 8 + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    done = stats.steps - steps0
+    ours = sum(kernels.launch_counts.values()) / max(done, 1)
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        return None, ours, None, wall * 1e3 / max(done, 1), None
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    n_kernels = sum(e.count for e in dev_events)
+    busy_us = sum(dev_us(e) for e in dev_events)
+    per_launch = {}
+    for name, fn in BATCH_DEVICE_FNS.items():
+        hits = [e for e in dev_events if fn in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            per_launch[name] = sum(dev_us(e) for e in hits) / count
+    return (n_kernels / max(done, 1), ours, busy_us * 1e-6 / wall,
+            wall * 1e3 / max(done, 1), per_launch)
+
+
+def phase_d(torch, kernels, smi, problems, setups, brows):
+    """Two solve_batch runs of the BATCH_SIZE side-16 max-cut instances at
+    Options(tol_gap=1e-4, tol_feasibility=1e-4): a first one, then the
+    timed warm one with the launch counts set to 0 just before it and read
+    just after.  Checks every status, the feasibility and PSD bounds per
+    instance and the objectives of instances 0-15; fills the launches of
+    the batch rows."""
+    from proxsdp_tpu_torch import Options, solve_batch
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+
+    probs = [p for p, _ in problems]
+    Xidx = problems[0][1]
+    opts = Options(tol_gap=1e-4, tol_feasibility=1e-4)
+    t0 = time.perf_counter()
+    solve_batch(probs, opts)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    stats = tbatch.BatchStats()
+    t0 = time.perf_counter()
+    res = solve_batch(probs, opts, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entries = dict(kernels.launch_counts)
+    B = len(res)
+    status = np.array([r.status for r in res])
+    iters = np.array([r.iter for r in res])
+    X = np.stack([r.primal[Xidx] for r in res])
+    diag_err = np.abs(np.diagonal(X, axis1=1, axis2=2) - 1.0).max(axis=1)
+    diag_tol = np.array([1e-4 * (1.0 + s.norm_b) * s.rhs_scale for s in setups])
+    lam_min = np.linalg.eigvalsh(X)[:, 0]
+    fro = np.linalg.norm(X, axis=(1, 2))
+    obj = np.array([r.objval for r in res[: len(BATCH_HYB_REF_OBJ)]])
+    ref = np.array(BATCH_HYB_REF_OBJ)
+    obj_dev = np.abs(obj - ref) / (1.0 + np.abs(ref))
+    f64_dev = np.abs(obj - BATCH_REF_OBJ) / (1.0 + np.abs(BATCH_REF_OBJ))
+    print(f"phase D (solve_batch, B = {B}, side {BATCH_SIDE}, Options(tol_gap="
+          f"1e-4, tol_feasibility=1e-4)) on {smi}: warm solve {wall:.3f} s, "
+          f"{B / wall:.1f} instances/s (first solve {first:.3f} s); "
+          f"statuses {dict(zip(*np.unique(status, return_counts=True)))}; "
+          f"iterations min/median/max {iters.min()}/{int(np.median(iters))}/"
+          f"{iters.max()}; f32 race {stats.race_iters} iterations "
+          f"({stats.race_seconds:.3f} s), program steps {stats.steps}, final "
+          f"phase {stats.final_seconds:.3f} s")
+    print(f"phase D checks: max|diag(X)-1| worst {diag_err.max():.3e} "
+          f"(its bound {diag_tol[diag_err.argmax()]:.3e}), min over instances "
+          f"of lambda_min(X)/||X||_F {float((lam_min / fro).min()):.3e}, "
+          f"objective of instances 0-{len(ref) - 1} vs the JAX batch solve "
+          f"(same Options()): max |diff|/(1+|ref|) {obj_dev.max():.3e} (bound "
+          f"2e-4); vs the JAX f64 solve {f64_dev.max():.3e} (instances "
+          f"{np.nonzero(f64_dev > 2e-4)[0].tolist()} above 2e-4; the JAX "
+          "package's own modes differ by up to 1.14e-3 there)")
+    print("phase D launches: " + json.dumps(
+        {e: n for e, n in entries.items() if n}))
+    print(f"phase D: the port's kernel launches per program step "
+          f"{sum(entries.values()) / max(stats.steps, 1):.2f}")
+    for label, dtype in (("f32 race", "float32"), ("f64", "float64")):
+        per_step, ours, busy, ms, per_launch = profile_steps(
+            torch, kernels, setups, Options(dtype=dtype, hybrid_precision=False,
+                                            tol_gap=1e-4, tol_feasibility=1e-4))
+        print(f"phase D profile ({label} program, 64 iterations of all "
+              f"{B} instances): {ms:.3f} ms/iteration, CUDA kernels per "
+              f"iteration {'not measured' if per_step is None else f'{per_step:.1f}'}"
+              f" (the port's own {ours:.1f}), device busy "
+              f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}; "
+              "device us per launch "
+              + ("not measured" if per_launch is None
+                 else json.dumps(per_launch)))
+    check((status == 1).all(), "D: not every instance reached status 1")
+    check((diag_err <= diag_tol).all(),
+          f"D: max|diag(X)-1| above the bound for "
+          f"{int((diag_err > diag_tol).sum())} instances")
+    check((lam_min >= -1e-6 * fro).all(),
+          f"D: lambda_min(X) < -1e-6 ||X||_F for "
+          f"{int((lam_min < -1e-6 * fro).sum())} instances")
+    check((obj_dev <= 2e-4).all(),
+          f"D: objectives of instances {np.nonzero(obj_dev > 2e-4)[0].tolist()}"
+          " differ from the JAX batch solve by more than 2e-4 (1 + |obj|)")
+    for row in brows:
+        row["launches"] = entries[row["name"].split(" ")[0]]
+        check(row["launches"] > 0, f"{row['name']} launched no kernel in D")
 
 
 def main() -> int:
@@ -411,10 +780,17 @@ def main() -> int:
     for name in ("ls_dual_update", "sq_dist", "residuals", "primal_update_sym"):
         check(counts[name] >= res.iter, f"A: {name} launched < iterations")
 
-    # ---- 3. phase B: every entry point of the default path vs its plain version
+    # ---- 3. phase B: every entry point of the default path vs its plain
+    # version, then the batch path's at phase D's shapes
     rows, off_path = kernel_checks(torch, kernels, setup,
                                    np.random.default_rng(0),
                                    torch.device("cuda"))
+    bproblems = [maxcut_problem(random_graph_weights(s, BATCH_SIDE))
+                 for s in range(BATCH_SIZE)]
+    bsetups = [preprocess(p) for p, _ in bproblems]
+    brows, boff = batch_kernel_checks(torch, kernels, bsetups,
+                                      np.random.default_rng(1),
+                                      torch.device("cuda"))
 
     # ---- 4. phase C: the default Options() -- hybrid race and polish
     opts = Options(log_verbose=True, timer_verbose=True)
@@ -451,7 +827,7 @@ def main() -> int:
           f"||X||_F {fro:.3e}")
     print("phase C launches: " + json.dumps(
         {e: n for e, n in entries.items() if n}))
-    for name in kernels.KERNELS:
+    for name in kernels.SOLVE_KERNELS:
         check(counts[name] > 0, f"C: {name} launched no kernel")
     for name in ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
                  "primal_update_sym"):
@@ -470,6 +846,13 @@ def main() -> int:
           "others from phase C; checked against the plain version but not "
           "on the side-250 solves (the polish's polar reseed from side 384): "
           + ", ".join(row["name"] for row in off_path))
+
+    # ---- 5. phase D: the batched sweep (solve_batch)
+    phase_d(torch, kernels, smi, bproblems, bsetups, brows)
+    rows += brows
+    print("kernels line: the batch rows' launches from phase D's warm solve; "
+          "K9 checked against its plain version but not on phase D's path: "
+          + ", ".join(row["name"] for row in boff))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ imports ``torch``, numpy and scipy -- never jax, never ``proxsdp_tpu``.
 
 Ported so far: solves of one square-form PSD block -- the default
 ``solve(problem)`` (the hybrid f32 race and f64 polish) and single f64
-or f32 programs -- with their hot work in eight hand-written CUDA
-kernels (``kernels/csrc``).  ``solve`` runs on the CUDA card unless the
-caller passes ``device="cpu"``; every tensor has an explicit dtype.
+or f32 programs -- and the batched sweep ``solve_batch(problems)`` of
+many same-geometry single-block problems (the packed-triangle layout,
+the dense-eigh projection), with their hot work in hand-written CUDA
+kernels (``kernels/csrc``).  ``solve`` and ``solve_batch`` run on the
+CUDA card unless the caller passes ``device="cpu"``; every tensor has an
+explicit dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from .api import Optimizer
 from .options import Options, make_options
 from .problem import ConeLayout, ConicProblem, preprocess
 from .result import STATUS_STRINGS, TERMINATION_STATUS, Result
+from .parallel.batch import solve_batch
 from .solver import solve
 
 __all__ = [
@@ -30,5 +34,6 @@ __all__ = [
     "STATUS_STRINGS",
     "TERMINATION_STATUS",
     "solve",
+    "solve_batch",
     "Optimizer",
 ]

@@ -4,7 +4,11 @@ The arrays are the JAX package's: ``state_from_numpy`` takes a dict keyed
 by ``proxsdp_tpu.solver.State._fields`` (``warm`` a tuple), so the same
 host arrays can seed a run of either package -- the parity tests start
 both from one ``init_state``.  Dtypes are kept (f64 vectors and scalars,
-i32 counters); scalars become 0-d tensors on the device.
+i32 counters); scalars become 0-d tensors on the device.  A batch of
+states (the JAX batch driver's, ``proxsdp_tpu.parallel.batch``) is the
+same dict with axis 0 = instance on every array: ``stack_states`` and
+``index_state`` build and split one, and the two functions below carry it
+as they carry a single state.
 """
 
 from __future__ import annotations
@@ -78,3 +82,23 @@ def linop_from_tables(*, row_cols=None, row_vals=None, col_rows=None,
         return DenseOp(torch.tensor(np.asarray(mat), dtype=dtype, device=device))
     return linop_tables_to_ell(row_cols, row_vals, col_rows, col_vals,
                                dtype=dtype, device=device)
+
+
+def stack_states(states) -> dict:
+    """One batched state dict from per-instance dicts (axis 0 = instance;
+    ``warm`` a tuple of (B, ...) arrays)."""
+    out = {}
+    for name, v in states[0].items():
+        if name == "warm":
+            out[name] = tuple(np.stack([st[name][j] for st in states])
+                              for j in range(len(v)))
+        else:
+            out[name] = np.stack([np.asarray(st[name]) for st in states])
+    return out
+
+
+def index_state(states: dict, i: int) -> dict:
+    """Instance ``i`` of a batched state dict of host arrays."""
+    return {name: (tuple(np.asarray(w)[i] for w in v) if name == "warm"
+                   else np.asarray(v)[i])
+            for name, v in states.items()}

@@ -21,6 +21,14 @@ kernels.
 | sym_guard          | ops/cones.py:96-109, 294-310 Xp, guard and rank  |
 | cholqr             | ops/cones.py:243-263 one CholeskyQR pass         |
 | ritz_accept        | ops/cones.py:443-489 the Ritz acceptance test    |
+| batched_psd_eigh   | ops/cones.py:622-675, 204-211 batched eigh proj. |
+| tri_to_square      | ops/tri.py:39-44 (batched)                       |
+| square_to_tri      | ops/tri.py:47-52 (batched)                       |
+
+The batch driver (``parallel/batch.py``) runs K1-K4 through their
+``*_batch`` entry points: a leading instance axis on every vector,
+per-instance step scalars as (B,) tensors and per-instance b, h, c, one
+launch per batch.
 
 The f32 and f64 instantiations share one source each; ``fro_scale`` and
 ``sym_guard`` also take the mixed f64/f32 pairs of the f64 program's
@@ -38,9 +46,14 @@ import torch
 from ..ops.cones import box_projection
 from . import build
 
-KERNELS = ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
-           "primal_update_sym", "ns_gemm", "fro_scale", "sym", "sym_guard",
-           "cholqr", "ritz_accept")
+# the single-instance solve's kernels and the batch driver's
+SOLVE_KERNELS = ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
+                 "primal_update_sym", "ns_gemm", "fro_scale", "sym",
+                 "sym_guard", "cholqr", "ritz_accept")
+BATCH_KERNELS = ("ell_spmv_batch", "ls_dual_update_batch", "sq_dist_batch",
+                 "residuals_batch", "primal_update_batch", "batched_psd_eigh",
+                 "tri_to_square", "square_to_tri")
+KERNELS = SOLVE_KERNELS + BATCH_KERNELS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -57,6 +70,14 @@ _ARGTYPES = {
     "sym_guard": [_P] * 7 + [_I, _P],
     "cholqr": [_P, _P, _I, _I, _D, _P],
     "ritz_accept": [_P] * 4 + [_I, _I, _D, _D, _I] + [_P] * 4,
+    "ell_spmv_batch": [_P] * 4 + [_I] * 4 + [_P],
+    "ls_dual_update_batch": [_P] * 10 + [_I] * 3 + [_P],
+    "sq_dist_batch": [_P] * 3 + [_I, _I, _P],
+    "residuals_batch": [_P] * 14 + [_I] * 4 + [_P],
+    "primal_update_batch": [_P] * 5 + [_I, _I, _P],
+    "batched_psd_eigh": [_P] * 6 + [_I, _I, _D, _P],
+    "tri_to_square": [_P] * 4 + [_I] * 3 + [_P],
+    "square_to_tri": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -245,26 +266,29 @@ def _offdiag_weight(n: int, side: int, dtype, device) -> torch.Tensor:
 
 
 def _max_abs(v):
-    return torch.amax(torch.abs(v)) if v.numel() else v.new_zeros(())
+    """max |v| over the last axis (0 for an empty one)."""
+    return (torch.amax(torch.abs(v), dim=-1) if v.shape[-1]
+            else v.new_zeros(v.shape[:-1]))
 
 
 DOT_CHUNK = 128  # the JAX f32 program's dot chunk (solver.py:526-537)
 
 
 def _chunk_dot(a, b):
-    """f32 dot in two stages: products summed in 128-element chunks in the
-    order of residuals.cu's warps (lane l adds elements l, l+32, l+64,
-    l+96, then a shuffle tree folds the lanes 16, 8, 4, 2, 1 apart), then
-    the chunk sums added in f64."""
+    """f32 dot over the last axis in two stages: products summed in
+    128-element chunks in the order of residuals.cu's warps (lane l adds
+    elements l, l+32, l+64, l+96, then a shuffle tree folds the lanes 16,
+    8, 4, 2, 1 apart), then the chunk sums added in f64."""
     prod = a * b
-    pad = (-prod.numel()) % DOT_CHUNK
+    lead = prod.shape[:-1]
+    pad = (-prod.shape[-1]) % DOT_CHUNK
     if pad:
-        prod = torch.cat([prod, prod.new_zeros(pad)])
-    s = prod.view(-1, 4, 32)
-    s = ((s[:, 0] + s[:, 1]) + s[:, 2]) + s[:, 3]
+        prod = torch.cat([prod, prod.new_zeros(*lead, pad)], dim=-1)
+    s = prod.view(*lead, -1, 4, 32)
+    s = ((s[..., 0, :] + s[..., 1, :]) + s[..., 2, :]) + s[..., 3, :]
     for half in (16, 8, 4, 2, 1):
-        s = s[:, :half] + s[:, half : 2 * half]
-    return torch.sum(s[:, 0].double())
+        s = s[..., :half] + s[..., half : 2 * half]
+    return torch.sum(s[..., 0].double(), dim=-1)
 
 
 def residuals_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
@@ -580,3 +604,278 @@ def ritz_accept(W, XW, theta, accept_tol, tol: float, tol_psd: float,
             float(tol), float(tol_psd), int(bool(force_full)), _ptr(lam),
             _ptr(stats), _ptr(flags))
     return lam, stats, flags
+
+
+# ------------------------------------------------ batched K1-K4 entry points
+#
+# The batch driver's forms of K1-K4 (parallel/batch.py): every vector has a
+# leading instance axis B, the step scalars are (B,) tensors, b, h and c are
+# per instance; the operator's tables are shared.  One launch per batch.
+
+
+def _check_rows(name: str, t: torch.Tensor, B: int, n: int, what: str) -> None:
+    if t.shape != (B, n):
+        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                         f"want ({B}, {n})")
+
+
+def ell_spmv_batch_plain(idx, vals, V):
+    return torch.sum(vals * V[:, idx], dim=-1)
+
+
+def ell_spmv_batch(idx: torch.Tensor, vals: torch.Tensor, V: torch.Tensor):
+    """out[b, r] = sum_j vals[r, j] * V[b, idx[r, j]] for a (B, ncols) V."""
+    name = "ell_spmv_batch"
+    if idx.dtype != torch.int32 or idx.dim() != 2 or vals.shape != idx.shape:
+        raise ValueError(f"{name}: want int32 idx and vals of one 2-d shape")
+    if V.dim() != 2 or idx.shape[1] < 1:
+        raise ValueError(f"{name}: bad V or table width")
+    if _on_cpu(name, idx, vals, V):
+        return ell_spmv_batch_plain(idx, vals, V)
+    (nrows, width), (B, ncols) = idx.shape, V.shape
+    out = torch.empty((B, nrows), dtype=V.dtype, device=V.device)
+    _launch(name, V.dtype, V.device, _ptr(idx), _ptr(vals), _ptr(V), _ptr(out),
+            B, nrows, width, ncols)
+    return out
+
+
+def ls_dual_update_batch_plain(y, Mx, Mx_old, b, h, y_old, bp, theta,
+                               p: int, m: int):
+    bp, theta = bp[:, None], theta[:, None]
+    y_half = y + bp * ((1.0 + theta) * Mx - theta * Mx_old)
+    y_temp = y_half - bp * box_projection(y_half, b, h, bp, p)
+    d = y_temp - y_old
+    return y_temp, torch.sum(d * d, dim=-1)
+
+
+def ls_dual_update_batch(y, Mx, Mx_old, b, h, y_old, bp, theta, p: int,
+                         m: int):
+    """One linesearch trial of B instances: y_temp (B, p + m) and the
+    squared distances ||y_temp - y_old||^2 (B,); bp, theta (B,)."""
+    name = "ls_dual_update_batch"
+    B = y.shape[0]
+    for t, what in ((y, "y"), (Mx, "Mx"), (Mx_old, "Mx_old"), (y_old, "y_old")):
+        _check_rows(name, t, B, p + m, what)
+    _check_rows(name, b, B, p, "b")
+    _check_rows(name, h, B, m, "h")
+    _check_vec(name, bp, B, "bp")
+    _check_vec(name, theta, B, "theta")
+    if _on_cpu(name, y, Mx, Mx_old, b, h, y_old, bp, theta):
+        return ls_dual_update_batch_plain(y, Mx, Mx_old, b, h, y_old, bp,
+                                          theta, p, m)
+    y_temp = torch.empty_like(y)
+    sq = torch.empty(B, dtype=y.dtype, device=y.device)
+    _launch(name, y.dtype, y.device,
+            *map(_ptr, (y, Mx, Mx_old, b, h, y_old, bp, theta, y_temp, sq)),
+            B, p, m)
+    return y_temp, sq
+
+
+def sq_dist_batch_plain(a, b):
+    d = a - b
+    return torch.sum(d * d, dim=-1)
+
+
+def sq_dist_batch(a, b):
+    """sum_i (a[k, i] - b[k, i])^2 for each row k, as a (B,) tensor."""
+    name = "sq_dist_batch"
+    if a.dim() != 2:
+        raise ValueError(f"{name}: a must be 2-d")
+    _check_rows(name, b, *a.shape, "b")
+    if _on_cpu(name, a, b):
+        return sq_dist_batch_plain(a, b)
+    B, n = a.shape
+    out = torch.empty(B, dtype=a.dtype, device=a.device)
+    _launch(name, a.dtype, a.device, _ptr(a), _ptr(b), _ptr(out), B, n)
+    return out
+
+
+def residuals_batch_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,
+                          sigma, b, h, c, p: int, m: int):
+    tau, sigma = tau[:, None], sigma[:, None]
+    px_old = x_old - tau * Mty_old
+    px = x - tau * Mty
+    py_old = y_old - sigma * Mx_old
+    py = y - sigma * Mx
+    ineq = (torch.amax(Mx[:, p:] - h, dim=-1) if m
+            else torch.full(x.shape[:1], -math.inf, dtype=x.dtype,
+                            device=x.device))
+    maxima = torch.stack([
+        _max_abs(px - px_old),
+        _max_abs(px_old),
+        _max_abs(py - py_old),
+        _max_abs(py_old),
+        _max_abs(Mx[:, :p] - b),
+        ineq,
+    ], dim=-1).double()
+    if x.dtype == torch.float64:
+        dots = [torch.sum(c * x, dim=-1), torch.sum(b * y[:, :p], dim=-1),
+                torch.sum(h * y[:, p:], dim=-1)]
+    else:
+        dots = [_chunk_dot(c, x), _chunk_dot(b, y[:, :p]),
+                _chunk_dot(h, y[:, p:])]
+    return torch.cat([maxima, torch.stack(dots, dim=-1)], dim=-1)
+
+
+def residuals_batch(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
+                    b, h, c, p: int, m: int):
+    """The nine reductions of ``residuals`` for B instances of the packed
+    layout (no off-diagonal weight), as a (B, 9) f64 tensor; tau and sigma
+    are (B,)."""
+    name = "residuals_batch"
+    B, n = x.shape
+    for t, what in ((x, "x"), (x_old, "x_old"), (Mty, "Mty"),
+                    (Mty_old, "Mty_old"), (c, "c")):
+        _check_rows(name, t, B, n, what)
+    for t, what in ((y, "y"), (y_old, "y_old"), (Mx, "Mx"), (Mx_old, "Mx_old")):
+        _check_rows(name, t, B, p + m, what)
+    _check_rows(name, b, B, p, "b")
+    _check_rows(name, h, B, m, "h")
+    _check_vec(name, tau, B, "tau")
+    _check_vec(name, sigma, B, "sigma")
+    args = (x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma, b, h, c)
+    if _on_cpu(name, *args):
+        return residuals_batch_plain(*args, p, m)
+    out = torch.empty((B, RESIDUAL_SLOTS), dtype=torch.float64, device=x.device)
+    _launch(name, x.dtype, x.device, *map(_ptr, args + (out,)), B, n, p, m)
+    return out
+
+
+def primal_update_batch_plain(x, Mty, c, tau):
+    return x - tau[:, None] * (Mty + c)
+
+
+def primal_update_batch(x, Mty, c, tau):
+    """u = x - tau[:, None] * (Mty + c) for (B, n) rows (no symmetrisation:
+    the packed-triangle layout's update)."""
+    name = "primal_update_batch"
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be 2-d")
+    B, n = x.shape
+    _check_rows(name, Mty, B, n, "Mty")
+    _check_rows(name, c, B, n, "c")
+    _check_vec(name, tau, B, "tau")
+    if _on_cpu(name, x, Mty, c, tau):
+        return primal_update_batch_plain(x, Mty, c, tau)
+    out = torch.empty_like(x)
+    _launch(name, x.dtype, x.device, _ptr(x), _ptr(Mty), _ptr(c), _ptr(tau),
+            _ptr(out), B, n)
+    return out
+
+
+# ------------------------------------- K9 batched Jacobi PSD projection
+
+EIGH_MAX_SIDE = 64  # batched_eigh.cu: A and V of one instance in shared memory
+
+
+def _eigh_rows(X):
+    """torch.linalg.eigh of a (B, s, s) batch with jnp.linalg.eigh's NaN
+    for an instance with a non-finite entry, that instance alone (torch
+    raises there).  The test is on the device: no host sync."""
+    ok = torch.all(torch.isfinite(X), dim=(-2, -1))
+    w, V = torch.linalg.eigh(torch.where(ok[:, None, None], X,
+                                         torch.zeros_like(X)))
+    return (torch.where(ok[:, None], w, torch.nan),
+            torch.where(ok[:, None, None], V, torch.nan))
+
+
+def batched_psd_eigh_plain(X, tol_psd: float):
+    w, V = _eigh_rows(X)
+    Xp = torch.matmul(V * torch.clamp_min(w, 0.0)[:, None, :],
+                      V.transpose(-2, -1))
+    rank = torch.sum(w > tol_psd, dim=-1).to(torch.int32)
+    return Xp, w, rank, V[:, :, -1].contiguous()
+
+
+def batched_psd_eigh(X, tol_psd: float, sweeps: torch.Tensor | None = None):
+    """(Xp, w, rank, warm) of B symmetric (s, s) matrices X = V diag(w) V^T,
+    w ascending: Xp = V diag(max(w, 0)) V^T, rank = #{w > tol_psd} (int32),
+    warm = V[:, :, -1]; NaN (rank 0) for an instance with a non-finite
+    entry.  On the card s <= 64 (one CTA's shared memory), and a (B,)
+    int32 ``sweeps`` receives the Jacobi sweeps each instance ran (the
+    measurement's operation count; the CPU path leaves it)."""
+    name = "batched_psd_eigh"
+    if X.dim() != 3 or X.shape[1] != X.shape[2]:
+        raise ValueError(f"{name}: X must be (B, s, s)")
+    if _on_cpu(name, X):
+        return batched_psd_eigh_plain(X, tol_psd)
+    B, s, _ = X.shape
+    if s > EIGH_MAX_SIDE:
+        raise NotImplementedError(
+            f"{name}: side {s} > {EIGH_MAX_SIDE} (the batched projection of "
+            "larger blocks is not ported yet: ROADMAP A11 / B11)")
+    Xp = torch.empty_like(X)
+    w = torch.empty((B, s), dtype=X.dtype, device=X.device)
+    rank = torch.empty(B, dtype=torch.int32, device=X.device)
+    warm = torch.empty((B, s), dtype=X.dtype, device=X.device)
+    if sweeps is not None and (sweeps.shape != (B,)
+                               or sweeps.dtype != torch.int32):
+        raise ValueError(f"{name}: sweeps must be a (B,) int32 tensor")
+    _launch(name, X.dtype, X.device, _ptr(X), _ptr(Xp), _ptr(w), _ptr(rank),
+            _ptr(warm), None if sweeps is None else _ptr(sweeps), B, s,
+            float(tol_psd))
+    return Xp, w, rank, warm
+
+
+# --------------------------------------------- K10 packed-triangle gathers
+
+
+@functools.lru_cache(maxsize=32)
+def _tri_maps(side: int, dtype, device):
+    """ops/tri.py's maps on ``device``: (gidx, in_scale, sq_of_tri,
+    out_scale), the indices int32, the scales in ``dtype``."""
+    from ..ops.tri import _maps
+
+    gidx, in_scale, sq_of_tri, out_scale = _maps(side)
+
+    def idx(a):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+
+    def val(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return idx(gidx), val(in_scale), idx(sq_of_tri), val(out_scale)
+
+
+def tri_to_square_plain(V, side: int):
+    gidx, in_scale, _, _ = _tri_maps(side, V.dtype, V.device)
+    tl = side * (side + 1) // 2
+    return (V[:, :tl][:, gidx.long()] * in_scale).view(-1, side, side)
+
+
+def tri_to_square(V, side: int):
+    """(B, side, side) dense symmetric matrices from the packed scaled
+    triangles at the start of each row of V (B, >= side(side+1)/2)."""
+    name = "tri_to_square"
+    tl = side * (side + 1) // 2
+    if V.dim() != 2 or V.shape[1] < tl:
+        raise ValueError(f"{name}: V must be (B, >= {tl})")
+    if _on_cpu(name, V):
+        return tri_to_square_plain(V, side)
+    gidx, in_scale, _, _ = _tri_maps(side, V.dtype, V.device)
+    B = V.shape[0]
+    out = torch.empty((B, side, side), dtype=V.dtype, device=V.device)
+    _launch(name, V.dtype, V.device, _ptr(V), _ptr(gidx), _ptr(in_scale),
+            _ptr(out), B, side * side, V.shape[1])
+    return out
+
+
+def square_to_tri_plain(X, side: int):
+    _, _, sq_of_tri, out_scale = _tri_maps(side, X.dtype, X.device)
+    return X.reshape(X.shape[0], -1)[:, sq_of_tri.long()] * out_scale
+
+
+def square_to_tri(X, side: int):
+    """(B, side(side+1)/2) packed scaled triangles of (B, side, side) X,
+    read from the upper triangle."""
+    name = "square_to_tri"
+    if X.dim() != 3 or X.shape[1:] != (side, side):
+        raise ValueError(f"{name}: X must be (B, {side}, {side})")
+    if _on_cpu(name, X):
+        return square_to_tri_plain(X, side)
+    _, _, sq_of_tri, out_scale = _tri_maps(side, X.dtype, X.device)
+    B, tl = X.shape[0], side * (side + 1) // 2
+    out = torch.empty((B, tl), dtype=X.dtype, device=X.device)
+    _launch(name, X.dtype, X.device, _ptr(X), _ptr(sq_of_tri), _ptr(out_scale),
+            _ptr(out), B, tl, side * side)
+    return out

@@ -106,3 +106,57 @@ extern "C" int proxsdp_primal_update_sym_f32(const void* x, const void* Mty,
                                              int64_t side, void* stream) {
   return launch<float>(x, Mty, c, tau, out, n, side, stream);
 }
+
+// ---- the batch driver's entry point: the packed-triangle layout has no
+// square block to symmetrise, so the update is u = x - tau * (Mty + c)
+// alone (proxsdp_tpu/solver.py:308 under the vmap of parallel/batch.py:141),
+// for B rows with a step tau[b] per instance, in one launch.  Bound:
+// bytes, 3 reads and 1 write per entry; a grid-stride loop over B * n.
+namespace {
+
+template <typename T>
+__global__ void primal_update_batch_kernel(const T* __restrict__ x,
+                                           const T* __restrict__ Mty,
+                                           const T* __restrict__ c,
+                                           const T* __restrict__ tau,
+                                           T* __restrict__ out, int64_t total,
+                                           int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < total; e += stride)
+    out[e] = x[e] - tau[e / n] * (Mty[e] + c[e]);
+}
+
+template <typename T>
+int launch_batch(const void* x, const void* Mty, const void* c,
+                 const void* tau, void* out, int64_t B, int64_t n,
+                 void* stream) {
+  const int64_t total = B * n;
+  if (total > 0) {
+    int64_t g = (total + proxsdp::kThreads - 1) / proxsdp::kThreads;
+    if (g > 65535) g = 65535;
+    primal_update_batch_kernel<T><<<static_cast<int>(g), proxsdp::kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(Mty),
+        static_cast<const T*>(c), static_cast<const T*>(tau),
+        static_cast<T*>(out), total, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, Mty, c, out: (B, n); tau: (B,).
+extern "C" int proxsdp_primal_update_batch_f64(const void* x, const void* Mty,
+                                               const void* c, const void* tau,
+                                               void* out, int64_t B, int64_t n,
+                                               void* stream) {
+  return launch_batch<double>(x, Mty, c, tau, out, B, n, stream);
+}
+
+extern "C" int proxsdp_primal_update_batch_f32(const void* x, const void* Mty,
+                                               const void* c, const void* tau,
+                                               void* out, int64_t B, int64_t n,
+                                               void* stream) {
+  return launch_batch<float>(x, Mty, c, tau, out, B, n, stream);
+}

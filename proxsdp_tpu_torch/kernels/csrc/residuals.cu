@@ -249,3 +249,196 @@ extern "C" int proxsdp_residuals_f32(
       static_cast<const double*>(partials), grid, static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---- the batch driver's entry point (the vmapped _residuals_and_gap of
+// proxsdp_tpu/parallel/batch.py:141 on the packed-triangle layout, where
+// solver.py:545-554 applies no off-diagonal weight): the same nine values
+// for B instances, each with its own tau[b], sigma[b], b, h and c, written
+// to out[b, 0..9) in f64, one launch per batch.  One CTA per instance,
+// which also takes the place of the second pass: f64 instances stride
+// their threads over the entries, f32 instances give each 128-element
+// chunk to one of the CTA's warps in the order of the f32 kernel above
+// (the chunk sums are bit for bit the plain version's; the chunk sums are
+// then added in the block tree's order).
+namespace {
+
+template <typename T>
+__global__ void residuals_batch_kernel(
+    const T* __restrict__ x, const T* __restrict__ x_old,
+    const T* __restrict__ Mty, const T* __restrict__ Mty_old,
+    const T* __restrict__ tau_ptr, const T* __restrict__ y,
+    const T* __restrict__ y_old, const T* __restrict__ Mx,
+    const T* __restrict__ Mx_old, const T* __restrict__ sigma_ptr,
+    const T* __restrict__ b, const T* __restrict__ h,
+    const T* __restrict__ c, double* __restrict__ out, int64_t n, int64_t p,
+    int64_t m) {
+  const int64_t inst = blockIdx.x;
+  const int64_t pm = p + m;
+  const int64_t xo = inst * n, yo = inst * pm;
+  const T tau = tau_ptr[inst];
+  const T sigma = sigma_ptr[inst];
+  const T* bb = b + inst * p;
+  const T* hb = h + inst * m;
+  T acc[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) acc[k] = T(0);
+  acc[5] = static_cast<T>(-INFINITY);
+  const int64_t total = n > pm ? n : pm;
+  for (int64_t i = threadIdx.x; i < total; i += blockDim.x) {
+    if (i < n) {
+      const int64_t e = xo + i;
+      const T px_old = x_old[e] - tau * Mty_old[e];
+      const T px = x[e] - tau * Mty[e];
+      acc[0] = nan_max(acc[0], fabs(px - px_old));
+      acc[1] = nan_max(acc[1], fabs(px_old));
+      acc[6] += c[e] * x[e];
+    }
+    if (i < pm) {
+      const int64_t e = yo + i;
+      const T py_old = y_old[e] - sigma * Mx_old[e];
+      const T py = y[e] - sigma * Mx[e];
+      acc[2] = nan_max(acc[2], fabs(py - py_old));
+      acc[3] = nan_max(acc[3], fabs(py_old));
+      if (i < p) {
+        acc[4] = nan_max(acc[4], fabs(Mx[e] - bb[i]));
+        acc[7] += bb[i] * y[e];
+      } else {
+        acc[5] = nan_max(acc[5], Mx[e] - hb[i - p]);
+        acc[8] += hb[i - p] * y[e];
+      }
+    }
+  }
+  proxsdp::block_reduce<T, kSlots, kMaxMask>(acc);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k)
+      out[inst * kSlots + k] = static_cast<double>(acc[k]);
+  }
+}
+
+__global__ void residuals_batch_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ x_old,
+    const float* __restrict__ Mty, const float* __restrict__ Mty_old,
+    const float* __restrict__ tau_ptr, const float* __restrict__ y,
+    const float* __restrict__ y_old, const float* __restrict__ Mx,
+    const float* __restrict__ Mx_old, const float* __restrict__ sigma_ptr,
+    const float* __restrict__ b, const float* __restrict__ h,
+    const float* __restrict__ c, double* __restrict__ out, int64_t n,
+    int64_t p, int64_t m) {
+  const int64_t inst = blockIdx.x;
+  const int64_t pm = p + m;
+  const int64_t xo = inst * n, yo = inst * pm;
+  const float tau = tau_ptr[inst];
+  const float sigma = sigma_ptr[inst];
+  const float* bb = b + inst * p;
+  const float* hb = h + inst * m;
+  float mx[6] = {0.f, 0.f, 0.f, 0.f, 0.f, -INFINITY};
+  double dots[3] = {0.0, 0.0, 0.0};
+  const int lane = threadIdx.x & 31;
+  const int64_t nx = (n + kChunk - 1) / kChunk;
+  const int64_t nb = (p + kChunk - 1) / kChunk;
+  const int64_t nh = (m + kChunk - 1) / kChunk;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int64_t t = warp; t < nx + nb + nh; t += nwarps) {
+    float s = 0.f;
+    int slot;
+    if (t < nx) {
+      slot = 0;
+      for (int j = 0; j < 4; ++j) {
+        const int64_t i = t * kChunk + lane + 32 * j;
+        float prod = 0.f;
+        if (i < n) {
+          const int64_t e = xo + i;
+          const float px_old = x_old[e] - tau * Mty_old[e];
+          const float px = x[e] - tau * Mty[e];
+          mx[0] = nan_max(mx[0], fabsf(px - px_old));
+          mx[1] = nan_max(mx[1], fabsf(px_old));
+          prod = c[e] * x[e];
+        }
+        s = j ? s + prod : prod;
+      }
+    } else {
+      const bool eq = t < nx + nb;
+      slot = eq ? 1 : 2;
+      const int64_t base = (eq ? t - nx : t - nx - nb) * kChunk;
+      const int64_t len = eq ? p : m;
+      for (int j = 0; j < 4; ++j) {
+        const int64_t r = base + lane + 32 * j;
+        float prod = 0.f;
+        if (r < len) {
+          const int64_t e = yo + (eq ? r : p + r);
+          const float py_old = y_old[e] - sigma * Mx_old[e];
+          const float py = y[e] - sigma * Mx[e];
+          mx[2] = nan_max(mx[2], fabsf(py - py_old));
+          mx[3] = nan_max(mx[3], fabsf(py_old));
+          if (eq) {
+            mx[4] = nan_max(mx[4], fabsf(Mx[e] - bb[r]));
+            prod = bb[r] * y[e];
+          } else {
+            mx[5] = nan_max(mx[5], Mx[e] - hb[r]);
+            prod = hb[r] * y[e];
+          }
+        }
+        s = j ? s + prod : prod;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) dots[slot] += static_cast<double>(s);
+  }
+  double acc[kSlots];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) acc[k] = static_cast<double>(mx[k]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[6 + k] = dots[k];
+  proxsdp::block_reduce<double, kSlots, kMaxMask>(acc);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) out[inst * kSlots + k] = acc[k];
+  }
+}
+
+}  // namespace
+
+// x, x_old, Mty, Mty_old, c: (B, n); y, y_old, Mx, Mx_old: (B, p + m);
+// b: (B, p); h: (B, m); tau, sigma: (B,); out: (B, 9) doubles.
+extern "C" int proxsdp_residuals_batch_f64(
+    const void* x, const void* x_old, const void* Mty, const void* Mty_old,
+    const void* tau, const void* y, const void* y_old, const void* Mx,
+    const void* Mx_old, const void* sigma, const void* b, const void* h,
+    const void* c, void* out, int64_t B, int64_t n, int64_t p, int64_t m,
+    void* stream) {
+  if (B > 0) {
+    residuals_batch_kernel<double><<<static_cast<unsigned>(B), kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const double*>(x), static_cast<const double*>(x_old),
+        static_cast<const double*>(Mty), static_cast<const double*>(Mty_old),
+        static_cast<const double*>(tau), static_cast<const double*>(y),
+        static_cast<const double*>(y_old), static_cast<const double*>(Mx),
+        static_cast<const double*>(Mx_old), static_cast<const double*>(sigma),
+        static_cast<const double*>(b), static_cast<const double*>(h),
+        static_cast<const double*>(c), static_cast<double*>(out), n, p, m);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int proxsdp_residuals_batch_f32(
+    const void* x, const void* x_old, const void* Mty, const void* Mty_old,
+    const void* tau, const void* y, const void* y_old, const void* Mx,
+    const void* Mx_old, const void* sigma, const void* b, const void* h,
+    const void* c, void* out, int64_t B, int64_t n, int64_t p, int64_t m,
+    void* stream) {
+  if (B > 0) {
+    residuals_batch_f32_kernel<<<static_cast<unsigned>(B), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(x_old),
+        static_cast<const float*>(Mty), static_cast<const float*>(Mty_old),
+        static_cast<const float*>(tau), static_cast<const float*>(y),
+        static_cast<const float*>(y_old), static_cast<const float*>(Mx),
+        static_cast<const float*>(Mx_old), static_cast<const float*>(sigma),
+        static_cast<const float*>(b), static_cast<const float*>(h),
+        static_cast<const float*>(c), static_cast<double*>(out), n, p, m);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -18,6 +18,12 @@
     kernel K8.  ``lax.cond(conv_ok, ...)`` becomes one host read of K8's
     flag, the same sync the eigh already costs.
 
+* ``psd_projection_small_batch`` (cones.py:622-675): the dense-eigh
+  projection of B same-side blocks, packed scaled triangles (the batch
+  driver's layout: kernel K10 on both sides of the eigh) or square; on the
+  card the eigendecomposition, reconstruction and rank are kernel K9, on
+  the CPU ``torch.linalg.eigh``.
+
 The Lanczos engine is ROADMAP A8/B10, the sign-based subspace body
 (``subspace_sign=True``, cones.py:337-425) and the accept-always batch
 mode are B5/B13, the SOC projection is B3'.
@@ -30,13 +36,15 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from .tri import square_to_tri, tri_to_square
 
 POLAR_QA, POLAR_QB, POLAR_QC = 3.4445, -4.7750, 2.0315
 
 
 def box_projection(v, b, h, step, p: int):
-    """Equality rows pinned to b; inequality rows min(v/step, h)."""
-    return torch.cat([b, torch.minimum(v[p:] / step, h)])
+    """Equality rows pinned to b; inequality rows min(v/step, h) (on the
+    last axis: a leading instance axis is carried through)."""
+    return torch.cat([b, torch.minimum(v[..., p:] / step, h)], dim=-1)
 
 
 class PsdProjResult(NamedTuple):
@@ -193,3 +201,30 @@ def psd_projection_block(X, warm, *, opts, accept_tol=None,
         return PsdProjResult(Xp, X.new_zeros(()), rank, warm, False, zero3)
     Xp, me, cur, wv = full_path(X, opts)
     return PsdProjResult(Xp, me, cur, wv, True, zero3)
+
+
+def psd_projection_small_batch(v_blocks, side: int, *, opts):
+    """Dense-eigh projection of B same-side PSD blocks (cones.py:622-675).
+
+    ``v_blocks`` is (B, tri_len) packed scaled triangles (K10 expands them
+    and packs the result) or (B, side * side) square blocks (symmetrised
+    first).  Returns (blocks like ``v_blocks``, min_eig (B,) -- 0 per the
+    full path's semantics, the projected value for side 1 --, rank (B,)
+    int32, warm (B, side) -- the top eigenvector, ones for side 1)."""
+    B = v_blocks.shape[0]
+    if side == 1:
+        proj = torch.clamp_min(v_blocks, 0.0)
+        val = proj[:, 0]
+        return proj, val, (val > 0).to(torch.int32), torch.ones_like(proj)
+    dtype = v_blocks.dtype
+    square_in = v_blocks.shape[1] == side * side
+    if square_in:
+        X = v_blocks.view(B, side, side)
+        X = 0.5 * (X + X.transpose(1, 2))
+    else:
+        X = tri_to_square(v_blocks, side)
+    Xp, _, rank, warm = kernels.batched_psd_eigh(
+        X.to(_eig_dtype(dtype, opts)).contiguous(), opts.tol_psd)
+    Xp, warm = Xp.to(dtype), warm.to(dtype)
+    blocks = Xp.reshape(B, side * side) if square_in else square_to_tri(Xp, side)
+    return blocks, v_blocks.new_zeros(B), rank, warm

@@ -34,6 +34,13 @@ class DenseOp(nn.Module):
     def rmatvec(self, y):
         return torch.matmul(self.mat.T, y)
 
+    def matvec_batch(self, X):
+        """M x for each row of the (B, n) X."""
+        return torch.matmul(X, self.mat.T)
+
+    def rmatvec_batch(self, Y):
+        return torch.matmul(Y, self.mat)
+
 
 class EllOp(nn.Module):
     """ELLPACK operator; padding entries point at index 0 with value 0."""
@@ -60,6 +67,13 @@ class EllOp(nn.Module):
 
     def rmatvec(self, y):
         return kernels.ell_spmv(self.col_rows, self.col_vals, y)
+
+    def matvec_batch(self, X):
+        """M x for each row of the (B, n) X (K1's batched entry point)."""
+        return kernels.ell_spmv_batch(self.row_cols, self.row_vals, X)
+
+    def rmatvec_batch(self, Y):
+        return kernels.ell_spmv_batch(self.col_rows, self.col_vals, Y)
 
 
 def ell_tables(rows, cols, vals, nrows, ncols, max_width=32):

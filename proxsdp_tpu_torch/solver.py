@@ -245,18 +245,39 @@ def _power_norm_host(M, n, iters):
 # ---------------------------------------------------------------------------
 
 
+# The scalar steps (_residuals_and_gap, _control) also run on a batched
+# State (parallel/batch.py): a leading instance axis on every field, the
+# scalars (B,) and the ring buffers (B, L).  These helpers take either; on
+# the single-instance State they issue the same operations as before.
+
+
 def _at(buf, i):
-    """buf[i] for a 0-d integer tensor i, without a host sync."""
-    return buf.index_select(0, i.reshape(1).long())[0]
+    """buf[..., i] for an integer tensor i (0-d, or (B,) for (B, L)
+    buffers), without a host sync."""
+    if i.dim() == 0:
+        return buf.index_select(0, i.reshape(1).long())[0]
+    return torch.gather(buf, -1, i.long().unsqueeze(-1)).squeeze(-1)
 
 
 def _set(buf, i, v):
-    return buf.index_copy(0, i.reshape(1).long(), v.reshape(1))
+    if i.dim() == 0:
+        return buf.index_copy(0, i.reshape(1).long(), v.reshape(1))
+    return buf.scatter(-1, i.long().unsqueeze(-1), v.unsqueeze(-1))
+
+
+def _col(v):
+    """A scalar per instance as a column against (B, n) rows; a 0-d
+    scalar becomes a 1-element vector (the same broadcast)."""
+    return v.unsqueeze(-1)
+
+
+def _dot(a, b):
+    return torch.dot(a, b) if a.dim() == 1 else torch.sum(a * b, dim=-1)
 
 
 def _max_abs_cyclic_diff(buf):
     """max_i |v[i] - v[i-1]| over the cyclic buffer (structs.jl:14-20)."""
-    return torch.amax(torch.abs(buf - torch.roll(buf, 1)))
+    return torch.amax(torch.abs(buf - torch.roll(buf, 1, -1)), -1)
 
 
 def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
@@ -348,13 +369,14 @@ def _residuals_and_gap(s: State, o: Operands, layout: ConeLayout, opts: Options)
     ring writes in the program's dtype (an f32 program casts there, as
     the JAX f32 program does)."""
     p, m = layout.p, layout.m
-    L = s.buf_gap.shape[0]
+    L = s.buf_gap.shape[-1]
     idx = torch.remainder(s.iter, L)  # (k - 1) % L with k = iter + 1
-    r = kernels.residuals(
-        s.x, s.x_old, s.Mty, s.Mty_old, s.primal_step, s.y, s.y_old,
-        s.Mx, s.Mx_old, s.dual_step, o.b, o.h, o.c, p, m,
-        layout.sdp_sides[0],
-    )
+    args = (s.x, s.x_old, s.Mty, s.Mty_old, s.primal_step, s.y, s.y_old,
+            s.Mx, s.Mx_old, s.dual_step, o.b, o.h, o.c, p, m)
+    if s.x.dim() == 2:  # a batch of packed-triangle instances
+        r = kernels.residuals_batch(*args).unbind(-1)
+    else:
+        r = kernels.residuals(*args, layout.sdp_sides[0])
     norm_b, norm_h, norm_c = o.norm_b.double(), o.norm_h.double(), o.norm_c.double()
     # primal PPA residual (sqrt of the tri-equivalent coordinate count,
     # residuals.jl:46-55)
@@ -367,7 +389,7 @@ def _residuals_and_gap(s: State, o: Operands, layout: ConeLayout, opts: Options)
         / torch.clamp_min(torch.maximum(r[3], norm_c), 1.0)
     )
     comb = torch.maximum(pres, dres)
-    zero = torch.zeros((), dtype=torch.float64, device=r.device)
+    zero = torch.zeros(s.iter.shape, dtype=torch.float64, device=s.x.device)
     equa = r[4] / (1.0 + norm_b) if p else s.equa_feas.double()
     ineq = r[5] / (1.0 + norm_h) if m else s.ineq_feas.double()
     feas = torch.maximum(equa if p else zero, ineq if m else zero)
@@ -383,7 +405,7 @@ def _residuals_and_gap(s: State, o: Operands, layout: ConeLayout, opts: Options)
         1.0 + torch.abs(prim_obj) + torch.abs(dual_obj)
     )
     v = torch.stack([pres, dres, comb, feas, gap, prim_obj, dual_obj, equa,
-                     ineq]).to(s.x.dtype)
+                     ineq], dim=-1).to(s.x.dtype).unbind(-1)
     return s.replace(
         x_old=s.x,
         y_old=s.y,
@@ -418,7 +440,7 @@ def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
     adaptive restart-to-average (solver.py:653-911).  Branch-free on 0-d
     tensors: no host sync."""
     k = s.iter + 1
-    L = s.buf_gap.shape[0]
+    L = s.buf_gap.shape[-1]
     idx = torch.remainder(k - 1, L)
     w = opts.convergence_window
 
@@ -443,7 +465,7 @@ def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
         | (s.target_rank > opts.max_target_rank_krylov_eigs)
         | (s.min_eig < opts.tol_psd)
     )
-    rank_conv = torch.all(blk_conv)
+    rank_conv = torch.all(blk_conv, dim=-1)
 
     conv = (gap_k <= opts.tol_gap) & (feas_k <= opts.tol_feasibility)
     opt_ok = conv & rank_conv & (k > opts.min_iter)
@@ -459,8 +481,9 @@ def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
     do_bump2 = b2 & (update_cont > opts.divergence_min_update)
     new_target = _bump_ranks(s.target_rank, s.current_rank, s.min_eig,
                              sides_arr, opts)
-    target_rank = torch.where(do_bump1 | do_bump2, new_target, s.target_rank)
-    any_not_full = torch.any(s.target_rank < sides_arr)
+    target_rank = torch.where(_col(do_bump1 | do_bump2), new_target,
+                              s.target_rank)
+    any_not_full = torch.any(s.target_rank < sides_arr, dim=-1)
     reset = do_bump1 | (do_bump2 & any_not_full)
     rank_update = torch.where(reset, 0, rank_update)
     update_cont = torch.where(reset, 0, update_cont)
@@ -535,10 +558,10 @@ def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
     if opts.restart == "adaptive":
         p, m = layout.p, layout.m
         ps = s.primal_step
-        avg_x = s.avg_x + ps * s.x
-        avg_y = s.avg_y + ps * s.y
-        avg_Mx = s.avg_Mx + ps * s.Mx
-        avg_Mty = s.avg_Mty + ps * s.Mty
+        avg_x = s.avg_x + _col(ps) * s.x
+        avg_y = s.avg_y + _col(ps) * s.y
+        avg_Mx = s.avg_Mx + _col(ps) * s.Mx
+        avg_Mty = s.avg_Mty + _col(ps) * s.Mty
         avg_w = s.avg_w + ps
         epoch = (
             active
@@ -555,43 +578,44 @@ def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
             & torch.isfinite(metric_k)
         )
         wsum = torch.clamp_min(avg_w, 1e-30)
-        xa_ = avg_x / wsum
-        ya_ = avg_y / wsum
-        Mxa_ = avg_Mx / wsum
-        po_a = torch.dot(o.c, xa_) * o.obj_scale
+        xa_ = avg_x / _col(wsum)
+        ya_ = avg_y / _col(wsum)
+        Mxa_ = avg_Mx / _col(wsum)
+        po_a = _dot(o.c, xa_) * o.obj_scale
         do_a = torch.zeros_like(po_a)
         if p:
-            do_a = do_a - torch.dot(o.b, ya_[:p])
+            do_a = do_a - _dot(o.b, ya_[..., :p])
         if m:
-            do_a = do_a - torch.dot(o.h, ya_[p:])
+            do_a = do_a - _dot(o.h, ya_[..., p:])
         do_a = do_a * o.obj_scale
         gap_a = torch.abs(po_a - do_a) / (1.0 + torch.abs(po_a) + torch.abs(do_a))
         feas_a = torch.zeros_like(gap_a)
         if p:
             feas_a = torch.maximum(
-                feas_a, torch.amax(torch.abs(Mxa_[:p] - o.b)) / (1.0 + o.norm_b)
+                feas_a,
+                torch.amax(torch.abs(Mxa_[..., :p] - o.b), -1) / (1.0 + o.norm_b)
             )
         if m:
             feas_a = torch.maximum(
-                feas_a, torch.amax(Mxa_[p:] - o.h) / (1.0 + o.norm_h)
+                feas_a, torch.amax(Mxa_[..., p:] - o.h, -1) / (1.0 + o.norm_h)
             )
         metric_now = torch.maximum(gap_k, feas_k)
         metric_avg = torch.maximum(gap_a, feas_a)
         stalled = stalled & (metric_avg < 0.9 * metric_now)
 
         def mix(avg, cur):
-            return torch.where(stalled, avg, cur)
+            return torch.where(_col(stalled), avg, cur)
 
         xa = mix(xa_, s.x)
         ya = mix(ya_, s.y)
         Mxa = mix(Mxa_, s.Mx)
-        Mtya = mix(avg_Mty / wsum, s.Mty)
+        Mtya = mix(avg_Mty / _col(wsum), s.Mty)
         keep = (~stalled).to(avg_w.dtype)
         restart_updates = dict(
             x=xa, x_old=xa, y=ya, y_old=ya,
             Mx=Mxa, Mx_old=Mxa, Mty=Mtya, Mty_old=Mtya,
-            avg_x=avg_x * keep, avg_y=avg_y * keep,
-            avg_Mx=avg_Mx * keep, avg_Mty=avg_Mty * keep,
+            avg_x=avg_x * _col(keep), avg_y=avg_y * _col(keep),
+            avg_Mx=avg_Mx * _col(keep), avg_Mty=avg_Mty * _col(keep),
             avg_w=avg_w * keep,
             last_restart_iter=torch.where(epoch, k, s.last_restart_iter),
             last_restart_gap=torch.where(epoch, metric_k, s.last_restart_gap),
@@ -1345,16 +1369,20 @@ def _annotate_limit_feas(res: Result, setup, opts: Options) -> Result:
 
 def _cache_solution(fields: dict, setup: SetupProblem, opts: Options, t0: float,
                     status: int, status_string: str,
-                    exact_project: bool = False) -> Result:
+                    exact_project: bool = False,
+                    square_form: bool = True) -> Result:
     """Unscale, recover duals/slacks, build the Result (pdhg.jl:745-787;
     solver.py:2749-2883).  ``fields`` are host arrays of the square-form
-    state; ``setup`` is the tri-space SetupProblem."""
+    state (of the packed-triangle state with ``square_form=False``, the
+    batch driver's); ``setup`` is the tri-space SetupProblem."""
     layout = setup.layout
     k = int(fields["iter"])
     buf_gap = fields["buf_gap"]
     i = (k - 1) % buf_gap.shape[0]
 
-    x = square_embed_matrix(layout).T @ np.asarray(fields["x"], np.float64)
+    x = np.asarray(fields["x"], np.float64)
+    if square_form:
+        x = square_embed_matrix(layout).T @ x
     x = _fix_diag_scaling(x, layout, np.sqrt(2.0))
     x = x * setup.rhs_scale
     y = np.asarray(fields["y"], np.float64) * setup.obj_scale

@@ -251,7 +251,7 @@ def test_hybrid_solve_on_card_matches_cpu(cuda):
     assert got.status == want.status == 1
     assert abs(got.iter - want.iter) <= max(5, 0.05 * want.iter)
     assert abs(got.objval - want.objval) <= 1e-4 * (1 + abs(want.objval))
-    for name in kernels.KERNELS:
+    for name in kernels.SOLVE_KERNELS:
         assert counts[name] > 0, name
 
 
@@ -294,3 +294,156 @@ def test_solve_ignores_tf32(cuda, how):
                                                    want.objval)
     np.testing.assert_array_equal(got.primal, want.primal)
     assert (bare.iter, bare.objval) != (want.iter, want.objval)
+
+
+# ---------------------------------------------------------------- the batch
+
+# K9 against torch.linalg.eigh (LAPACK-grade on both sides): the projection
+# and the eigenvalues of two backward-stable eigensolvers differ by a few
+# s * eps * ||X||; held relative to the batch's largest entry
+EIGH_RTOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+
+
+def _eigh_batch(rng, B, side, dtype, device):
+    """B symmetric matrices: random ones, every third rank-deficient (half
+    its eigenvalues exactly 0), and instance 1 with a NaN entry."""
+    X = rng.standard_normal((B, side, side))
+    X = 0.5 * (X + X.transpose(0, 2, 1))
+    for b in range(0, B, 3):
+        V, _ = np.linalg.qr(rng.standard_normal((side, side)))
+        w = rng.standard_normal(side) * 3.0
+        w[: side // 2] = 0.0
+        X[b] = (V * w) @ V.T
+    X = torch.tensor(X, dtype=dtype, device=device)
+    if B > 1:
+        X[1, 0, side - 1] = float("nan")
+    return X
+
+
+def _check_eigh(got, want, X, tol_psd):
+    Xp, w, rank, warm = got
+    pXp, pw, prank, pwarm = want
+    dtype = X.dtype
+    finite = torch.isfinite(X).all(dim=(1, 2)).cpu()
+    assert torch.equal(torch.isnan(Xp).all(dim=(1, 2)).cpu(), ~finite)
+    assert torch.equal(torch.isnan(w).all(dim=1).cpu(), ~finite)
+    assert torch.equal(torch.isnan(warm).all(dim=1).cpu(), ~finite)
+    assert (rank.cpu()[~finite] == 0).all()
+    f = finite.to(X.device)
+    scale = float(X[f].abs().max())
+    tol = EIGH_RTOL[dtype] * scale
+    assert float((Xp[f] - pXp[f]).abs().max()) <= tol
+    assert float((w[f] - pw[f]).abs().max()) <= tol
+    # Xp is symmetric bit for bit (the kernel mirrors the upper triangle)
+    assert torch.equal(Xp[f], Xp[f].transpose(1, 2))
+    # ranks where no eigenvalue sits within the tolerance of tol_psd
+    clear = ((pw[f] - tol_psd).abs() > tol).all(dim=1)
+    assert torch.equal(rank[f][clear].cpu(), prank[f][clear].cpu())
+    # warm: the top eigenvector up to sign, where the top eigenvalue is simple
+    gap = pw[f][:, -1] - pw[f][:, -2] if X.shape[1] > 1 else pw[f][:, -1] + 1
+    simple = gap > 1e-3 * scale
+    dots = torch.sum(warm[f] * pwarm[f], dim=1).abs()[simple]
+    if dots.numel():
+        assert float((1 - dots).abs().max()) <= (
+            1e-6 if dtype == torch.float64 else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("side", [1, 2, 10, 16, 31, 32, 33, 40, 64])
+def test_batched_psd_eigh_matches_plain(cuda, dtype, side):
+    """K9 against its plain version (torch.linalg.eigh) on random,
+    rank-deficient and non-finite instances."""
+    rng = np.random.default_rng(side)
+    X = _eigh_batch(rng, 64, side, dtype, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.batched_psd_eigh(X, 1e-7)
+    torch.cuda.synchronize()
+    assert kernels.kernel_launches()["batched_psd_eigh"] == 1
+    _check_eigh(got, kernels.batched_psd_eigh_plain(X, 1e-7), X, 1e-7)
+
+
+def test_batched_psd_eigh_limits(cuda):
+    X = torch.zeros(2, 65, 65, dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.batched_psd_eigh(X, 1e-7)
+    # the zero matrix: projection 0, rank 0, a unit warm vector
+    Xp, w, rank, warm = kernels.batched_psd_eigh(X[:, :16, :16].contiguous(),
+                                                 1e-7)
+    assert float(Xp.abs().max()) == 0.0 and float(w.abs().max()) == 0.0
+    assert int(rank.max()) == 0
+    np.testing.assert_allclose(warm.norm(dim=1).cpu().numpy(), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_kernels_match_plain(cuda, dtype):
+    """The batched K1-K4 entry points and K10 against their plain
+    versions; K10 and the elementwise updates round alike (-fmad=false)."""
+    rng = np.random.default_rng(3)
+    B, side, n_free, p, m = 37, 9, 3, 6, 4
+    tl = side * (side + 1) // 2
+    n = tl + n_free
+
+    def rows(k):
+        return torch.tensor(rng.standard_normal((B, k)), dtype=dtype,
+                            device=cuda)
+
+    x, x_old, Mty, Mty_old, c = (rows(n) for _ in range(5))
+    y, y_old, Mx, Mx_old = (rows(p + m) for _ in range(4))
+    b, h = rows(p), rows(m)
+    tau, sigma, theta = (torch.tensor(rng.uniform(0.1, 1.0, B), dtype=dtype,
+                                      device=cuda) for _ in range(3))
+    idx = torch.tensor(rng.integers(0, n, (p + m, 3)), dtype=torch.int32,
+                       device=cuda)
+    vals = torch.tensor(rng.standard_normal((p + m, 3)), dtype=dtype,
+                        device=cuda)
+    S = kernels.tri_to_square_plain(x, side)
+    cases = [
+        (kernels.ell_spmv_batch, kernels.ell_spmv_batch_plain, (idx, vals, x)),
+        (kernels.ls_dual_update_batch, kernels.ls_dual_update_batch_plain,
+         (y, Mx, Mx_old, b, h, y_old, sigma, theta, p, m)),
+        (kernels.sq_dist_batch, kernels.sq_dist_batch_plain, (x, x_old)),
+        (kernels.residuals_batch, kernels.residuals_batch_plain,
+         (x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma, b, h, c,
+          p, m)),
+        (kernels.primal_update_batch, kernels.primal_update_batch_plain,
+         (x, Mty, c, tau)),
+        (kernels.tri_to_square, kernels.tri_to_square_plain, (x, side)),
+        (kernels.square_to_tri, kernels.square_to_tri_plain, (S, side)),
+    ]
+    for wrapper, plain, args in cases:
+        kernels.reset_launch_counts()
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts.values()) == 1, wrapper.__name__
+        want = plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype, wrapper.__name__
+        if wrapper in (kernels.tri_to_square, kernels.square_to_tri,
+                       kernels.primal_update_batch):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        else:
+            _close(got, want, dtype)
+
+
+def test_solve_batch_on_card_matches_cpu(cuda):
+    """solve_batch at B = 64, side 16 on the card against its CPU plain
+    run, f64 program: the same statuses, iterations within 2 %, objectives
+    to 1e-6; every batched kernel launches."""
+    from proxsdp_tpu_torch.parallel.batch import solve_batch
+
+    problems = [maxcut_problem(random_graph_weights(s, 16))[0]
+                for s in range(64)]
+    opts = tx.Options(tol_gap=1e-4, tol_feasibility=1e-4,
+                      hybrid_precision=False)
+    kernels.reset_launch_counts()
+    got = solve_batch(problems, opts)  # the card is the default device
+    counts = kernels.kernel_launches()
+    want = solve_batch(problems, opts, device="cpu")
+    for g, w in zip(got, want):
+        assert g.status == w.status == 1
+        assert abs(g.iter - w.iter) <= max(2, 0.02 * w.iter)
+        assert abs(g.objval - w.objval) <= 1e-6 * (1 + abs(w.objval))
+    for name in kernels.BATCH_KERNELS:
+        assert counts[name] > 0, name

@@ -97,7 +97,8 @@ def test_import_leaves_jax_out():
         "import sys, proxsdp_tpu_torch, proxsdp_tpu_torch.solver, "
         "proxsdp_tpu_torch.convert, proxsdp_tpu_torch.kernels, "
         "proxsdp_tpu_torch.kernels.build, proxsdp_tpu_torch.models, "
-        "proxsdp_tpu_torch.ops.cones, proxsdp_tpu_torch.ops.linop\n"
+        "proxsdp_tpu_torch.ops.cones, proxsdp_tpu_torch.ops.linop, "
+        "proxsdp_tpu_torch.ops.tri, proxsdp_tpu_torch.parallel.batch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'proxsdp_tpu' or m.startswith('proxsdp_tpu.')]\n"
         "assert not bad, bad\n"

@@ -115,10 +115,10 @@ BATCH_REF_OBJ = [
 RTOL = {"f64": 1e-12, "f32": 2e-5}
 REPS = 50
 SLOW_MS = 20.0
-# peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and the CUDA-core
-# (not tensor-core) rates per type
+# peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and the fastest
+# IEEE rate per type (f32 on the CUDA cores, f64 on the FP64 tensor cores)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+PEAK_FLOPS = {"f32": 67e12, "f64": 67e12}
 
 
 def fail(msg: str):
@@ -487,13 +487,10 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev):
     for sfx, dt in (("f64", torch.float64), ("f32", torch.float32)):
         for s in EIGH_SIDES:
             X = eigh_inputs(torch, rng, s, dt, dev)
-            sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
-            kernels.batched_psd_eigh(X, TOL_PSD, sweeps)
-            ns = s + (s & 1)
-            # 9 n^3 flops a sweep, the reconstruction's 1.5 s^3 and the
-            # off-diagonal norm's 2 s^2 a sweep, for the sweeps this data ran
-            flops = (int(sweeps.sum()) * (9 * ns ** 3 + 2 * ns * ns)
-                     + B * 1.5 * s ** 3)
+            # the function's work, whatever the algorithm: a symmetric
+            # eigendecomposition with vectors ~9 s^3 (symmetric QR), the
+            # reconstruction V diag(max(w, 0)) V^T ~1.5 s^3
+            flops = B * 10.5 * s ** 3
             outs = (torch.empty_like(X), torch.empty(B, s, dtype=dt, device=dev),
                     torch.empty(B, dtype=torch.int32, device=dev),
                     torch.empty(B, s, dtype=dt, device=dev))
@@ -507,9 +504,6 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev):
                 compare_fn=eigh_compare(torch, X, EIGH_RTOL[sfx]),
                 tol=EIGH_RTOL[sfx], label=f"side {s}",
                 note="" if on else f" (side {s}: not phase D's)")
-            print(f"  side {s} {sfx}: Jacobi sweeps min/mean/max "
-                  f"{int(sweeps[torch.arange(B, device=dev) != 1].min())}/"
-                  f"{float(sweeps.float().mean()):.2f}/{int(sweeps.max())}")
 
         o = _batch_operands(setups, dt, dev, "auto")
         M = o.M

@@ -41,9 +41,11 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from ..ops.cones import box_projection
+from ..utils.vech import offdiag_mask_tri, square_gather_index, tri_ij
 from . import build
 
 # the single-instance solve's kernels and the batch driver's
@@ -75,7 +77,7 @@ _ARGTYPES = {
     "sq_dist_batch": [_P] * 3 + [_I, _I, _P],
     "residuals_batch": [_P] * 14 + [_I] * 4 + [_P],
     "primal_update_batch": [_P] * 5 + [_I, _I, _P],
-    "batched_psd_eigh": [_P] * 6 + [_I, _I, _D, _P],
+    "batched_psd_eigh": [_P] * 5 + [_I, _I, _D, _P],
     "tri_to_square": [_P] * 4 + [_I] * 3 + [_P],
     "square_to_tri": [_P] * 4 + [_I] * 3 + [_P],
 }
@@ -787,13 +789,11 @@ def batched_psd_eigh_plain(X, tol_psd: float):
     return Xp, w, rank, V[:, :, -1].contiguous()
 
 
-def batched_psd_eigh(X, tol_psd: float, sweeps: torch.Tensor | None = None):
+def batched_psd_eigh(X, tol_psd: float):
     """(Xp, w, rank, warm) of B symmetric (s, s) matrices X = V diag(w) V^T,
     w ascending: Xp = V diag(max(w, 0)) V^T, rank = #{w > tol_psd} (int32),
     warm = V[:, :, -1]; NaN (rank 0) for an instance with a non-finite
-    entry.  On the card s <= 64 (one CTA's shared memory), and a (B,)
-    int32 ``sweeps`` receives the Jacobi sweeps each instance ran (the
-    measurement's operation count; the CPU path leaves it)."""
+    entry.  On the card s <= 64 (one CTA's shared memory)."""
     name = "batched_psd_eigh"
     if X.dim() != 3 or X.shape[1] != X.shape[2]:
         raise ValueError(f"{name}: X must be (B, s, s)")
@@ -808,24 +808,33 @@ def batched_psd_eigh(X, tol_psd: float, sweeps: torch.Tensor | None = None):
     w = torch.empty((B, s), dtype=X.dtype, device=X.device)
     rank = torch.empty(B, dtype=torch.int32, device=X.device)
     warm = torch.empty((B, s), dtype=X.dtype, device=X.device)
-    if sweeps is not None and (sweeps.shape != (B,)
-                               or sweeps.dtype != torch.int32):
-        raise ValueError(f"{name}: sweeps must be a (B,) int32 tensor")
     _launch(name, X.dtype, X.device, _ptr(X), _ptr(Xp), _ptr(w), _ptr(rank),
-            _ptr(warm), None if sweeps is None else _ptr(sweeps), B, s,
-            float(tol_psd))
+            _ptr(warm), B, s, float(tol_psd))
     return Xp, w, rank, warm
 
 
 # --------------------------------------------- K10 packed-triangle gathers
 
 
+@functools.lru_cache(maxsize=None)
+def _maps(side: int):
+    """(gidx, in_scale, sq_of_tri, out_scale) on the host: the triangle
+    position of each row-major square entry and its scale (1/sqrt(2) off
+    the diagonal), and the square position (i, j), i <= j, of each
+    triangle entry and its scale (sqrt(2) off the diagonal)."""
+    gidx = square_gather_index(side)
+    I, J = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    in_scale = np.where((I != J).reshape(-1), 1.0 / np.sqrt(2.0), 1.0)
+    i, j = tri_ij(side)
+    sq_of_tri = i * side + j
+    out_scale = np.where(offdiag_mask_tri(side), np.sqrt(2.0), 1.0)
+    return gidx, in_scale, sq_of_tri, out_scale
+
+
 @functools.lru_cache(maxsize=32)
 def _tri_maps(side: int, dtype, device):
-    """ops/tri.py's maps on ``device``: (gidx, in_scale, sq_of_tri,
-    out_scale), the indices int32, the scales in ``dtype``."""
-    from ..ops.tri import _maps
-
+    """``_maps`` on ``device``: (gidx, in_scale, sq_of_tri, out_scale), the
+    indices int32, the scales in ``dtype``."""
     gidx, in_scale, sq_of_tri, out_scale = _maps(side)
 
     def idx(a):

@@ -14,13 +14,13 @@
 // rank 0 for that instance alone (jnp.linalg.eigh's NaN, which the
 // solver's finite guards read; torch.linalg.eigh would raise).
 //
-// Bound on the H100: operations and latency, not bytes.  One sweep costs
-// about 9 s^3 flops per matrix in the rotations (6 per entry pair of A and
-// V column-wise, 6 per pair of A row-wise, s - 1 rounds); at B = 1024,
-// s = 16 that is ~38 MFLOP per sweep against 1 MB of input, far below both
-// roofs --
-// the real cost is the chain of s - 1 dependent rotation rounds per sweep,
-// each ending in a barrier.  Design: one CTA per instance (no tensor cores:
+// Bound on the H100: the function moves X in and Xp, w, rank and warm out
+// (~4.5 MB in f64 at B = 1024, s = 16, ~1.3 us at 3.35 TB/s) and needs
+// ~10.5 s^3 flops per matrix (an eigendecomposition ~9 s^3, the
+// reconstruction ~1.5 s^3), so bytes set its bound up to s ~ 30 in f64 and
+// s ~ 16 in f32.  Jacobi spends ~9 s^3 flops on every sweep, and its real
+// cost is the chain of s - 1 dependent rotation rounds per sweep, each
+// ending in a barrier.  Design: one CTA per instance (no tensor cores:
 // IEEE arithmetic in the instance's own type), the matrix A and the
 // accumulated rotations V in shared memory (2 * 64 * 64 * 8 = 64 KB at
 // most, dynamic shared memory).  Each round applies s/2 disjoint rotations
@@ -99,8 +99,7 @@ __global__ void __launch_bounds__(kThreads)
     batched_psd_eigh_kernel(const T* __restrict__ X, T* __restrict__ Xp,
                             T* __restrict__ w_out,
                             int32_t* __restrict__ rank_out,
-                            T* __restrict__ warm_out,
-                            int32_t* __restrict__ sweeps_out, int s,
+                            T* __restrict__ warm_out, int s,
                             double tol_psd) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double red[kThreads];
@@ -136,10 +135,7 @@ __global__ void __launch_bounds__(kThreads)
       w_out[b * s + i] = nan;
       warm_out[b * s + i] = nan;
     }
-    if (t == 0) {
-      rank_out[b] = 0;
-      if (sweeps_out) sweeps_out[b] = 0;
-    }
+    if (t == 0) rank_out[b] = 0;
     return;
   }
 
@@ -153,8 +149,7 @@ __global__ void __launch_bounds__(kThreads)
   const double eps = JacobiLimits<T>::eps;
   const double thresh = eps * eps * fro2;
 
-  int sweeps = 0;
-  for (; sweeps < JacobiLimits<T>::max_sweeps; ++sweeps) {
+  for (int sweep = 0; sweep < JacobiLimits<T>::max_sweeps; ++sweep) {
     double off = 0.0;
     for (int e = t; e < n * n; e += kThreads) {
       if (e / n != e % n) {
@@ -231,7 +226,6 @@ __global__ void __launch_bounds__(kThreads)
     int rank = 0;
     for (int k = 0; k < s; ++k) rank += wsort[k] > static_cast<T>(tol_psd);
     rank_out[b] = rank;
-    if (sweeps_out) sweeps_out[b] = sweeps;
   }
   // Xp_ij = sum_k (V_ik max(w_k, 0)) V_jk over the upper triangle, mirrored
   T* Xpb = Xp + b * s * s;
@@ -258,7 +252,7 @@ size_t smem_bytes(int s) {
 
 template <typename T>
 int launch(const void* X, void* Xp, void* w, void* rank, void* warm,
-           void* sweeps, int64_t B, int64_t s, double tol_psd, void* stream) {
+           int64_t B, int64_t s, double tol_psd, void* stream) {
   if (s < 1 || s > kMaxSide) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   const size_t bytes = smem_bytes<T>(static_cast<int>(s));
@@ -270,26 +264,23 @@ int launch(const void* X, void* Xp, void* w, void* rank, void* warm,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X), static_cast<T*>(Xp), static_cast<T*>(w),
       static_cast<int32_t*>(rank), static_cast<T*>(warm),
-      static_cast<int32_t*>(sweeps), static_cast<int>(s), tol_psd);
+      static_cast<int>(s), tol_psd);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// X, Xp: (B, s, s) row-major; w, warm: (B, s); rank: (B,) int32; s <= 64;
-// sweeps: (B,) int32, the Jacobi sweeps each instance ran, or null.
+// X, Xp: (B, s, s) row-major; w, warm: (B, s); rank: (B,) int32; s <= 64.
 extern "C" int proxsdp_batched_psd_eigh_f64(const void* X, void* Xp, void* w,
-                                            void* rank, void* warm,
-                                            void* sweeps, int64_t B,
+                                            void* rank, void* warm, int64_t B,
                                             int64_t s, double tol_psd,
                                             void* stream) {
-  return launch<double>(X, Xp, w, rank, warm, sweeps, B, s, tol_psd, stream);
+  return launch<double>(X, Xp, w, rank, warm, B, s, tol_psd, stream);
 }
 
 extern "C" int proxsdp_batched_psd_eigh_f32(const void* X, void* Xp, void* w,
-                                            void* rank, void* warm,
-                                            void* sweeps, int64_t B,
+                                            void* rank, void* warm, int64_t B,
                                             int64_t s, double tol_psd,
                                             void* stream) {
-  return launch<float>(X, Xp, w, rank, warm, sweeps, B, s, tol_psd, stream);
+  return launch<float>(X, Xp, w, rank, warm, B, s, tol_psd, stream);
 }

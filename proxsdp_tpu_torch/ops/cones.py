@@ -36,7 +36,6 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .tri import square_to_tri, tri_to_square
 
 POLAR_QA, POLAR_QB, POLAR_QC = 3.4445, -4.7750, 2.0315
 
@@ -222,9 +221,10 @@ def psd_projection_small_batch(v_blocks, side: int, *, opts):
         X = v_blocks.view(B, side, side)
         X = 0.5 * (X + X.transpose(1, 2))
     else:
-        X = tri_to_square(v_blocks, side)
+        X = kernels.tri_to_square(v_blocks, side)
     Xp, _, rank, warm = kernels.batched_psd_eigh(
         X.to(_eig_dtype(dtype, opts)).contiguous(), opts.tol_psd)
     Xp, warm = Xp.to(dtype), warm.to(dtype)
-    blocks = Xp.reshape(B, side * side) if square_in else square_to_tri(Xp, side)
+    blocks = (Xp.reshape(B, side * side) if square_in
+              else kernels.square_to_tri(Xp, side))
     return blocks, v_blocks.new_zeros(B), rank, warm

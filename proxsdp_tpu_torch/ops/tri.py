@@ -5,49 +5,15 @@ The packed vector stores off-diagonal entries multiplied by sqrt(2) (the
 triangle -> square divides the off-diagonals by sqrt(2) and square ->
 triangle multiplies them back.  Both directions are one gather with a
 static index map and a static scale (``_maps``, built on the host once per
-side).  The functions here take a leading instance axis; on a CUDA tensor
-they are kernel K10 (``kernels.tri_to_square`` / ``square_to_tri``), on
-the CPU its plain PyTorch version.
+side).  They live with kernel K10 in ``kernels`` and take a leading
+instance axis: on a CUDA tensor they launch K10, on the CPU they run its
+plain PyTorch version.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
-
-from .. import kernels
-from ..utils.vech import (offdiag_mask_tri, square_gather_index, sympackedlen,
-                          tri_ij)
-
-_SQRT2 = np.sqrt(2.0)
-
-
-@functools.lru_cache(maxsize=None)
-def _maps(side: int):
-    """(gidx, in_scale, sq_of_tri, out_scale): the triangle position of each
-    row-major square entry and its scale (1/sqrt(2) off the diagonal), and
-    the square position (i, j), i <= j, of each triangle entry and its
-    scale (sqrt(2) off the diagonal)."""
-    gidx = square_gather_index(side)
-    I, J = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
-    in_scale = np.where((I != J).reshape(-1), 1.0 / _SQRT2, 1.0)
-    i, j = tri_ij(side)
-    sq_of_tri = i * side + j
-    out_scale = np.where(offdiag_mask_tri(side), _SQRT2, 1.0)
-    return gidx, in_scale, sq_of_tri, out_scale
-
-
-def tri_to_square(v_blocks, side: int):
-    """(B, side, side) symmetric matrices from the packed scaled triangles
-    at the start of each row of the (B, >= tri_len) ``v_blocks``."""
-    return kernels.tri_to_square(v_blocks, side)
-
-
-def square_to_tri(X, side: int):
-    """(B, tri_len) packed scaled triangles of (B, side, side) matrices,
-    read from the upper triangle."""
-    return kernels.square_to_tri(X, side)
+from ..kernels import _maps, square_to_tri, tri_to_square  # noqa: F401
+from ..utils.vech import sympackedlen
 
 
 def tri_len(side: int) -> int:

@@ -298,7 +298,7 @@ def make_batch_runner(layout: ConeLayout, opts: Options, *, device,
 
 
 def solve_batch(problems: Sequence[ConicProblem], options: Options | None = None,
-                mesh=None, batch_axis: str = "batch", projection: str = "auto",
+                mesh=None, projection: str = "auto",
                 *, device="cuda", stats: BatchStats | None = None,
                 **kwargs) -> list[Result]:
     """Solve a batch of same-geometry problems; one Result per instance.
@@ -309,8 +309,8 @@ def solve_batch(problems: Sequence[ConicProblem], options: Options | None = None
     improvement of max(gap, feas) over 3 consecutive chunks), then the
     whole batch is cast to f64 and finished by the f64 program.
     ``device`` defaults to the CUDA card; without one it raises (pass
-    ``device="cpu"`` for the plain PyTorch path).  ``mesh`` and
-    ``batch_axis`` (sharding over cards) are ROADMAP B14.  A ``stats``
+    ``device="cpu"`` for the plain PyTorch path).  ``mesh`` (sharding
+    over cards, with its ``batch_axis``) is ROADMAP B14.  A ``stats``
     object passed in is filled with what the solve did."""
     with _ieee_f32_products():
         return _solve_batch(problems, options, mesh, projection, device,

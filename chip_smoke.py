@@ -54,6 +54,23 @@
    against the JAX package's accept sequence and last iterate, K11's
    launches and device time; then solve(max_iter=300), status 3.
 
+   Phase B also holds phase G's kernels to their plain versions: K12
+   (the batched accept-always subspace step) in f32, the mixed mode and
+   f64 at B = 256, side 40, k = 16 and B = 64, side 100, k = 16 and 24,
+   one instance non-finite and one exactly 0, timed beside the library
+   route (torch.linalg.qr, torch.bmm, torch.linalg.eigh); K9 at side 40
+   (B = 256), 100 and 118 in f64, 100 and 168 in f32 (B = 64); K10 and
+   the batched K1-K4 at G1's and G2's shapes;
+8. phase G: solve_batch's subspace mode under Options(tol_gap=1e-4,
+   tol_feasibility=1e-4) and projection "auto": G1, 256 max-cut
+   instances of side 40 (a first solve, then the counted warm one), G2,
+   64 of side 100 (one solve).  Every status 1, each X within the
+   solver's feasibility bound and PSD, the objectives against the exact
+   optima within the JAX solve's own scatter; prints instances/s, each
+   phase's seconds, each host reseed and program switch beside the JAX
+   driver's, and from a profiled window of each program K12's and K9's
+   launches and device us per launch and the device's busy share.
+
 Each phase prints its wall time.  Any failed phase exits non-zero.  The
 last line is a JSON object with the device; the line before it lists the
 kernels.  A side-2000 row's launches are those of its entry point at its
@@ -171,6 +188,281 @@ LZF_REF_FETCH = [
     0.34746708972127693, 10.871741884721631, 3.0, 144.0, 0.0, 0.0, 0.0,
 ]
 LZF_REF_NEAR = {}
+# phase G: solve_batch of maxcut_problem(random_graph_weights(s, side))
+# for s in range(B) at Options(tol_gap=1e-4, tol_feasibility=1e-4),
+# projection "auto" (the subspace mode: B > 32).  G1: B = 256 at side 40
+# (the README's side-40 record, bench.py's BENCH_MODE=batch sweep); G2:
+# B = 64 at side 100 (SDPLIB mcp100's side; the file is not in the
+# repository).  References, the JAX package on the CPU on XLA's default
+# threads (8 cores), lined up with the port where the JAX driver has two
+# faults the port does not copy: after iteration 1 its subspace program
+# takes the port's basis (ROADMAP C11), and its fetch reads the latest
+# ring slot (C12) (tests/test_torch_reference_values.py keeps them true,
+# marked slow): *_REF_OBJ its batch solve under these Options() (all
+# status 1), with its reseeds (dtype, smallest and largest iteration, k,
+# instances masked, r_max), programs (dtype, k; k = 0 the eigh program)
+# and iterations min/median/max; *_EXACT_OBJ its f64 dense-eigh solve at
+# 1e-8 tolerances, the optima.  Each objective is held within G_OBJ_RTOL
+# (1 + |obj|) of the JAX solve's and all of them within G_OBJ_MEAN_RTOL
+# on average.  At 1e-4 tolerances two f32 races stop at other points of
+# a tolerance box ~1e-3 wide in the objective: the reference's own runs
+# on 1 and 8 threads lie up to 9.42e-4 apart on G1 (mean 3.3e-5), the
+# port's CPU runs up to 1.041e-3 (mean 1.00e-4) from it on G1 and
+# 5.87e-4 (mean 1.26e-4) on G2 (PERF.md); G2's one-thread JAX run
+# keeps the subspace program at its fourth reseed (r_max 13, not ~60)
+# and stalls in it (C13), ending up to 1.2e-2 from the optima.
+G_OBJ_RTOL = 1.5e-3
+G_OBJ_MEAN_RTOL = 2e-4
+G1_SIZE = 256
+G1_SIDE = 40
+G1_REF_OBJ = [
+    72.74872240474538, 69.93596189483954, 77.64018931090553,
+    66.08616418938539, 66.39491205542724, 67.56579233606661,
+    65.70519521415314, 66.63124047825936, 63.91812948125928,
+    68.84135778971401, 67.78057789978065, 71.92921909458687,
+    64.73976045554434, 75.4467706087064, 66.51929021587468,
+    78.00177947595687, 74.59124515222352, 65.70695519088311,
+    64.19280908245939, 72.93510443720521, 66.20152347520819,
+    72.04764983119826, 67.7591310813638, 66.61954320731803,
+    60.97468936813357, 65.00295141006008, 71.682001535829,
+    64.19856468531803, 69.67345465598119, 66.67748949981087,
+    63.39144021719536, 71.5706625273906, 75.39146411591634,
+    71.7463031735578, 77.59173167103131, 67.1325563471624,
+    70.6549278927242, 67.11827852202858, 68.9374664222038,
+    71.05839618277972, 68.71871512330837, 70.71976403556323,
+    64.79232095403758, 69.39556119712257, 60.3491359841137,
+    75.0944156569247, 69.11199083415171, 64.7172149288147,
+    67.27632497715999, 63.41049909697441, 72.35932312265217,
+    68.00927003090673, 69.25771238587188, 63.539369312250464,
+    69.35113736606873, 72.59644693459961, 64.86908696130949,
+    76.47749801340404, 66.26139802103441, 65.81623194675193,
+    73.4261952756439, 73.1768222074706, 69.21756317974707,
+    75.02200145478857, 77.7093533004607, 74.76501336105093,
+    74.59604397921771, 70.74086002132613, 69.4711597812387,
+    64.38546743079264, 70.70374893378596, 67.121340705772,
+    64.40647135923628, 72.98844744783676, 65.9692231947764,
+    62.87893571434959, 68.89585167154387, 75.09475158785864,
+    66.42619042745972, 67.40150298336991, 66.42100338410795,
+    67.76489247376807, 66.2216452257978, 72.18764653232661,
+    68.16331664989043, 68.6112103774502, 71.57640939329457,
+    74.14166921375347, 63.99016035879572, 66.21156949414807,
+    68.39437453205521, 70.30614503412251, 69.34752580261923,
+    70.35985838390974, 71.49516311792404, 67.77165878282469,
+    67.70118954722408, 70.81662081020855, 64.77573453198829,
+    69.36179028141368, 71.07433413424977, 68.2832077189868,
+    65.02865708643047, 70.75936586825374, 67.76172105732188,
+    67.0809231737764, 71.21754998473655, 69.9961803372781,
+    67.70881461343501, 66.3510046003162, 73.43794931479228,
+    65.4794927982953, 73.7804005959161, 73.9842250558341,
+    68.72121403214689, 60.2201007642192, 73.16756041349689,
+    67.97740855799148, 67.98661828386562, 66.88662046964242,
+    61.858800936299126, 64.01935638162513, 69.6605393538145,
+    63.526790065381995, 64.91483837320831, 71.17918163723644,
+    68.53589459511079, 63.63198314345636, 73.33979095952903,
+    72.22498710406961, 73.56594077993563, 70.99030996589612,
+    65.26655830880378, 71.03674696208049, 70.72228147900269,
+    65.96234906478917, 70.81933541432373, 69.0909714539493,
+    65.75520092513439, 65.76443071033978, 73.51881795097496,
+    63.79280404067403, 65.11090404076506, 63.6200968476885,
+    72.4535946020539, 73.48065849604869, 71.3507910364331,
+    74.03779876980454, 72.36511279861274, 70.30151672815016,
+    75.25755294778548, 68.90229485751154, 80.17126440707871,
+    70.03182539834764, 73.19702848835284, 70.04352424135578,
+    66.41202840133445, 66.56377169463379, 63.509577477265076,
+    75.54934261398135, 65.96186184880904, 68.17777445187134,
+    64.65308610545777, 75.28213351109717, 63.06704943833267,
+    67.24491504693765, 68.56148765771445, 75.00376163858375,
+    67.94867560634574, 72.55878684583364, 65.19180556731725,
+    70.1253929656817, 68.4732408841402, 68.45001229061938,
+    71.7871967303259, 71.99386345099886, 65.01574080433006,
+    63.77761256058898, 64.75387465361935, 68.5084531744468,
+    68.58365399006027, 74.06507202387891, 74.77396631744355,
+    69.3070075159271, 62.52452884916734, 70.32984063757755,
+    63.59979692782471, 66.52140874180205, 66.34190811946686,
+    73.98489142030886, 71.05638139408603, 60.5178489592069,
+    65.94534835064674, 68.59333189303423, 70.39303236396721,
+    63.296214741192664, 65.82283030011737, 65.14494440296069,
+    73.45811605589078, 76.7251794700881, 76.62988147538714,
+    67.87378167365598, 78.90390797521293, 67.16182223869967,
+    63.137857485133, 63.76073449522166, 69.07395260578674,
+    73.00965945675213, 64.31711715568237, 68.13604868429594,
+    73.72824103294687, 71.18016033034503, 66.3793364914219,
+    71.13040024843636, 78.50853851316896, 67.96015863740547,
+    66.58359035949114, 73.72236540146353, 68.65881001826638,
+    73.88120650803651, 60.33836064948664, 62.02975233505588,
+    65.91893659332897, 69.83583821676648, 68.23423064223793,
+    68.27877106676777, 68.37501175039341, 69.16794320289165,
+    70.33079426173829, 72.19530010820513, 64.22633934045632,
+    75.6706144991777, 71.28939013648969, 68.72695064972376,
+    70.59162431853558, 56.3772850767374, 63.994833130784826,
+    74.22709606428322, 68.48132689555858, 65.99881747531572,
+    68.87163044191335, 68.96650604243602, 75.69739598666914,
+    62.47092655152147, 76.2716265261677, 67.68108445829988,
+    64.00999735442913, 68.68005748382866, 60.20906927094509,
+    63.516354429921726, 67.43563347932196, 67.04412026611342,
+    60.3851693266536, 65.13238502578929, 79.06065813016912,
+    65.17589795546994,
+]
+G1_EXACT_OBJ = [
+    72.75993668321631, 69.93352782197394, 77.6510712029041,
+    66.07318591978701, 66.38930017567503, 67.56390199093006,
+    65.71119101615227, 66.67072362039288, 63.91323359382776,
+    68.81760238774041, 67.78573760195225, 71.9552042955663,
+    64.74318543156679, 75.4169194086084, 66.54699228029554,
+    77.99415435202204, 74.58573668017637, 65.71023538205978,
+    64.17314395567776, 72.92429754845578, 66.20661076788328,
+    72.0496216212531, 67.76702519350528, 66.60222137278586,
+    60.97500515532539, 65.02738797261883, 71.6779147263037,
+    64.20180903928947, 69.66898556594316, 66.67294806618683,
+    63.41670926116267, 71.56755109277046, 75.37628357997843,
+    71.7784374577301, 77.59862882995294, 67.13134479642177,
+    70.66372643116709, 67.13678459054682, 68.93339887146155,
+    71.0648124634062, 68.71028448246953, 70.71215250265475,
+    64.78254614139246, 69.37200762068038, 60.359194181489904,
+    75.09311170425113, 69.10932243405584, 64.71087891939354,
+    67.2792241830586, 63.3965756002591, 72.35086252093599,
+    67.99802587727152, 69.25236567509914, 63.53729711110302,
+    69.35456677941994, 72.6007654041342, 64.8882644144217,
+    76.482726289094, 66.2658563776087, 65.85194532718053,
+    73.41651823001588, 73.19817804339995, 69.21788751615958,
+    75.06696240747884, 77.6956036354249, 74.76836107987864,
+    74.5774803230605, 70.72919578349986, 69.46694334266427,
+    64.38548449264003, 70.71167165215914, 67.13345890552849,
+    64.41562380789074, 72.96285085084754, 65.99922450361629,
+    62.873758754063005, 68.89903071424833, 75.0955627245039,
+    66.42162144344597, 67.38649608856115, 66.42943966168373,
+    67.7618213267456, 66.21920655346206, 72.2021956590147,
+    68.15427580008574, 68.61045390011886, 71.56772334916124,
+    74.1093042013288, 63.988191925708385, 66.21744691352036,
+    68.39789368920252, 70.32537997750566, 69.35310199180326,
+    70.35907900308938, 71.48814309158637, 67.75404238854878,
+    67.69308522666981, 70.815006837079, 64.79148174927231,
+    69.36101537827194, 71.11173177609744, 68.28721506588634,
+    65.0332119361043, 70.744140530629, 67.78522462201467,
+    67.05953654965691, 71.24214399496344, 69.97621242407476,
+    67.70961630454367, 66.3486375347114, 73.43151208534148,
+    65.4841296783554, 73.78805093092924, 73.9672918185404,
+    68.73136934509952, 60.24605363875092, 73.15018308045292,
+    67.96939828849996, 67.9655321346028, 66.87571974324844,
+    61.853033531186526, 64.00357226161195, 69.66499303023471,
+    63.557068952840304, 64.9013537220262, 71.17006534535915,
+    68.53921259781742, 63.63495691436013, 73.35808011569941,
+    72.21975431985399, 73.5397693958875, 70.99352769352596,
+    65.2302503399399, 71.03314608040799, 70.73267668737698,
+    65.96661123175336, 70.82095812047936, 69.09888399600705,
+    65.75361403333528, 65.7459806506777, 73.51044503041749,
+    63.79180520726831, 65.12826551183593, 63.622634069309754,
+    72.4324956903426, 73.48290914770115, 71.35512231860287,
+    74.03789460242275, 72.35759833591193, 70.30424791700685,
+    75.25261721006613, 68.91181311168846, 80.15636842505116,
+    70.0340502198275, 73.16843224974262, 70.04470387441815,
+    66.39647642712626, 66.55853079055146, 63.52061077158525,
+    75.55196675149142, 65.9583789425684, 68.18977073091455,
+    64.6582750950282, 75.2694460184864, 63.08385508988495,
+    67.24169012185125, 68.55554193182414, 75.01007592474862,
+    67.93712123524303, 72.55981237553458, 65.2266004357345,
+    70.11958320126956, 68.49007476076834, 68.4821622380211,
+    71.77627397030972, 71.99224074111302, 65.03068641379413,
+    63.78290793846096, 64.7663596293991, 68.51108172881484,
+    68.57049750053861, 74.0618376140766, 74.74401250126282,
+    69.2924033758999, 62.50816919031755, 70.31649347296097,
+    63.60310607175936, 66.51442389519003, 66.33657197373954,
+    74.0006654185716, 71.05034695392503, 60.513404029141924,
+    65.93460737429501, 68.56371735177376, 70.41782999691608,
+    63.297889226748396, 65.82567965507188, 65.14018540685872,
+    73.45276787286294, 76.69933693475069, 76.6143218061883,
+    67.87288743209959, 78.90621958212958, 67.17210851675001,
+    63.14073901753589, 63.76174643685952, 69.07395324740828,
+    72.99931768719948, 64.31491524505797, 68.13463277089811,
+    73.71774408822883, 71.20084607682494, 66.38005222293522,
+    71.1353176917292, 78.49609330616342, 67.9599846543843,
+    66.60970344923525, 73.70952088891565, 68.65457608391407,
+    73.86245084342724, 60.34065763481572, 62.03714282658721,
+    65.95441678545689, 69.82640564439846, 68.22997744894947,
+    68.30636506165474, 68.33753447753402, 69.18418821089446,
+    70.33776027370033, 72.19327937969285, 64.25145596549919,
+    75.67242418129972, 71.28097527071395, 68.73518111124291,
+    70.58532836111102, 56.36050409426337, 64.0081081077017,
+    74.23039058241149, 68.4851493542437, 66.02452614932622,
+    68.85458430447609, 68.98371503731957, 75.73918905163119,
+    62.465945916763324, 76.26450757152884, 67.68547860132053,
+    64.01503505356436, 68.68987220340571, 60.21406142727829,
+    63.5297632803899, 67.42717094700045, 67.07667722405112,
+    60.39720779572818, 65.12467537371478, 79.07020619461078,
+    65.17888872873483,
+]
+G1_REF_ITERS = "198/422/3583"
+G1_REF_RESEEDS = [
+    ('float32', 128, 128, 16, 256, 6),
+    ('float32', 136, 1152, 16, 247, 6),
+    ('float32', 136, 2176, 16, 14, 8),
+    ('float32', 136, 3200, 16, 14, 16),
+]
+G1_REF_PROGRAMS = [('float32', 16), ('float32', 0), ('float64', 0)]
+G1_REF = {"obj": G1_REF_OBJ, "exact": G1_EXACT_OBJ,
+          "iters": G1_REF_ITERS, "reseeds": G1_REF_RESEEDS,
+          "programs": G1_REF_PROGRAMS}
+G2_SIZE = 64
+G2_SIDE = 100
+G2_REF_OBJ = [
+    291.39853631836695, 280.39675896133343, 299.63273078584285,
+    291.7967307410104, 291.12392347430455, 300.4139789247294,
+    295.2849669803723, 291.0864398296205, 295.05113705125444,
+    278.82388415185795, 307.1544309348451, 282.5937967042558,
+    303.4415448532996, 301.2700887006318, 298.1910193910883,
+    304.53923058809926, 300.1594637427928, 296.7310701157245,
+    290.57475542276285, 290.18559902053454, 304.8449058128616,
+    302.202397055899, 302.31766823803105, 301.95314545321594,
+    303.9523264509828, 287.5429953406049, 309.89078634575026,
+    295.4268649866263, 307.13330372546085, 301.362495198712,
+    288.9152495097032, 297.25575355194553, 299.314135351707,
+    292.04409751371867, 300.44400673191643, 310.4158020113607,
+    305.3755256430509, 297.9761253931152, 305.74692029052017,
+    293.8295031055016, 288.3319902972947, 295.79166315073314,
+    283.91605932815634, 296.560491199584, 300.50858006906367,
+    287.58281771793213, 289.3225777951088, 301.30080746010697,
+    288.48274804400336, 289.88625035978043, 298.94947188243987,
+    294.7181477325273, 295.01136844112364, 296.10094114822664,
+    301.0142997660614, 300.62491068455313, 284.1846309895861,
+    297.4802949389706, 287.6456052460397, 300.8761452222363,
+    295.372273238427, 307.0361824626332, 302.2853016651146,
+    290.6748416581151,
+]
+G2_EXACT_OBJ = [
+    291.3971761875672, 280.4287622889434, 299.64594562471916,
+    291.755778148709, 291.16175968065886, 300.3460366124735,
+    295.23701022576375, 291.02769065123505, 295.02780637651915,
+    278.77565911071105, 307.17836303898366, 282.512131916337,
+    303.47667956954024, 301.26381043939824, 298.2646309549708,
+    304.4672145685419, 300.11625420097033, 296.6797744731653,
+    290.6081204525489, 290.2224141684109, 304.89626722960446,
+    302.3311582387843, 302.26721527979714, 302.02226482711615,
+    303.8839030901032, 287.4658950814607, 309.87963594326516,
+    295.43948358845586, 307.1594519213415, 301.39464432585254,
+    288.90246814996533, 297.2303203956531, 299.3579703493429,
+    292.1021286650829, 300.38185431537374, 310.38673013286007,
+    305.3936908495514, 298.023339196623, 305.7808521219534,
+    293.77239443854444, 288.3043397832631, 295.86208888012567,
+    283.9539192074758, 296.5812941568885, 300.4814708963938,
+    287.5873717102706, 289.2746054005025, 301.10532943643005,
+    288.457463176479, 289.94244518574885, 299.0168307600141,
+    294.66760977585614, 295.0770635205274, 296.1555172012357,
+    300.93411442550513, 300.5850412041009, 284.3164557044,
+    297.45495457323415, 287.7345722511113, 300.7750122234433,
+    295.41544057182324, 307.0973494217215, 302.35526439766335,
+    290.6748149231377,
+]
+G2_REF_ITERS = "452/1036/2435"
+G2_REF_RESEEDS = [
+    ('float32', 128, 128, 16, 64, 10),
+    ('float32', 128, 128, 24, 64, 10),
+    ('float32', 435, 1152, 24, 64, 9),
+    ('float32', 435, 2176, 24, 25, 59),
+]
+G2_REF_PROGRAMS = [('float32', 16), ('float32', 24), ('float32', 0), ('float64', 0)]
+G2_REF = {"obj": G2_REF_OBJ, "exact": G2_EXACT_OBJ,
+          "iters": G2_REF_ITERS, "reseeds": G2_REF_RESEEDS,
+          "programs": G2_REF_PROGRAMS}
 # kernel vs plain version on the card.  f64: elementwise outputs round
 # alike (-fmad=false, the plain version's operation order); reductions
 # differ in summation order only, ~1e-14 in practice.  f32: the GEMM sums
@@ -255,6 +547,9 @@ CALL_SHAPE = {
     "cholqr": lambda Y, *a, **kw: tuple(Y.shape),
     "ritz_accept": lambda W, *a, **kw: tuple(W.shape),
     "lanczos_krylov": lambda X, v0, ncv, *a, **kw: (X.shape[0], ncv),
+    # phase G: (B, side, k) of K12, (B, s, s) of K9
+    "batched_subspace": lambda v, warm, *a, **kw: tuple(warm.shape),
+    "batched_psd_eigh": lambda X, *a, **kw: tuple(X.shape),
 }
 
 
@@ -565,15 +860,16 @@ def kernel_checks(torch, kernels, setup, rng, dev):
 EIGH_SIDES = (2, 10, 16, 31, 32, 33, 40, 64)
 # K9 against torch.linalg.eigh: two backward-stable eigensolvers, whose
 # projections and eigenvalues differ by a few s * eps * ||X||; held
-# relative to the batch's largest entry
+# relative to the batch's largest entry, to EIGH_RTOL up to side 64 and
+# EIGH_RTOL * side / 64 above (each entry takes ~2 s rotations a sweep;
+# at side 168 in f32 the eigenvalues differ by 1.5e-4 of the scale)
 EIGH_RTOL = {"f64": 1e-11, "f32": 1e-4}
 TOL_PSD = 1e-7
 
 
-def eigh_inputs(torch, rng, side, dt, dev):
-    """BATCH_SIZE symmetric side x side matrices: random ones, every third
+def eigh_inputs(torch, rng, side, dt, dev, B=BATCH_SIZE):
+    """B symmetric side x side matrices: random ones, every third
     rank-deficient (half its eigenvalues exactly 0), instance 1 NaN."""
-    B = BATCH_SIZE
     X = rng.standard_normal((B, side, side))
     X = 0.5 * (X + X.transpose(0, 2, 1))
     Q, _ = np.linalg.qr(rng.standard_normal((B // 3 + 1, side, side)))
@@ -613,21 +909,26 @@ def eigh_compare(torch, X, tol):
     return fn
 
 
-def batch_kernel_checks(torch, kernels, setups, rng, dev):
-    """Phase B rows of the batch path: K9 at every side of EIGH_SIDES (the
-    phase-D side 16 on the path, the others checked but off it), K10 and
-    the batched K1-K4 entry points at phase D's shapes, in f32 (the race)
-    and f64; (rows of the kernels line, off-path rows)."""
+def batch_kernel_checks(torch, kernels, setups, rng, dev, eigh_sides=EIGH_SIDES,
+                        phase="D"):
+    """Phase B rows of a batch path: K9 at every side of ``eigh_sides`` in
+    each type that takes it (the path's side on the path, the others
+    checked but off it), K10 and the batched K1-K4 entry points at the
+    path's shapes (``setups``: its instances), in f32 (the race) and f64;
+    (rows of the kernels line, off-path rows)."""
     from proxsdp_tpu_torch.parallel.batch import _batch_operands
 
     rows, off_path = [], []
     B = len(setups)
     lay = setups[0].layout
-    side, n, p, m = BATCH_SIDE, lay.n, lay.p, lay.m
+    side, n, p, m = lay.sdp_sides[0], lay.n, lay.p, lay.m
     tl = side * (side + 1) // 2
+    tag = "" if phase == "D" else f"{phase}: "
     for sfx, dt in (("f64", torch.float64), ("f32", torch.float32)):
-        for s in EIGH_SIDES:
-            X = eigh_inputs(torch, rng, s, dt, dev)
+        for s in eigh_sides:
+            if s > kernels.EIGH_MAX_SIDE[dt]:
+                continue
+            X = eigh_inputs(torch, rng, s, dt, dev, B)
             # the function's work, whatever the algorithm: a symmetric
             # eigendecomposition with vectors ~9 s^3 (symmetric QR), the
             # reconstruction V diag(max(w, 0)) V^T ~1.5 s^3
@@ -636,15 +937,16 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev):
                     torch.empty(B, dtype=torch.int32, device=dev),
                     torch.empty(B, s, dtype=dt, device=dev))
             on = s == side
+            tol = EIGH_RTOL[sfx] * max(1.0, s / 64)
             check_entry(
                 torch, kernels, rows if on else off_path, "batched_psd_eigh",
                 sfx, "batched_eigh.cu", "proxsdp_tpu/ops/cones.py:622",
                 lambda f, X=X: f(X, TOL_PSD), kernels.batched_psd_eigh_plain,
                 (X,), outs, flops,
                 library=lambda Xf=torch.nan_to_num(X): torch.linalg.eigh(Xf),
-                compare_fn=eigh_compare(torch, X, EIGH_RTOL[sfx]),
-                tol=EIGH_RTOL[sfx], label=f"side {s}",
-                note="" if on else f" (side {s}: not phase D's)")
+                compare_fn=eigh_compare(torch, X, tol),
+                tol=tol, label=f"{tag}side {s}",
+                note="" if on else f" (side {s}: not phase {phase}'s)")
 
         o = _batch_operands(setups, dt, dev, "auto")
         M = o.M
@@ -672,7 +974,8 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev):
         xT, yT = x.T.contiguous(), y.T.contiguous()
 
         def add(*args, **kw):
-            check_entry(torch, kernels, rows, *args, **kw)
+            check_entry(torch, kernels, rows, *args,
+                        label=f"{phase}: side {side}" if tag else "", **kw)
 
         add("ell_spmv_batch", sfx, "ell_spmv.cu", "proxsdp_tpu/ops/linop.py:123",
             lambda f: (f(M.row_cols, M.row_vals, x), f(M.col_rows, M.col_vals, y)),
@@ -713,6 +1016,178 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev):
     return rows, off_path
 
 
+# K12 against its plain version on the card: f64 sums in other orders and
+# Jacobi for LAPACK's k x k eigh; f32 and the mixed mode (an f32 basis)
+# to f32 rounding of the Ritz vectors; held relative to the largest entry
+SUB_RTOL = {"f64": 1e-10, "f32": 1e-4, "f64_f32": 1e-4}
+# the mixed mode's f64 Rayleigh quotients, on bases that span the top
+# eigenvectors (the polish after an exact reseed): quotients of two f32
+# bases agree to second order in their rounding -- K12 against the plain
+# version 4.9e-9 to 2.1e-8 of the largest entry (its k x k Jacobi stops
+# at an off-diagonal norm of eps ||Bm||_F, so nearly equal Ritz values
+# mix more than in LAPACK's eigh), the JAX step against it ~1e-10 --
+# while Ritz values of an f32 eigh lie 5.4e-6 and 1.1e-5 away at k = 16
+# (the f32 mode, run as the control that must fail; on an H100, PERF.md);
+# held between the two
+SUB_THETA_RTOL = 1e-7
+# phase G's K12 shapes (B, side, k): G1's, then G2's before and after its
+# bucket escalation
+SUB_SHAPES = ((256, 40, 16), (64, 100, 16), (64, 100, 24))
+
+
+def subspace_inputs(torch, rng, B, side, k, dt, dev, converged=False):
+    """B packed scaled triangles of matrices with six clear positive
+    eigenvalues (as phase G's iterates have a handful), orthonormal (side,
+    k) bases -- random, or with ``converged`` spanning the k top
+    eigenvectors, rotated at random; instance 1 has a NaN entry, instance
+    2 is exactly 0."""
+    from proxsdp_tpu_torch import kernels
+
+    Q, _ = np.linalg.qr(rng.standard_normal((B, side, side)))
+    w = rng.standard_normal((B, side))
+    w[:, :6] = 5.0 + 3.0 * rng.random((B, 6))
+    X = np.einsum("bik,bk,bjk->bij", Q, w, Q)
+    X[2] = 0.0
+    V, _ = np.linalg.qr(rng.standard_normal((B, side, k)))
+    if converged:
+        top = np.argsort(-w, axis=1)[:, :k]
+        V = np.take_along_axis(Q, top[:, None, :], axis=2) @ np.linalg.qr(
+            rng.standard_normal((B, k, k)))[0]
+    v = kernels.square_to_tri_plain(torch.tensor(X), side)
+    v[1, 3] = float("nan")
+    return v.to(dt).to(dev), torch.tensor(V, dtype=dt, device=dev)
+
+
+def theta_err(torch, got, want, side, scale):
+    """The largest difference, relative to ``scale``, between two K12
+    outputs' Ritz values -- theta_j of each positive pair recovered from
+    the blocks and the basis as w_j^T Xp w_j / |w_j|^4 (exact to second
+    order in W's rounding), min_eig and stats' min theta -- over the
+    instances the guard passed."""
+    from proxsdp_tpu_torch import kernels
+
+    def thetas(out):
+        blk, me, _, warm, _, stats = out
+        W = warm.double()
+        Xp = kernels.tri_to_square_plain(blk.double(), side)
+        th = torch.einsum("bik,bij,bjk->bk", W, Xp, W) / torch.sum(W * W, 1) ** 2
+        return th, me.double(), stats[:, 1].double()
+
+    ok = ~want[4]
+    return max(float((a[ok] - b[ok]).abs().max())
+               for a, b in zip(thetas(got), thetas(want))) / scale
+
+
+def subspace_compare(torch, v, V, side, tol, theta=None):
+    """K12's outputs (blocks, min_eig, rank, warm, bad, stats) against the
+    plain version's: the guard flags equal (instance 1 alone), the guarded
+    instance's basis back unchanged; blocks, min eigenvalue and the Ritz
+    stats to ``tol`` of the largest entry; ranks and positive counts
+    equal; the bases up to column sign where the Ritz value is simple.
+    With a dict ``theta`` (the mixed mode) also the Ritz values to
+    SUB_THETA_RTOL (``theta_err``, recorded there under "kernel").
+    Returns (max abs error of the blocks, relative)."""
+    from proxsdp_tpu_torch import kernels
+
+    def fn(got, want):
+        blk, me, rank, warm, bad, stats = got
+        pblk, pme, prank, pwarm, pbad, pstats = want
+        scale = float(v[torch.isfinite(v)].abs().max())
+        check(torch.equal(bad, pbad) and bad.tolist()[:3] == [False, True, False]
+              and int(bad.sum()) == 1, "batched_subspace: guard flags")
+        check(torch.equal(warm[bad], V[bad]), "batched_subspace: guarded basis")
+        check(torch.equal(torch.isnan(blk), torch.isnan(pblk)),
+              "batched_subspace: NaN outside the guarded instance")
+        ok = ~bad
+        fin = torch.isfinite(pblk)
+        err = max(float((blk[fin] - pblk[fin]).abs().max()),
+                  float((me[ok] - pme[ok]).abs().max()),
+                  float((stats[ok, :2] - pstats[ok, :2]).abs().max()))
+        check(torch.equal(rank, prank) and torch.equal(stats[:, 2], pstats[:, 2]),
+              "batched_subspace: ranks differ")
+        X = kernels.tri_to_square_plain(torch.nan_to_num(v), side).double()
+        W = pwarm.double()
+        th = torch.einsum("bik,bij,bjk->bk", W, X, W)
+        inf = th.new_full((th.shape[0], 1), float("inf"))
+        d = torch.diff(th, dim=1).abs()
+        simple = torch.minimum(torch.cat([d, inf], 1), torch.cat([inf, d], 1)) \
+            > 1e-3 * scale
+        dots = torch.sum(warm.double() * W, dim=1).abs()
+        sel = simple & ok[:, None]
+        check(not bool(sel.any()) or float((1 - dots[sel]).abs().max())
+              <= max(tol, 1e-8), "batched_subspace: Ritz vectors differ")
+        if theta is not None:
+            theta["kernel"] = theta_err(torch, got, want, side, scale)
+            check(theta["kernel"] <= SUB_THETA_RTOL,
+                  f"batched_subspace (mixed): Ritz values {theta['kernel']:.3e}"
+                  f" of the scale from the plain version's (> {SUB_THETA_RTOL})")
+        return err, err / scale
+
+    return fn
+
+
+def subspace_kernel_checks(torch, kernels, rng, dev):
+    """K12 against its plain version at phase G's shapes in f32 (phase G's
+    race), the mixed mode and f64 (checked here, off phase G's path: its
+    f64 phase runs the eigh program after the drop), timed beside the
+    library route (torch.linalg.qr, torch.bmm, torch.linalg.eigh of the
+    Rayleigh matrix, the reconstruction); (rows of the kernels line,
+    off-path rows)."""
+    rows, off_path = [], []
+    for B, side, k in SUB_SHAPES:
+        tl = side * (side + 1) // 2
+        for sfx in ("f32", "f64_f32", "f64"):
+            dt = torch.float32 if sfx == "f32" else torch.float64
+            mixed = sfx == "f64_f32"
+            # the mixed mode on converged bases, where its f64 quotients
+            # are held to SUB_THETA_RTOL
+            v, V = subspace_inputs(torch, rng, B, side, k, dt, dev,
+                                   converged=mixed)
+            theta = {} if mixed else None
+            Xs = torch.nan_to_num(kernels.tri_to_square_plain(v, side))
+
+            def library(Xs=Xs, V=V):
+                Q = torch.linalg.qr(torch.bmm(Xs, V)).Q
+                th, U = torch.linalg.eigh(torch.bmm(Q.mT, torch.bmm(Xs, Q)))
+                W = torch.bmm(Q, U)
+                return torch.bmm(W * th.clamp_min(0)[:, None, :], W.mT)
+
+            outs = (torch.empty(B, tl, dtype=dt, device=dev),
+                    torch.empty_like(V),
+                    torch.empty(B, 5, dtype=dt, device=dev))
+            # the function's work (cones.py:427-510): X V and X Q, the
+            # reconstruction, CholeskyQR twice, the rotations, Jacobi
+            flops = B * (6 * side * side * k + 14 * side * k * k + 10 * k ** 3)
+            on = sfx == "f32"
+            check_entry(
+                torch, kernels, rows if on else off_path, "batched_subspace",
+                sfx, "batched_subspace.cu", "proxsdp_tpu/ops/cones.py:427",
+                lambda f, v=v, V=V, m=mixed: f(v, V, side, TOL_PSD, m),
+                kernels.batched_subspace_plain, (v, V), outs, flops,
+                library=library,
+                compare_fn=subspace_compare(torch, v, V, side, SUB_RTOL[sfx],
+                                            theta),
+                tol=SUB_RTOL[sfx], label=f"G: B = {B}, side {side}, k = {k}",
+                note="" if on else " (off phase G's path)")
+            if mixed:
+                # the control: Ritz values and XW worked out in f32 (the f32
+                # mode on the same inputs) must fail the mixed mode's check
+                want = kernels.batched_subspace_plain(v, V, side, TOL_PSD, True)
+                ctl = kernels.batched_subspace_plain(v.float(), V.float(), side,
+                                                     TOL_PSD, False)
+                scale = float(v[torch.isfinite(v)].abs().max())
+                ctl_err = theta_err(torch, ctl, want, side, scale)
+                print(f"kernel batched_subspace_f64_f32 (G: B = {B}, side {side},"
+                      f" k = {k}) Ritz values on converged bases: kernel "
+                      f"{theta['kernel']:.3e}, f32-quotient control {ctl_err:.3e}"
+                      f" of the scale (tol {SUB_THETA_RTOL:.0e}; the control "
+                      "must exceed it)")
+                check(ctl_err > SUB_THETA_RTOL,
+                      "batched_subspace (mixed): the f32-quotient control "
+                      "passes the mixed mode's Ritz-value check")
+    return rows, off_path
+
+
 # the batch path's CUDA functions as the profiler names them (K10's two
 # directions are one function)
 BATCH_DEVICE_FNS = {
@@ -723,12 +1198,14 @@ BATCH_DEVICE_FNS = {
     "primal_update_batch": "primal_update_batch_kernel",
     "batched_psd_eigh": "batched_psd_eigh_kernel",
     "tri_gather": "gather_scale_kernel",
+    "batched_subspace": "batched_subspace_kernel",
 }
 
 
-def profile_steps(torch, kernels, setups, opts, steps=64):
+def profile_steps(torch, kernels, setups, opts, steps=64, sub_k=0):
     """``steps`` iterations of the batch program of ``opts`` on the setups
-    (after 8 warm-up ones) under torch.profiler: (CUDA kernels per
+    (after 8 warm-up ones; the subspace program at bucket ``sub_k`` when it
+    is not 0) under torch.profiler: (CUDA kernels per
     iteration, the port's kernel launches per iteration, device-busy
     share of the window, ms per iteration, device µs per launch of each
     function of BATCH_DEVICE_FNS).  None where the profiler shows no
@@ -739,6 +1216,8 @@ def profile_steps(torch, kernels, setups, opts, steps=64):
 
     dev = torch.device("cuda")
     opts = tbatch._force_batch_options(opts)
+    if sub_k:  # the subspace program at bucket sub_k
+        opts = opts.replace(subspace_rank=sub_k, subspace_accept_always=True)
     dt = torch.float32 if opts.dtype == "float32" else torch.float64
     layout = setups[0].layout
     o = tbatch._batch_operands(setups, dt, dev, opts.linop)
@@ -1400,6 +1879,132 @@ def phase_f(torch, kernels, smi, W):
     return entries, shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase G: solve_batch's subspace mode (K12, host reseeds, the drop to the
+# eigh program, K9 past side 64)
+# ---------------------------------------------------------------------------
+
+
+def phase_g(torch, kernels, smi, label, B, side, warm_first, ref):
+    """solve_batch of max-cut instances s = 0..B-1 of ``side`` at
+    Options(tol_gap=1e-4, tol_feasibility=1e-4), projection "auto" (the
+    subspace mode: B > 32), with the launch counts set to 0 just before
+    the counted solve and read just after (a first, uncounted solve when
+    ``warm_first``).  Checks every status, the feasibility and PSD bounds
+    per instance, and the objectives against the JAX solve's (``ref``: the
+    JAX package's constants) within G_OBJ_RTOL each and G_OBJ_MEAN_RTOL on
+    average; prints the reseeds and programs beside
+    the JAX driver's, instances/s, and from a profiled window of each
+    program its launches per iteration, busy share and device us per
+    launch.  Returns (launches by entry point, by entry point and shape,
+    the subspace buckets run)."""
+    from proxsdp_tpu_torch import Options, solve_batch
+    from proxsdp_tpu_torch.models.maxcut import maxcut_problem, random_graph_weights
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+    from proxsdp_tpu_torch.problem import preprocess
+
+    problems = [maxcut_problem(random_graph_weights(s, side)) for s in range(B)]
+    probs, Xidx = [p for p, _ in problems], problems[0][1]
+    setups = [preprocess(p) for p in probs]
+    opts = Options(tol_gap=1e-4, tol_feasibility=1e-4)
+    first = None
+    if warm_first:
+        t0 = time.perf_counter()
+        solve_batch(probs, opts)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    stats = tbatch.BatchStats()
+    kernels.reset_launch_counts()
+    SHAPES.reset()
+    t0 = time.perf_counter()
+    res = solve_batch(probs, opts, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entries = dict(kernels.launch_counts)
+    shapes = collections.Counter(SHAPES.counts)
+    status = np.array([r.status for r in res])
+    iters = np.array([r.iter for r in res])
+    X = np.stack([r.primal[Xidx] for r in res])
+    diag_err = np.abs(np.diagonal(X, axis1=1, axis2=2) - 1.0).max(axis=1)
+    diag_tol = np.array([1e-4 * (1.0 + s.norm_b) * s.rhs_scale for s in setups])
+    lam_min = np.linalg.eigvalsh(X)[:, 0]
+    fro = np.linalg.norm(X, axis=(1, 2))
+    obj = np.array([r.objval for r in res])
+    exact, jax_obj = np.array(ref["exact"]), np.array(ref["obj"])
+    err = np.abs(obj - exact) / (1.0 + np.abs(exact))
+    err_jax = np.abs(jax_obj - exact) / (1.0 + np.abs(exact))
+    dev = np.abs(obj - jax_obj) / (1.0 + np.abs(jax_obj))
+    seq = [("reseed", k, n, r) for _, _, _, k, n, r in stats.reseeds]
+    programs = [(d, k) for d, _, k in stats.programs]
+    print(f"phase {label} (solve_batch, B = {B}, side {side}, Options(tol_gap="
+          f"1e-4, tol_feasibility=1e-4), projection 'auto') on {smi}: "
+          f"{'warm ' if warm_first else ''}solve {wall:.3f} s, "
+          f"{B / wall:.2f} instances/s"
+          + (f" (first solve {first:.3f} s)" if warm_first else "")
+          + f"; f32 race {stats.race_iters} iterations in "
+          f"{stats.race_seconds:.3f} s, final phase {stats.final_seconds:.3f} s,"
+          f" program steps {stats.steps}; statuses "
+          f"{dict(zip(*np.unique(status, return_counts=True)))}; iterations "
+          f"min/median/max {iters.min()}/{int(np.median(iters))}/{iters.max()}"
+          f" (JAX {ref['iters']})")
+    print(f"phase {label} reseeds (dtype, iteration min, max, k, instances "
+          f"masked, r_max): {stats.reseeds}; JAX: {ref['reseeds']}")
+    print(f"phase {label} programs (dtype, k; k = 0 the eigh program): "
+          f"{programs}; JAX: {ref['programs']}")
+    if [s[1] for s in seq] != [r[3] for r in ref["reseeds"]] or \
+            programs != [tuple(p) for p in ref["programs"]]:
+        print(f"phase {label} FINDING: the reseed buckets or the programs "
+              "differ from the JAX driver's (above)")
+    elif [s[2:] for s in seq] != [tuple(r[4:]) for r in ref["reseeds"]]:
+        print(f"phase {label}: the JAX driver's reseeds at its buckets and its "
+              "programs; the instances masked and r_max differ (f32 rounding "
+              "moves the race's trajectories)")
+    worst = np.argsort(-dev)[:5].tolist()
+    print(f"phase {label} checks: max|diag(X)-1| worst {diag_err.max():.3e} "
+          f"(its bound {diag_tol[diag_err.argmax()]:.3e}), min over instances "
+          f"of lambda_min(X)/||X||_F {float((lam_min / fro).min()):.3e}; "
+          f"objective vs the JAX solve: max |diff|/(1+|obj|) {dev.max():.3e} "
+          f"(bound {G_OBJ_RTOL:.1e}), mean {dev.mean():.3e} (bound "
+          f"{G_OBJ_MEAN_RTOL:.1e}), above 2e-4 {int((dev > 2e-4).sum())} "
+          f"instances (worst {worst}: iterations {iters[worst].tolist()}); vs "
+          f"the exact optima: max {err.max():.3e}, mean {err.mean():.3e} (the "
+          f"JAX solve's {err_jax.max():.3e}, {err_jax.mean():.3e})")
+    print(f"phase {label} objectives: " + json.dumps(obj.tolist()))
+    print(f"phase {label} launches: " + json.dumps(
+        {e: n for e, n in entries.items() if n}))
+    buckets = sorted({k for _, _, k in stats.programs if k})
+    windows = [(f"f32 subspace k = {k}", "float32", k) for k in buckets] + [
+        ("f32 eigh", "float32", 0), ("f64 eigh", "float64", 0)]
+    for name, dtype, k in windows:
+        per_step, ours, busy, ms, per_launch = profile_steps(
+            torch, kernels, setups, Options(dtype=dtype, hybrid_precision=False,
+                                            tol_gap=1e-4, tol_feasibility=1e-4),
+            sub_k=k)
+        print(f"phase {label} profile ({name} program, 64 iterations of all "
+              f"{B} instances): {ms:.3f} ms/iteration, CUDA kernels per "
+              f"iteration {'not measured' if per_step is None else f'{per_step:.1f}'}"
+              f" (the port's own {ours:.1f}), device busy "
+              f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}; "
+              "device us per launch "
+              + ("not measured" if per_launch is None
+                 else json.dumps(per_launch)))
+    check((status == 1).all(), f"{label}: not every instance reached status 1")
+    check((diag_err <= diag_tol).all(),
+          f"{label}: max|diag(X)-1| above the bound for "
+          f"{int((diag_err > diag_tol).sum())} instances")
+    check((lam_min >= -1e-6 * fro).all(),
+          f"{label}: lambda_min(X) < -1e-6 ||X||_F for "
+          f"{int((lam_min < -1e-6 * fro).sum())} instances")
+    check(dev.max() <= G_OBJ_RTOL,
+          f"{label}: objectives of instances "
+          f"{np.nonzero(dev > G_OBJ_RTOL)[0].tolist()} lie farther from the "
+          f"JAX solve's than {G_OBJ_RTOL:.1e} (1 + |obj|)")
+    check(dev.mean() <= G_OBJ_MEAN_RTOL,
+          f"{label}: objectives lie {dev.mean():.3e} (1 + |obj|) from the JAX "
+          f"solve's on average (> {G_OBJ_MEAN_RTOL:.1e})")
+    return entries, shapes, buckets
+
+
 def main() -> int:
     import torch
 
@@ -1476,8 +2081,25 @@ def main() -> int:
     t_b = time.perf_counter()
     grows = giant_kernel_checks(torch, kernels, np.random.default_rng(2),
                                 torch.device("cuda"))
+    t_g = time.perf_counter()
+    # phase G's shapes: K12 in its three modes, K9 past side 64, K10 and
+    # the batched K1-K4 at G1's and G2's instances
+    gsetups = {label: [preprocess(maxcut_problem(random_graph_weights(s, side))[0])
+                       for s in range(B)]
+               for label, B, side in (("G1", G1_SIZE, G1_SIDE),
+                                      ("G2", G2_SIZE, G2_SIDE))}
+    g1rows, g1off = batch_kernel_checks(
+        torch, kernels, gsetups["G1"], np.random.default_rng(3),
+        torch.device("cuda"), eigh_sides=(G1_SIDE,), phase="G1")
+    g2rows, g2off = batch_kernel_checks(
+        torch, kernels, gsetups["G2"], np.random.default_rng(4),
+        torch.device("cuda"), eigh_sides=(G2_SIDE, 118, 168), phase="G2")
+    srows, soff = subspace_kernel_checks(torch, kernels,
+                                         np.random.default_rng(5),
+                                         torch.device("cuda"))
     print(f"phase B: {time.perf_counter() - t_phase:.1f} s (above side 1024 "
-          f"{time.perf_counter() - t_b:.1f} s)")
+          f"{t_g - t_b:.1f} s, phase G's shapes "
+          f"{time.perf_counter() - t_g:.1f} s)")
 
     # ---- 4. phase C: the default Options() -- hybrid race and polish
     t_phase = time.perf_counter()
@@ -1577,7 +2199,38 @@ def main() -> int:
     for name in ("lanczos_krylov_f64", "ns_gemm_f64"):
         check(entries_f[name] > 0, f"F: {name} launched no kernel")
 
-    print(f"phases A-F: {time.perf_counter() - t_start:.1f} s")
+    # ---- 7. phase G: solve_batch's subspace mode, B = 256 at side 40 (G1,
+    # the README's record and bench.py's batch sweep) and B = 64 at side
+    # 100 (G2, SDPLIB mcp100's side)
+    t_phase = time.perf_counter()
+    entries_g1, shapes_g1, _ = phase_g(torch, kernels, smi, "G1", G1_SIZE,
+                                       G1_SIDE, True, G1_REF)
+    print(f"phase G1: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    entries_g2, shapes_g2, _ = phase_g(torch, kernels, smi, "G2", G2_SIZE,
+                                       G2_SIDE, False, G2_REF)
+    print(f"phase G2: {time.perf_counter() - t_phase:.1f} s")
+    # launches: a K9 or K12 row takes its entry point's launches at its
+    # shape in its phase, a K10 or batched K1-K4 row its entry point's
+    g1_kept, g1_left = assign_launches(g1rows, shapes_g1, entries_g1)
+    g2_kept, g2_left = assign_launches(g2rows, shapes_g2, entries_g2)
+    s_kept, s_left = assign_launches(srows, shapes_g1 + shapes_g2, {
+        e: entries_g1[e] + entries_g2[e] for e in entries_g1})
+    for row in g1_kept + g2_kept + s_kept:
+        check(row["launches"] > 0, f"{row['name']} launched no kernel in G")
+    check(entries_g1["batched_subspace_f32"] > 0
+          and entries_g2["batched_subspace_f32"] > 0,
+          "G: batched_subspace_f32 (K12) launched no kernel")
+    rows += g1_kept + g2_kept + s_kept
+    print("kernels line: phase G's rows take the launches of their entry "
+          "point (K9, K12: at their shape) in phase G1 or G2; checked "
+          "against the plain version but not launched there: "
+          + ", ".join(row["name"] for row in
+                      g1_left + g2_left + s_left + g1off + g2off + soff))
+    print_shapes("phase G1", shapes_g1, g1rows + srows)
+    print_shapes("phase G2", shapes_g2, g2rows + g2off + srows)
+
+    print(f"phases A-G: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

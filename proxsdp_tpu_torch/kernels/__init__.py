@@ -23,6 +23,7 @@ kernels.
 | ritz_accept        | ops/cones.py:443-489 the Ritz acceptance test    |
 | lanczos_krylov     | ops/lanczos.py:56-95 the Lanczos recurrence      |
 | batched_psd_eigh   | ops/cones.py:622-675, 204-211 batched eigh proj. |
+| batched_subspace   | ops/cones.py:427-510 accept-always subspace step |
 | tri_to_square      | ops/tri.py:39-44 (batched)                       |
 | square_to_tri      | ops/tri.py:47-52 (batched)                       |
 
@@ -33,7 +34,8 @@ launch per batch.
 
 The f32 and f64 instantiations share one source each; ``fro_scale`` and
 ``sym_guard`` also take the mixed f64/f32 pairs of the f64 program's
-f32-compute polar reseed.
+f32-compute polar reseed, ``batched_subspace`` the mixed f64 step with an
+f32 basis ("f64_f32").
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ SOLVE_KERNELS = ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
                  "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov")
 BATCH_KERNELS = ("ell_spmv_batch", "ls_dual_update_batch", "sq_dist_batch",
                  "residuals_batch", "primal_update_batch", "batched_psd_eigh",
-                 "tri_to_square", "square_to_tri")
+                 "tri_to_square", "square_to_tri", "batched_subspace")
 KERNELS = SOLVE_KERNELS + BATCH_KERNELS
 
 _P = ctypes.c_void_p
@@ -82,11 +84,13 @@ _ARGTYPES = {
     "batched_psd_eigh": [_P] * 5 + [_I, _I, _D, _P],
     "tri_to_square": [_P] * 4 + [_I] * 3 + [_P],
     "square_to_tri": [_P] * 4 + [_I] * 3 + [_P],
+    "batched_subspace": [_P, _I] + [_P] * 7 + [_I] * 3 + [_D] * 4 + [_P],
 }
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # entry points of mixed type pairs: (input, output) dtype suffixes
-_MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",)}
+_MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",),
+          "batched_subspace": ("f64_f32",)}
 
 
 def _suffixes(name: str) -> tuple[str, ...]:
@@ -841,7 +845,9 @@ def primal_update_batch(x, Mty, c, tau):
 
 # ------------------------------------- K9 batched Jacobi PSD projection
 
-EIGH_MAX_SIDE = 64  # batched_eigh.cu: A and V of one instance in shared memory
+# batched_eigh.cu: A and V of one instance (2 n^2 words, n the side padded
+# to even) in one block's 227 KB of shared memory
+EIGH_MAX_SIDE = {torch.float64: 118, torch.float32: 168}
 
 
 def _eigh_rows(X):
@@ -867,17 +873,19 @@ def batched_psd_eigh(X, tol_psd: float):
     """(Xp, w, rank, warm) of B symmetric (s, s) matrices X = V diag(w) V^T,
     w ascending: Xp = V diag(max(w, 0)) V^T, rank = #{w > tol_psd} (int32),
     warm = V[:, :, -1]; NaN (rank 0) for an instance with a non-finite
-    entry.  On the card s <= 64 (one CTA's shared memory)."""
+    entry.  On the card s <= 118 in f64, 168 in f32 (one CTA's shared
+    memory)."""
     name = "batched_psd_eigh"
     if X.dim() != 3 or X.shape[1] != X.shape[2]:
         raise ValueError(f"{name}: X must be (B, s, s)")
     if _on_cpu(name, X):
         return batched_psd_eigh_plain(X, tol_psd)
     B, s, _ = X.shape
-    if s > EIGH_MAX_SIDE:
+    if s > EIGH_MAX_SIDE[X.dtype]:
         raise NotImplementedError(
-            f"{name}: side {s} > {EIGH_MAX_SIDE} (the batched projection of "
-            "larger blocks is not ported yet: ROADMAP A11 / B11)")
+            f"{name}: side {s} > {EIGH_MAX_SIDE[X.dtype]} in {X.dtype} (the "
+            "batched projection of larger blocks is not ported yet: ROADMAP "
+            "B11, K9 above 118 / 168)")
     Xp = torch.empty_like(X)
     w = torch.empty((B, s), dtype=X.dtype, device=X.device)
     rank = torch.empty(B, dtype=torch.int32, device=X.device)
@@ -962,3 +970,136 @@ def square_to_tri(X, side: int):
     _launch(name, X.dtype, X.device, _ptr(X), _ptr(sq_of_tri), _ptr(out_scale),
             _ptr(out), B, tl, side * side)
     return out
+
+
+# ------------------------------ K12 batched accept-always subspace step
+
+SUBSPACE_MAX_K = 64  # the k x k Jacobi of batched_subspace.cu
+# batched_subspace.cu: one block's dynamic shared memory, less its static
+# reduction buffer and flags
+SUBSPACE_SMEM_BYTES = 232448 - 256 * 8 - 64
+
+
+def subspace_smem_bytes(side: int, k: int, dtype, mixed: bool) -> int:
+    """Shared memory of one batched_subspace.cu block (its smem_layout):
+    the W and XW panels and theta, max(theta, 0) in the blocks' type; the
+    Y/Q and Z panels, the k x k matrices and Jacobi's scratch in the basis
+    type (f32 in the mixed mode); the sort permutation."""
+    t = torch.finfo(dtype).bits // 8
+    c = 4 if mixed else t
+    n = k + (k & 1)
+    return (2 * side * k * t + 2 * k * t + 2 * side * k * c + 2 * n * n * c
+            + 2 * (n // 2) * c + n * c + n * 4)
+
+
+def _cholqr_batch_plain(Y, eps: float):
+    """One CholeskyQR pass on each (side, k) panel of Y (B, side, k):
+    ``cholqr_plain`` per instance, NaN for an instance whose
+    Cholesky factor fails (jnp.linalg.cholesky's NaN)."""
+    k = Y.shape[-1]
+    G = torch.matmul(Y.transpose(-2, -1), Y)
+    jit = eps * (torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / k + 1.0)
+    L, info = torch.linalg.cholesky_ex(
+        G + jit[:, None, None] * torch.eye(k, dtype=Y.dtype, device=Y.device))
+    L = torch.where((info != 0)[:, None, None], torch.nan, L)
+    return torch.linalg.solve_triangular(
+        L, Y.transpose(-2, -1), upper=False).transpose(-2, -1)
+
+
+def batched_subspace_plain(v_blocks, warm, side: int, tol_psd: float,
+                           mixed: bool = False):
+    """The accept-always subspace step of B instances (cones.py:427-510 under
+    batch.py:141's vmap), kernel K12's plain version.
+
+    ``v_blocks`` (B, tri_len) packed scaled triangles of X, ``warm`` (B,
+    side, k) bases.  Q = cholqr2(X V), Z = X Q, (theta, U) = eigh(sym(Q^T
+    Z)), W = Q U, XW = Z U; ``mixed`` (an f64 program's
+    ``subspace_mixed``) builds Q, Z and U in f32 and takes XW = X W and
+    theta = the Rayleigh quotients in f64.  Returns (blocks: W diag(max(
+    theta, 0)) W^T packed, min_eig = min theta, rank = #theta > tol_psd
+    (int32), warm = W with its columns reversed, bad, stats = [max_{theta>0}
+    ||XW_j - theta_j W_j|| / max(max|theta|, 1), min theta, #theta > 0]),
+    each with a leading instance axis.  ``bad`` is the NaN guard: where Xp
+    has a non-finite entry, X (packed again) and the old basis go out.
+    Where X V is exactly 0 the step orthonormalises V itself instead."""
+    dtype = v_blocks.dtype
+    bdt = torch.float32 if mixed else dtype
+    eps = CHOLQR_EPS[bdt]
+    X = tri_to_square_plain(v_blocks, side)
+    Xb = X.to(bdt)
+    Vb = warm.to(bdt)
+    Y = torch.matmul(Xb, Vb)
+    # X V exactly 0 (a cold start's first projection, X = 0): keep the old
+    # basis, which the JAX step would turn into 0 for good (ROADMAP C11)
+    Y = torch.where(torch.any(Y != 0, dim=(-2, -1))[:, None, None], Y, Vb)
+    Q = _cholqr_batch_plain(_cholqr_batch_plain(Y, eps), eps)
+    Zb = torch.matmul(Xb, Q)
+    Bm = torch.matmul(Q.transpose(-2, -1), Zb)
+    Bm = 0.5 * (Bm + Bm.transpose(-2, -1))
+    if mixed:
+        _, U = _eigh_rows(Bm)  # the f32 basis rotation
+        W = torch.matmul(Q, U).to(dtype)
+        XW = torch.matmul(X, W)
+        theta = torch.sum(W * XW, dim=-2) / torch.sum(W * W, dim=-2)
+    else:
+        theta, U = _eigh_rows(Bm)  # ascending
+        W = torch.matmul(Q, U)
+        XW = torch.matmul(Zb, U)
+    rn = torch.sqrt(torch.sum((XW - W * theta[:, None, :]) ** 2, dim=-2))
+    pos = theta > 0.0
+    scale = torch.clamp_min(torch.amax(torch.abs(theta), dim=-1), 1.0)
+    tmin = torch.amin(theta, dim=-1)
+    stats = torch.stack([torch.amax(torch.where(pos, rn, 0.0), dim=-1) / scale,
+                         tmin, torch.sum(pos, dim=-1).to(dtype)], dim=-1)
+    Xp = torch.matmul(W * torch.clamp_min(theta, 0.0)[:, None, :],
+                      W.transpose(-2, -1))
+    rank = torch.sum(theta > tol_psd, dim=-1).to(torch.int32)
+    bad = ~torch.all(torch.isfinite(Xp).flatten(1), dim=1)
+    Xp = torch.where(bad[:, None, None], X, Xp)
+    wv = torch.where(bad[:, None, None], warm, W.flip(-1))
+    return square_to_tri_plain(Xp, side), tmin, rank, wv, bad, stats
+
+
+def batched_subspace(v, warm, side: int, tol_psd: float, mixed: bool = False):
+    """One accept-always Rayleigh-Ritz step per instance
+    (``batched_subspace_plain``): v (B, >= tri_len) packed scaled
+    triangles (rows with unit column stride), warm (B, side, k) bases of
+    v's dtype; ``mixed`` (f64 only) builds the basis in f32.  Returns
+    (blocks (B, tri_len), min_eig (B,), rank (B,) int32, warm (B, side, k),
+    bad (B,) bool, stats (B, 3)).  On the card k <= 64 and one instance's
+    working set within a block's shared memory."""
+    name = "batched_subspace"
+    tl = side * (side + 1) // 2
+    if v.dim() != 2 or v.shape[1] < tl or v.stride(1) != 1:
+        raise ValueError(f"{name}: v must be (B, >= {tl}) with contiguous rows")
+    B = v.shape[0]
+    if warm.dim() != 3 or warm.shape[:2] != (B, side):
+        raise ValueError(f"{name}: warm must be ({B}, {side}, k)")
+    if mixed and v.dtype != torch.float64:
+        raise TypeError(f"{name}: the mixed mode takes f64 blocks")
+    if _on_cpu(name, warm, v[:, :tl], strided=True):
+        return batched_subspace_plain(v[:, :tl], warm, side, tol_psd, mixed)
+    if not warm.is_contiguous():
+        raise ValueError(f"{name}: non-contiguous warm")
+    k = warm.shape[2]
+    need = subspace_smem_bytes(side, k, v.dtype, mixed)
+    if k > SUBSPACE_MAX_K or need > SUBSPACE_SMEM_BYTES:
+        raise NotImplementedError(
+            f"{name}: side {side}, k = {k} in {v.dtype}{' (mixed)' if mixed else ''}"
+            f" needs {need} bytes of one block's shared memory (at most "
+            f"{SUBSPACE_SMEM_BYTES}) or k > {SUBSPACE_MAX_K}: ROADMAP K12 for "
+            "large sides: multi-CTA")
+    dev, dt = v.device, v.dtype
+    out = torch.empty((B, tl), dtype=dt, device=dev)
+    me = torch.empty(B, dtype=dt, device=dev)
+    rank = torch.empty(B, dtype=torch.int32, device=dev)
+    warm_out = torch.empty_like(warm)
+    bad = torch.empty(B, dtype=torch.bool, device=dev)
+    stats = torch.empty((B, 3), dtype=dt, device=dev)
+    eps = CHOLQR_EPS[torch.float32 if mixed else dt]
+    _launch(name, "f64_f32" if mixed else dt, dev, _ptr(v),
+            v.stride(0) if B > 1 else v.shape[1], _ptr(warm), _ptr(out),
+            _ptr(me), _ptr(rank), _ptr(warm_out), _ptr(bad), _ptr(stats), B,
+            side, k, float(tol_psd), float(eps), float(1.0 / np.sqrt(2.0)),
+            float(np.sqrt(2.0)))
+    return out, me, rank, warm_out, bad, stats

@@ -33,9 +33,13 @@
   card the eigendecomposition, reconstruction and rank are kernel K9, on
   the CPU ``torch.linalg.eigh``.
 
+The batch driver's accept-always subspace step (cones.py:427-510 with its
+``subspace_accept_always`` branch 497-510, vmapped by
+parallel/batch.py:141) is kernel K12, ``kernels.batched_subspace``, which
+``parallel/batch.py`` calls directly.
+
 The sign-based subspace body (``subspace_sign=True``, cones.py:337-425)
-and the accept-always batch mode are ROADMAP B5'/B13s, the SOC
-projection is B3'.
+is ROADMAP B5', the SOC projection B3'.
 """
 
 from __future__ import annotations

@@ -7,13 +7,16 @@ instance axis and drives it with one ``while_loop`` whose predicate is
 Here the instance axis is written out:
 
 * the state is the single-instance ``solver.State`` with axis 0 = instance
-  on every field (scalars (B,), ring buffers (B, L), warm (B, side));
+  on every field (scalars (B,), ring buffers (B, L), warm (B, side) or, in
+  the subspace mode, (B, side, k) bases);
 * ``_primal_step``, ``_linesearch`` and ``_dual_step`` are the batched
   forms, beside the single-instance ones: the update is K4's batched entry
   point (no symmetrisation in the packed-triangle layout), the projection
-  is ``ops.cones.psd_projection_small_batch`` (K10 to the square, the
-  batched Jacobi projection K9, K10 back), the products K1's batched entry
-  point, the linesearch trials K2's;
+  either ``ops.cones.psd_projection_small_batch`` (K10 to the square, the
+  batched Jacobi projection K9, K10 back) or, in the subspace mode,
+  ``kernels.batched_subspace`` (the accept-always Rayleigh-Ritz step K12,
+  one launch for the batch), the products K1's
+  batched entry point, the linesearch trials K2's;
 * ``solver._residuals_and_gap`` (K3's batched entry point) and
   ``solver._control`` run on the batched state as they are;
 * ``run_chunk`` reads one flag pair per iteration (any / all instances
@@ -21,19 +24,22 @@ Here the instance axis is written out:
   every field; a linesearch reads one "any active instance still
   searching" flag per trial.  Nothing loops over instances on the host.
 
-Like the JAX driver this forces the dense-eigh projection
-(``use_lanczos=False``, ``subspace_rank=0``) and runs, under the default
-``Options()``, an f32 race with per-instance stall tracking, a hand-over
-to f64 that restarts the step machinery of stalled or non-finite
-instances, and an f64 final phase.  The blocks stay packed scaled
-triangles (no ``to_square_form``).
+Like the JAX driver this runs, under the default ``Options()``, an f32
+race with per-instance stall tracking, a hand-over to f64 that restarts
+the step machinery of stalled or non-finite instances, and an f64 final
+phase.  The blocks stay packed scaled triangles (no ``to_square_form``).
+The projection is the dense eigh unless the subspace mode is on
+(``projection="subspace"``, or ``"auto"`` with B > 32 and a side with
+16 < side // 2): then every iteration takes the accept-always subspace
+step, and between chunks the host reseeds the bases of instances whose
+worst Ritz residual grew (``_reseed_batch``: an exact host eigh),
+escalates the bucket with the observed rank, or drops the batch to the
+eigh program when the rank outgrows ``side // 2``.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``mesh=`` (multi-GPU, B14); the subspace batch mode
-(``projection="subspace"``, or ``"auto"`` with B > 32 and a side with
-16 < side // 2: ``_reseed_batch``, ``subspace_accept_always``);
-per-instance operators (``ell_batched`` / ``dense_batched``); the
-certificate re-entry of an instance that ends with status 5 or 6 (A4c).
+item: ``mesh=`` (multi-GPU, B14); per-instance operators
+(``ell_batched`` / ``dense_batched``, A11o); the certificate re-entry of
+an instance that ends with status 5 or 6 (A4c).
 """
 
 from __future__ import annotations
@@ -65,13 +71,15 @@ from ..solver import (
     _control,
     _ieee_f32_products,
     _residuals_and_gap,
+    _sub_bucket,
     _unsupported,
     init_state,
 )
 
 
 def _force_batch_options(opts: Options) -> Options:
-    """The dense-eigh projection for every instance (batch.py:60-66)."""
+    """The dense-eigh projection for every instance (batch.py:60-66); the
+    subspace mode turns its own step on after this."""
     return opts.replace(use_lanczos=False, certificate_search=False,
                         subspace_rank=0)
 
@@ -168,21 +176,84 @@ def _where_rows(mask, new: State, old: State) -> State:
     return State(**kw)
 
 
+def _reseed_batch(states: State, layout: ConeLayout, k: int, mask, c_np,
+                  opts: Options):
+    """Host basis reseed of the subspace mode (batch.py:69-120): for each
+    instance with ``mask``, the exact top-k eigenvectors (descending) of
+    the PRE-projection matrix x - tau (M'y + c) of each subspace block --
+    the matrix the projection acts on -- go into its warm basis, and its
+    sub_worst is reset.  A basis of another k (the bucket escalated) is
+    rebuilt for every instance.  Returns (states, r_max), r_max the
+    largest rank (eigenvalues above tol_psd) seen.  NumPy on the host, as
+    in the JAX package; one stacked eigh over the masked instances (the
+    same LAPACK call per matrix as a loop: tests/test_torch_batch_subspace.py
+    holds the two equal bit for bit)."""
+    x = states.x.cpu().numpy().astype(np.float64)
+    mty = states.Mty.cpu().numpy().astype(np.float64)
+    tau = states.primal_step.cpu().numpy().astype(np.float64)
+    pre = x - tau[:, None] * (mty + c_np)
+    mask = np.asarray(mask, bool).copy()
+    B = x.shape[0]
+    r_max = 0
+    warm = []
+    for old, off, side in zip(states.warm, layout.sdp_offsets,
+                              layout.sdp_sides):
+        k_sub = int(min(k, side))
+        if not 0 < k_sub < side // 2:
+            warm.append(old)
+            continue
+        want = (B, side, k_sub)
+        if tuple(old.shape) != want:
+            mask[:] = True
+            w_new = np.zeros(want)
+        else:
+            w_new = old.cpu().numpy().copy()
+        gidx, in_scale, _, _ = kernels._maps(side)
+        rows = np.nonzero(mask)[0]
+        if rows.size:
+            Xm = (pre[rows, off:off + tri_len(side)][:, gidx] * in_scale
+                  ).reshape(-1, side, side)
+            w_, V = np.linalg.eigh(Xm)
+            r_max = max(r_max, int(np.sum(w_ > opts.tol_psd, axis=1).max()))
+            w_new[rows] = V[:, :, -k_sub:][:, :, ::-1]
+        warm.append(torch.tensor(w_new, dtype=states.x.dtype,
+                                 device=states.x.device))
+    m = torch.tensor(mask, device=states.x.device)
+    return states.replace(
+        warm=tuple(warm),
+        sub_worst=torch.where(m, torch.zeros_like(states.sub_worst),
+                              states.sub_worst)), r_max
+
+
 @dataclasses.dataclass
 class BatchStats:
     """What a ``solve_batch`` did, for benchmarks and logs: the f32 race's
     length in iterations (0 without it), the program's steps (each one
-    iteration of every active instance) and the seconds of each phase."""
+    iteration of every active instance), the seconds of each phase; in the
+    subspace mode each host reseed (dtype, the smallest and largest
+    iteration, k, instances masked, r_max) and each program the driver
+    switched to (dtype, the smallest iteration, k; k = 0 the eigh
+    program), the first one included."""
 
     race_iters: int = 0
     steps: int = 0
     race_seconds: float = 0.0
     final_seconds: float = 0.0
+    reseeds: list = dataclasses.field(default_factory=list)
+    programs: list = dataclasses.field(default_factory=list)
 
 
 # ---------------------------------------------------------------------------
 # The batched iteration (solver.py:306-490 under batch.py:141's vmap)
 # ---------------------------------------------------------------------------
+
+
+def _subspace_on(side: int, opts: Options) -> bool:
+    """The subspace step's gate (cones.py:235): 0 < k < side // 2 for
+    k = min(subspace_rank, side).  The driver sets subspace_rank only in
+    the subspace mode (``_force_batch_options`` clears it), together with
+    (B, side, k) bases."""
+    return 0 < min(opts.subspace_rank, side) < side // 2
 
 
 def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
@@ -191,8 +262,25 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
     tl = tri_len(side)
     u = kernels.primal_update_batch(s.x, s.Mty, o.c, s.primal_step)
     n = u.shape[1]
-    blocks, me, cur, warm = psd_projection_small_batch(
-        u if n == tl else u[:, :tl].contiguous(), side, opts=opts)
+    v = u if n == tl else u[:, :tl].contiguous()
+    if _subspace_on(side, opts):
+        # the driver turns the subspace mode on only with
+        # subspace_accept_always (batch.py:340-345); the mixed mode is an
+        # f64 program's subspace_mixed (cones.py:435)
+        assert s.warm[0].dim() == 3, "the subspace mode needs (B, side, k) bases"
+        blocks, me, cur, warm, bad, stats = kernels.batched_subspace(
+            v, s.warm[0], side, opts.tol_psd,
+            bool(opts.subspace_mixed) and v.dtype == torch.float64)
+        # the NaN guard counts as a fallback (cones.py:505-509)
+        fallbacks = s.proj_fallbacks + bad.to(s.proj_fallbacks.dtype)
+        sub_stats = stats
+        sub_worst = torch.maximum(s.sub_worst, stats[:, 0])
+    else:
+        blocks, me, cur, warm = psd_projection_small_batch(v, side, opts=opts)
+        # the dense eigh ran for every block of side > 1 (used_full); the
+        # subspace stats nothing reads in this mode are left as they are
+        fallbacks = s.proj_fallbacks + 1 if side > 1 else s.proj_fallbacks
+        sub_stats, sub_worst = s.sub_stats, s.sub_worst
     x = blocks if n == tl else torch.cat([blocks, u[:, tl:]], dim=1)
     return s.replace(
         x=x,
@@ -200,8 +288,9 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
         min_eig=me.to(s.min_eig.dtype).unsqueeze(1),
         current_rank=cur.unsqueeze(1),
         warm=(warm,),
-        # the dense eigh ran for every block of side > 1 (used_full)
-        proj_fallbacks=s.proj_fallbacks + 1 if side > 1 else s.proj_fallbacks,
+        proj_fallbacks=fallbacks,
+        sub_stats=sub_stats,
+        sub_worst=sub_worst,
     )
 
 
@@ -340,35 +429,90 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
     _check_batch(opts, layout)
 
     B = len(setups)
-    if projection not in ("auto", "eigh", "subspace"):
-        raise ValueError(f"unknown projection mode {projection!r}")
-    want_sub = projection == "subspace" or (projection == "auto" and B > 32)
-    if want_sub and any(16 < side // 2 for side in layout.sdp_sides):
-        _unsupported(f"the subspace batch mode (projection={projection!r}, "
-                     f"B = {B}, sides {layout.sdp_sides}: _reseed_batch, "
-                     "subspace_accept_always)", "A11")
-
     hybrid = opts.dtype == "float64" and opts.hybrid_precision
     phase_opts = opts.replace(dtype="float32") if hybrid else opts
     phase_dt = torch.float32 if phase_opts.dtype == "float32" else torch.float64
 
+    # the subspace mode (batch.py:328-345): the accept-always subspace step
+    # every iteration, host reseeds between chunks
+    if projection not in ("auto", "eigh", "subspace"):
+        raise ValueError(f"unknown projection mode {projection!r}")
+    sub_k = 0
+    want_sub = projection == "subspace" or (projection == "auto" and B > 32)
+    if want_sub and any(16 < side // 2 for side in layout.sdp_sides):
+        sub_k = 16  # the starting bucket; reseeds escalate it
+        phase_opts = phase_opts.replace(subspace_rank=sub_k,
+                                        subspace_accept_always=True)
+    c_np = np.stack([np.asarray(s.c, np.float64) for s in setups])
+
     ops = _batch_operands(setups, phase_dt, device, opts.linop)
     states = _stack_states(layout, phase_opts, setups, device)
     tau0 = states.primal_step.cpu().numpy().astype(np.float64)
-    run_chunk, fetch = make_batch_runner(layout, phase_opts, device=device,
-                                            stats=stats)
     budget = _Budget(opts, bool(layout.sdp_sides or layout.soc_lens))
+
+    def runner(states, run_opts):
+        stats.programs.append((run_opts.dtype, int(states.iter.min()),
+                               run_opts.subspace_rank))
+        return make_batch_runner(layout, run_opts, device=device, stats=stats)
+
+    def reseed(states, mask):
+        states, r_max = _reseed_batch(states, layout, sub_k, mask, c_np, opts)
+        it = states.iter
+        stats.reseeds.append((str(states.x.dtype).removeprefix("torch."),
+                              int(it.min()), int(it.max()), sub_k,
+                              int(np.sum(mask)), r_max))
+        return states, r_max
+
+    def maybe_reseed(states, sc, running, base_opts):
+        """Host basis upkeep of the subspace mode (batch.py:377-411):
+        (states, a new runner when the bucket escalated or the batch
+        dropped to the eigh program, else None)."""
+        nonlocal sub_k
+        if not sub_k:
+            return states, None
+        need = running & (sc[:, 6] > max(10 * opts.subspace_tol, 1e-7))
+        if not need.any():
+            return states, None
+        states, r_max = reseed(states, need)
+        k2 = _sub_bucket(r_max + opts.polish_subspace_guard)
+        if k2 == sub_k:
+            return states, None
+        if k2 == 0 or not any(k2 < side // 2 for side in layout.sdp_sides):
+            # the rank outgrew every bucket: the eigh program, warm = the
+            # leading column of each basis
+            sub_k = 0
+            new_opts = base_opts.replace(subspace_rank=0,
+                                         subspace_accept_always=False)
+            states = states.replace(warm=tuple(
+                w[..., 0].contiguous() if w.dim() == 3 else w
+                for w in states.warm))
+        else:
+            # escalation: every basis is rebuilt at the new k
+            sub_k = k2
+            new_opts = base_opts.replace(subspace_rank=k2)
+            states, _ = reseed(states, np.ones(B, bool))
+        return states, runner(states, new_opts)
+
+    run_chunk, fetch = runner(states, phase_opts)
     # on-device convergence logic: the chunk only sets how often the host
     # looks (batch.py:420-424)
     chunk = opts.chunk_iters or (
         max(min(opts.log_freq, 1024), opts.convergence_check)
         if opts.log_verbose else 1024)
+    # the subspace mode starts on random bases (the cold pre-projection
+    # matrix is 0): the first chunk of a phase stops at 128 iterations so
+    # the first reseed comes early (batch.py:426-437)
+    first_chunk = {"todo": bool(sub_k)}
 
     def step(states, ops, running):
         iters_now = states.iter.cpu().numpy()
         k0 = int(iters_now[running].min()) if running.any() else int(
             iters_now.min())
-        return run_chunk(states, ops, min(k0 + chunk, budget.max_iter))
+        n = chunk
+        if first_chunk["todo"]:
+            first_chunk["todo"] = False
+            n = min(chunk, 128)
+        return run_chunk(states, ops, min(k0 + n, budget.max_iter))
 
     # ---- phase 1 (hybrid only): the f32 race, per-instance stall tracking
     if hybrid:
@@ -382,6 +526,9 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
             sc = fetch(states)
             iters = sc[:, 0].astype(int)
             status = sc[:, 1].astype(int)
+            states, new_runner = maybe_reseed(states, sc, ~ready, phase_opts)
+            if new_runner is not None:
+                run_chunk, fetch = new_runner
             gap, feas = sc[:, 2], sc[:, 3]
             metric = np.maximum(gap, feas)
             improved = metric < best / 1.2
@@ -410,6 +557,10 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
             nan_rows = ~torch.isfinite(states.x).all(dim=1)
             if bool(nan_rows.any()):
                 fresh = _stack_states(layout, opts, setups, device)
+                if sub_k:
+                    # the fresh states carry warm vectors; the subspace
+                    # phase below reseeds every basis anyway
+                    fresh = fresh.replace(warm=states.warm)
                 states = _where_rows(nan_rows, fresh, states).replace(
                     iter=states.iter)
             badm = torch.tensor(bad, device=device)
@@ -429,12 +580,25 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
                                       states.ada_count),
             )
         ops = _batch_operands(setups, torch.float64, device, opts.linop)
-        run_chunk, fetch = make_batch_runner(layout, opts, device=device,
-                                                stats=stats)
+        phase_opts = opts
+        if sub_k:
+            # an f64 subspace phase: re-estimate the bucket from the
+            # current iterates and seed exact bases first (batch.py:523-541)
+            states, r_max = reseed(states, np.ones(B, bool))
+            k2 = _sub_bucket(r_max + opts.polish_subspace_guard)
+            if k2 and k2 != sub_k and any(k2 < side // 2
+                                          for side in layout.sdp_sides):
+                sub_k = k2
+                states, _ = reseed(states, np.ones(B, bool))
+            phase_opts = opts.replace(subspace_rank=sub_k,
+                                      subspace_accept_always=True)
+        run_chunk, fetch = runner(states, phase_opts)
         stats.race_seconds = time.time() - t_race
 
     # ---- final phase: the target dtype until every instance stops
     t_final = time.time()
+    if not hybrid:
+        first_chunk["todo"] = bool(sub_k)
     while True:
         running_now = states.status.cpu().numpy() == 0
         states = step(states, ops, running_now)
@@ -443,6 +607,9 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
         iters = sc[:, 0].astype(int)
         elapsed = time.time() - t0
         running = status == 0
+        states, new_runner = maybe_reseed(states, sc, running, phase_opts)
+        if new_runner is not None:
+            run_chunk, fetch = new_runner
         if opts.log_verbose:
             print(f"  [batch] iter>={iters.min()} done={int((~running).sum())}"
                   f"/{B} max_gap="

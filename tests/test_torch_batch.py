@@ -171,18 +171,13 @@ def _scaled_rows():
 
 
 @pytest.mark.parametrize("case, item", [
-    ("mesh", "B14"), ("subspace", "A11"), ("auto_subspace", "A11"),
-    ("per_instance_operators", "A11"), ("polar", "A11"), ("tp_shards", "A12"),
+    ("mesh", "B14"), ("per_instance_operators", "A11"), ("polar", "A11"), ("tp_shards", "A12"),
     ("equilibration", "A6"), ("certificate", "A4c"), ("soc", "A7")])
 def test_out_of_slice_raises(case, item):
     """Every mode outside the slice raises, naming its ROADMAP item."""
     problems, kw = _problems(tx, B=2), {}
     if case == "mesh":
         kw["mesh"] = object()
-    elif case == "subspace":
-        problems, kw["projection"] = _problems(tx, B=2, side=40), "subspace"
-    elif case == "auto_subspace":
-        problems = [maxcut_problem(random_graph_weights(0, 34))[0]] * 33
     elif case == "per_instance_operators":
         problems = [problems[0], _scaled_rows()]
     elif case == "polar":

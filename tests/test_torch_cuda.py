@@ -321,10 +321,11 @@ def _eigh_batch(rng, B, side, dtype, device):
     return X
 
 
-def _check_eigh(got, want, X, tol_psd):
+def _check_eigh(got, want, X, tol_psd, rtol=None):
     Xp, w, rank, warm = got
     pXp, pw, prank, pwarm = want
     dtype = X.dtype
+    rtol = EIGH_RTOL[dtype] if rtol is None else rtol
     finite = torch.isfinite(X).all(dim=(1, 2)).cpu()
     assert torch.equal(torch.isnan(Xp).all(dim=(1, 2)).cpu(), ~finite)
     assert torch.equal(torch.isnan(w).all(dim=1).cpu(), ~finite)
@@ -332,7 +333,7 @@ def _check_eigh(got, want, X, tol_psd):
     assert (rank.cpu()[~finite] == 0).all()
     f = finite.to(X.device)
     scale = float(X[f].abs().max())
-    tol = EIGH_RTOL[dtype] * scale
+    tol = rtol * scale
     assert float((Xp[f] - pXp[f]).abs().max()) <= tol
     assert float((w[f] - pw[f]).abs().max()) <= tol
     # Xp is symmetric bit for bit (the kernel mirrors the upper triangle)
@@ -363,10 +364,31 @@ def test_batched_psd_eigh_matches_plain(cuda, dtype, side):
     _check_eigh(got, kernels.batched_psd_eigh_plain(X, 1e-7), X, 1e-7)
 
 
+@pytest.mark.parametrize("dtype, side", [
+    (torch.float64, 65), (torch.float64, 100), (torch.float64, 118),
+    (torch.float32, 100), (torch.float32, 168)])
+def test_batched_psd_eigh_wide_sides(cuda, dtype, side):
+    """K9 past side 64, up to its shared-memory limit per type (118 in
+    f64, 168 in f32), against its plain version.  The two eigensolvers'
+    rounding grows with the side (each entry takes ~2 s rotations a
+    sweep): EIGH_RTOL, set at side 64, scaled by side / 64 (at side 168
+    in f32 the eigenvalues differ by 1.5e-4 of the scale)."""
+    rng = np.random.default_rng(side)
+    X = _eigh_batch(rng, 16, side, dtype, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.batched_psd_eigh(X, 1e-7)
+    torch.cuda.synchronize()
+    assert kernels.kernel_launches()["batched_psd_eigh"] == 1
+    _check_eigh(got, kernels.batched_psd_eigh_plain(X, 1e-7), X, 1e-7,
+                rtol=EIGH_RTOL[dtype] * side / 64)
+
+
 def test_batched_psd_eigh_limits(cuda):
+    for dtype, side in ((torch.float64, 119), (torch.float32, 169)):
+        X = torch.zeros(2, side, side, dtype=dtype, device=cuda)
+        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
+            kernels.batched_psd_eigh(X, 1e-7)
     X = torch.zeros(2, 65, 65, dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.batched_psd_eigh(X, 1e-7)
     # the zero matrix: projection 0, rank 0, a unit warm vector
     Xp, w, rank, warm = kernels.batched_psd_eigh(X[:, :16, :16].contiguous(),
                                                  1e-7)
@@ -431,7 +453,8 @@ def test_batched_kernels_match_plain(cuda, dtype):
 def test_solve_batch_on_card_matches_cpu(cuda):
     """solve_batch at B = 64, side 16 on the card against its CPU plain
     run, f64 program: the same statuses, iterations within 2 %, objectives
-    to 1e-6; every batched kernel launches."""
+    to 1e-6; every batched kernel of the eigh mode launches (K12 runs in
+    the subspace mode: test_solve_batch_subspace_on_card_matches_cpu)."""
     from proxsdp_tpu_torch.parallel.batch import solve_batch
 
     problems = [maxcut_problem(random_graph_weights(s, 16))[0]
@@ -447,7 +470,153 @@ def test_solve_batch_on_card_matches_cpu(cuda):
         assert abs(g.iter - w.iter) <= max(2, 0.02 * w.iter)
         assert abs(g.objval - w.objval) <= 1e-6 * (1 + abs(w.objval))
     for name in kernels.BATCH_KERNELS:
-        assert counts[name] > 0, name
+        assert counts[name] > 0 or name == "batched_subspace", name
+
+
+# K12 against its plain version: f64 sums in other orders and Jacobi for
+# LAPACK's k x k eigh; f32 and the mixed mode build the basis in f32
+SUB_TOL = {"f64": 1e-10, "f32": 1e-4, "mixed": 1e-4}
+
+
+def _subspace_inputs(rng, B, side, k, dtype, device):
+    """Packed blocks with six clear positive eigenvalues and orthonormal
+    bases; instance 1 has a NaN entry, instance 2 is exactly 0."""
+    Q, _ = np.linalg.qr(rng.standard_normal((B, side, side)))
+    w = rng.standard_normal((B, side))
+    w[:, :6] = 5.0 + 3.0 * rng.random((B, 6))
+    X = np.einsum("bik,bk,bjk->bij", Q, w, Q)
+    X[2] = 0.0
+    V, _ = np.linalg.qr(rng.standard_normal((B, side, k)))
+    v = kernels.square_to_tri_plain(torch.tensor(X), side)
+    v[1, 3] = float("nan")
+    return v.to(dtype).to(device), torch.tensor(V, dtype=dtype, device=device)
+
+
+def _check_subspace(got, want, v, V, side, mode):
+    blk, me, rank, warm, bad, stats = got
+    pblk, pme, prank, pwarm, pbad, pstats = want
+    tol = SUB_TOL[mode]
+    scale = float(v[torch.isfinite(v)].abs().max())
+    assert torch.equal(bad, pbad)
+    assert bad.tolist()[:3] == [False, True, False]
+    assert torch.equal(torch.isnan(blk), torch.isnan(pblk))
+    fin = torch.isfinite(pblk)
+    assert float((blk[fin] - pblk[fin]).abs().max()) <= tol * scale
+    assert torch.equal(torch.isnan(me), torch.isnan(pme))
+    ok = ~bad
+    assert float((me[ok] - pme[ok]).abs().max()) <= tol * scale
+    assert torch.equal(rank, prank)
+    assert torch.equal(stats[:, 2], pstats[:, 2])
+    assert float((stats[ok, :2] - pstats[ok, :2]).abs().max()) <= tol * scale
+    assert torch.equal(warm[bad], V[bad])
+    # Ritz vectors up to sign, where the Ritz value is simple
+    X = kernels.tri_to_square_plain(torch.nan_to_num(v), side).double()
+    W = pwarm.double()
+    th = torch.einsum("bik,bij,bjk->bk", W, X, W)
+    for b in torch.nonzero(ok).flatten().tolist():
+        d = torch.diff(th[b])
+        gap = torch.minimum(torch.cat([d.abs(), d.new_tensor([float("inf")])]),
+                            torch.cat([d.new_tensor([float("inf")]), d.abs()]))
+        simple = gap > 1e-3 * scale
+        dots = torch.sum(warm[b].double() * W[b], dim=0).abs()[simple]
+        if dots.numel():
+            assert float((1 - dots).abs().max()) <= max(tol, 1e-8)
+
+
+@pytest.mark.parametrize("mode", ["f64", "mixed", "f32"])
+@pytest.mark.parametrize("side, k", [(40, 16), (100, 16), (100, 24),
+                                     (100, 48)])
+def test_batched_subspace_matches_plain(cuda, mode, side, k):
+    """K12 against its plain version in each mode: projected blocks, min
+    eigenvalue, rank, guard, sub_stats and bases; a non-finite instance
+    keeps its block and basis, a zero one its basis (C11)."""
+    dtype = torch.float32 if mode == "f32" else torch.float64
+    v, V = _subspace_inputs(np.random.default_rng(side + k), 8, side, k,
+                            dtype, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.batched_subspace(v, V, side, 1e-7, mode == "mixed")
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts.values()) == 1
+    want = kernels.batched_subspace_plain(v, V, side, 1e-7, mode == "mixed")
+    _check_subspace(got, want, v, V, side, mode)
+
+
+# the mixed mode's f64 Rayleigh quotients on bases spanning the top
+# eigenvectors: second order in the f32 basis' rounding (K12 against the
+# plain version up to 2.1e-8 of the largest entry: its Jacobi stops at an
+# off-diagonal norm of eps ||Bm||_F), while an f32 eigh's Ritz values lie
+# 5e-6 to 1.3e-5 away (chip_smoke.py's SUB_THETA_RTOL)
+SUB_THETA_TOL = 1e-7
+
+
+def _thetas(out, side):
+    """Ritz values of a K12 output in f64: theta_j of each positive pair as
+    w_j^T Xp w_j / |w_j|^4 from the blocks and the basis, min_eig and
+    stats' min theta."""
+    blk, me, _, warm, _, stats = out
+    W = warm.double()
+    Xp = kernels.tri_to_square_plain(blk.double(), side)
+    th = torch.einsum("bik,bij,bjk->bk", W, Xp, W) / torch.sum(W * W, 1) ** 2
+    return th, me.double(), stats[:, 1].double()
+
+
+def _theta_err(got, want, side, scale):
+    ok = ~want[4]
+    return max(float((a[ok] - b[ok]).abs().max())
+               for a, b in zip(_thetas(got, side), _thetas(want, side))) / scale
+
+
+@pytest.mark.parametrize("side, k", [(40, 16), (100, 16), (100, 24)])
+def test_batched_subspace_mixed_rayleigh_quotients(cuda, side, k):
+    """The mixed mode's f64 Rayleigh quotients: on bases that span the top
+    eigenvectors K12's Ritz values, min_eig and stats' min theta agree with
+    the plain version's to SUB_THETA_TOL of the largest entry, and the f32
+    mode on the same inputs (Ritz values and XW in f32) fails that bound."""
+    rng = np.random.default_rng(side + k)
+    v, V = _subspace_inputs(rng, 8, side, k, torch.float64, cuda)
+    _, Q = torch.linalg.eigh(kernels.tri_to_square_plain(
+        torch.nan_to_num(v), side))
+    R = torch.linalg.qr(torch.tensor(rng.standard_normal((8, k, k)),
+                                     dtype=torch.float64, device=cuda)).Q
+    V = (Q.flip(-1)[:, :, :k] @ R).contiguous()
+    got = kernels.batched_subspace(v, V, side, 1e-7, True)
+    want = kernels.batched_subspace_plain(v, V, side, 1e-7, True)
+    ctl = kernels.batched_subspace_plain(v.float(), V.float(), side, 1e-7, False)
+    scale = float(v[torch.isfinite(v)].abs().max())
+    assert torch.equal(got[4], want[4])
+    assert _theta_err(got, want, side, scale) <= SUB_THETA_TOL
+    assert _theta_err(ctl, want, side, scale) > SUB_THETA_TOL
+
+
+def test_batched_subspace_limits(cuda):
+    v = torch.zeros(2, 130 * 131 // 2, dtype=torch.float64, device=cuda)
+    V = torch.zeros(2, 130, 64, dtype=torch.float64, device=cuda)
+    with pytest.raises(NotImplementedError, match="K12 for large sides"):
+        kernels.batched_subspace(v, V, 130, 1e-7)
+
+
+def test_solve_batch_subspace_on_card_matches_cpu(cuda):
+    """The f64 subspace program (subspace_mixed=False) at B = 8, side 40 on
+    the card against its CPU plain run: the same reseed decisions and
+    statuses, iterations within 2 %, objectives to 1e-6; K12 launches."""
+    from proxsdp_tpu_torch.parallel.batch import BatchStats, solve_batch
+
+    problems = [maxcut_problem(random_graph_weights(s, 40))[0]
+                for s in range(8)]
+    opts = tx.Options(tol_gap=1e-4, tol_feasibility=1e-4,
+                      hybrid_precision=False, subspace_mixed=False)
+    kernels.reset_launch_counts()
+    st_gpu, st_cpu = BatchStats(), BatchStats()
+    got = solve_batch(problems, opts, projection="subspace", stats=st_gpu)
+    counts = kernels.kernel_launches()
+    want = solve_batch(problems, opts, projection="subspace", device="cpu",
+                       stats=st_cpu)
+    assert [r[3:] for r in st_gpu.reseeds] == [r[3:] for r in st_cpu.reseeds]
+    for g, w in zip(got, want):
+        assert g.status == w.status == 1
+        assert abs(g.iter - w.iter) <= max(2, 0.02 * w.iter)
+        assert abs(g.objval - w.objval) <= 1e-6 * (1 + abs(w.objval))
+    assert counts["batched_subspace"] > 0
 
 
 # ---------------------------------------------------------------- K11, K7

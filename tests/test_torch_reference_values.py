@@ -452,3 +452,121 @@ def test_side2000_reference_values():
                                        k["LZE_REF_POLISH_RANK"], k["LZE_REF_RESEEDS"])
     else:
         assert abs(res["objval"] - obj) <= 2e-4 * (1 + abs(obj))
+
+
+# chip_smoke.py's phase G references: the JAX package's batch solve of the
+# max-cut sweep under phase G's Options(), with its host reseeds and
+# programs logged, lined up with the port where the JAX driver has two
+# faults the port does not copy -- after iteration 1 its first subspace
+# program takes the basis the port's iteration 1 computes on X = 0
+# (cholqr2 of the start basis, columns reversed: ROADMAP C11), and its
+# fetch reads each instance's latest ring slot (C12) -- then its f64
+# dense-eigh solve at 1e-8 tolerances (the optima).
+G_CHILD = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+import proxsdp_tpu as jx
+from proxsdp_tpu.parallel import batch as jb
+from proxsdp_tpu.models.maxcut import maxcut_problem, random_graph_weights
+from proxsdp_tpu_torch import kernels
+B, side = int(sys.argv[1]), int(sys.argv[2])
+reseeds, programs, patched = [], [], []
+reseed, runner = jb._reseed_batch, jb._cached_batch_runner
+def logged_reseed(states, layout, k, mask, c_np, opts):
+    it = np.asarray(states.iter)
+    out, r = reseed(states, layout, k, mask, c_np, opts)
+    reseeds.append([str(np.asarray(states.x).dtype), int(it.min()),
+                    int(it.max()), int(k), int(np.sum(mask)), int(r)])
+    return out, r
+def fetch_latest(ss):
+    i = (ss.iter - 1) % ss.buf_gap.shape[1]
+    take = jax.vmap(lambda buf, j: buf[j])
+    ft = ss.buf_gap.dtype
+    return jnp.stack([ss.iter.astype(ft), ss.status.astype(ft),
+                      take(ss.buf_gap, i), take(ss.buf_feas, i),
+                      take(ss.buf_prim_obj, i), take(ss.buf_dual_obj, i),
+                      ss.sub_worst.astype(ft)], axis=-1)
+def logged_runner(layout, opts, m_kind="shared"):
+    programs.append([opts.dtype, int(opts.subspace_rank)])
+    run, _ = runner(layout, opts, m_kind)
+    def run_patched(states, ops):
+        if not patched and states.warm[0].ndim == 3:
+            patched.append(True)
+            V = torch.tensor(np.asarray(states.warm[0]))
+            states = run(states,
+                         ops._replace(chunk_end=jnp.asarray(1, jnp.int32)))
+            eps = kernels.CHOLQR_EPS[V.dtype]
+            Q = kernels._cholqr_batch_plain(
+                kernels._cholqr_batch_plain(V, eps), eps)
+            states = states._replace(warm=(jnp.asarray(Q.flip(-1).numpy()),))
+        return run(states, ops)
+    return run_patched, jax.jit(fetch_latest)
+jb._reseed_batch, jb._cached_batch_runner = logged_reseed, logged_runner
+probs = [maxcut_problem(random_graph_weights(s, side))[0] for s in range(B)]
+res = jb.solve_batch(probs, jx.Options(tol_gap=1e-4, tol_feasibility=1e-4))
+jb._reseed_batch, jb._cached_batch_runner = reseed, runner
+exact = jb.solve_batch(probs, jx.Options(hybrid_precision=False, tol_gap=1e-8,
+                                         tol_feasibility=1e-8),
+                       projection="eigh")
+it = np.array([r.iter for r in res])
+print(json.dumps({
+    "obj": [r.objval for r in res], "exact": [r.objval for r in exact],
+    "status": sorted({r.status for r in res} | {r.status for r in exact}),
+    "iters": f"{it.min()}/{int(np.median(it))}/{it.max()}",
+    "reseeds": reseeds, "programs": programs}))
+"""
+
+
+def _g_constants(tag: str) -> dict:
+    return _module_constants(SMOKE, tuple(f"{tag}_{n}" for n in (
+        "SIZE", "SIDE", "REF_OBJ", "EXACT_OBJ", "REF_ITERS", "REF_RESEEDS",
+        "REF_PROGRAMS")))
+
+
+@pytest.mark.parametrize("tag", ["G1", "G2"])
+def test_phase_g_constants_are_consistent(tag):
+    """chip_smoke.py's phase G constants hang together: one objective and
+    one optimum per instance, each answer within 5e-3 (1 + |opt|) of its
+    optimum; the reseed history starts with every instance at iteration
+    128 on bucket 16, the programs start with the f32 subspace program at
+    16 and end with the f64 eigh program (the drop in the race)."""
+    k = _g_constants(tag)
+    B = k[f"{tag}_SIZE"]
+    obj, exact = k[f"{tag}_REF_OBJ"], k[f"{tag}_EXACT_OBJ"]
+    assert len(obj) == len(exact) == B
+    assert all(abs(o - e) <= 5e-3 * (1 + abs(e)) for o, e in zip(obj, exact))
+    res, prg = k[f"{tag}_REF_RESEEDS"], k[f"{tag}_REF_PROGRAMS"]
+    assert res[0] == ("float32", 128, 128, 16, B, res[0][5])
+    assert all(len(r) == 6 and 0 < r[4] <= B for r in res)
+    assert prg[0] == ("float32", 16) and prg[-1] == ("float64", 0)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("tag", ["G1", "G2"])
+def test_phase_g_reference_values(tag):
+    """chip_smoke.py's phase G constants re-derived by the JAX package in a
+    child on XLA's default threads (~3 minutes for G1, ~8 for G2 on 8
+    cores): the batch solve's objectives to 1e-9 relative, its iterations,
+    reseeds and programs exactly, the optima to 1e-9.  The constants were
+    derived on 8 cores; XLA splits its f32 sums by the thread count, and on
+    one thread G2 takes another program sequence (PERF.md)."""
+    k = _g_constants(tag)
+    proc = subprocess.run(
+        [sys.executable, "-c", G_CHILD, str(k[f"{tag}_SIZE"]),
+         str(k[f"{tag}_SIDE"])], cwd=ROOT,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"},
+        capture_output=True, text=True, timeout=1800)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["status"] == [1]
+    for key, name in (("obj", "REF_OBJ"), ("exact", "EXACT_OBJ")):
+        for got, want in zip(out[key], k[f"{tag}_{name}"], strict=True):
+            assert abs(got - want) <= 1e-9 * (1 + abs(want)), (key, got, want)
+    assert out["iters"] == k[f"{tag}_REF_ITERS"]
+    assert [tuple(r) for r in out["reseeds"]] == k[f"{tag}_REF_RESEEDS"]
+    assert [tuple(p) for p in out["programs"]] == k[f"{tag}_REF_PROGRAMS"]

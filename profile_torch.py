@@ -32,6 +32,7 @@ import time
 
 # kernel name pattern -> group (first match wins)
 GROUPS = (
+    ("K4 primal_update_sym", r"update_sym_kernel"),
     ("K5 ns_gemm", r"gemm_axpby"),
     ("K6 polar_sym", r"sumsq_kernel|scale_kernel|sym_kernel|sym_flag|guard_kernel"),
     ("K7 cholqr", r"cholqr"),
@@ -40,8 +41,10 @@ GROUPS = (
     ("K1 ell_spmv", r"ell_spmv"),
     ("K2 ls_dual_update/sq_dist", r"ls_dual_update|sq_dist"),
     ("K3 residuals", r"residuals"),
-    ("K2/K3 second pass", r"finalize_kernel"),
-    ("K4 primal_update_sym", r"sym_tile|update_tail"),
+    ("K2/K3/K13 second pass", r"finalize_kernel"),
+    ("K9 batched_psd_eigh", r"batched_psd_eigh"),
+    ("K13 soc_projection", r"soc_proj"),
+    ("K14 coo_spmv", r"seg_spmv"),
     ("eigh (cuSOLVER)", r"syevd|syevj|sytrd|orgtr|ormtr|steqr|stedc|laed|larf|"
                         r"lacpy|cusolver|potrf|geqrf|trsm|syhemv|sytd2"),
     ("GEMM (cuBLAS)", r"gemm|Kernel2|cutlass|xmma|sm90"),

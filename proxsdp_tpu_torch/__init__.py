@@ -5,13 +5,15 @@ names match (``solver``, ``ops/cones``, ``ops/linop``, ...), and each slice
 is accepted only when it matches ``proxsdp_tpu`` on the same input.  It
 imports ``torch``, numpy and scipy -- never jax, never ``proxsdp_tpu``.
 
-Ported so far: solves of one square-form PSD block at every side (the
-Lanczos projection above ``full_eig_max_side``) -- the default
+Ported so far: solves of square-form conic programs -- PSD blocks of any
+number and side (the Lanczos projection above ``full_eig_max_side``),
+SOC blocks, free and LP coordinates, Ruiz and block equilibration with
+the ``block_equilibration="auto"`` probe, warm starts -- by the default
 ``solve(problem)`` (the hybrid f32 race and f64 polish) and single f64
-or f32 programs -- and the batched sweep ``solve_batch(problems)`` of
+or f32 programs, and the batched sweep ``solve_batch(problems)`` of
 many same-geometry single-block problems (the packed-triangle layout,
-the dense-eigh projection), with their hot work in hand-written CUDA
-kernels (``kernels/csrc``).  ``solve`` and ``solve_batch`` run on the
+the dense-eigh or subspace projection), with their hot work in
+hand-written CUDA kernels (``kernels/csrc``).  ``solve`` and ``solve_batch`` run on the
 CUDA card unless the caller passes ``device="cpu"``; every tensor has an
 explicit dtype.
 """

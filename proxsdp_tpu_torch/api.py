@@ -60,6 +60,25 @@ class Optimizer:
         self._soc_vars.append(idx)
         return idx
 
+    def add_rsoc_var(self, length: int) -> np.ndarray:
+        """Add a rotated second-order cone block [u; v; w] with
+        2*u*v >= ||w||^2, u >= 0, v >= 0 (length = 2 + len(w)), bridged
+        as MOI's RSOCtoSOC bridge does (api.py:89-111): free (u, v, w)
+        linked by equalities to an SOC block (t1, t2, w') with t1 = (u +
+        v) / sqrt(2), t2 = (u - v) / sqrt(2), w' = w.  Returns the indices
+        of (u, v, w)."""
+        if length < 2:
+            raise ValueError("rotated SOC needs at least (u, v)")
+        uvw = self.add_free_vars(length)
+        soc = self.add_soc_var(length)
+        s = np.sqrt(2.0) / 2.0
+        u, v = int(uvw[0]), int(uvw[1])
+        self.add_eq_constraint({int(soc[0]): 1.0, u: -s, v: -s}, 0.0)
+        self.add_eq_constraint({int(soc[1]): 1.0, u: -s, v: s}, 0.0)
+        for wi, wsoc in zip(uvw[2:], soc[2:]):
+            self.add_eq_constraint({int(wsoc): 1.0, int(wi): -1.0}, 0.0)
+        return uvw
+
     def add_eq_constraint(self, coeffs: dict, rhs: float):
         self._eq_rows.append(dict(coeffs))
         self._eq_rhs.append(float(rhs))

@@ -57,10 +57,11 @@ def state_to_numpy(state) -> dict:
 
 
 def operands_from_numpy(*, M, b, h, c, norm_b, norm_h, norm_c, obj_scale,
-                        device, dtype: torch.dtype = torch.float64):
+                        device, dtype: torch.dtype = torch.float64,
+                        row_unscale=None):
     """Operands on ``device`` in ``dtype`` (f64 host values rounded once);
     ``M`` is a port operator (moved there, its values already in
-    ``dtype``)."""
+    ``dtype``); ``row_unscale`` None or the (p + m,) row scale."""
     from .solver import Operands
 
     def vec(a):
@@ -70,6 +71,7 @@ def operands_from_numpy(*, M, b, h, c, norm_b, norm_h, norm_c, obj_scale,
     return Operands(
         M=M.to(device), b=vec(b), h=vec(h), c=vec(c), norm_b=vec(norm_b),
         norm_h=vec(norm_h), norm_c=vec(norm_c), obj_scale=vec(obj_scale),
+        row_unscale=None if row_unscale is None else vec(row_unscale),
     )
 
 

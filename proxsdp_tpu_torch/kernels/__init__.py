@@ -2,8 +2,8 @@
 
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 PyTorch version beside it (the tests' path); on a CUDA device it launches
-the kernel from ``csrc/`` (built at first use by ``build.py``) or raises --
-nothing falls back.  Each launch adds one to ``launch_counts`` under its
+the kernel from ``csrc/`` (built at first use by ``build.py``) or raises
+``KernelError`` -- nothing falls back.  Each launch adds one to ``launch_counts`` under its
 entry point ("residuals_f32", "sym_guard_f32_f64"); ``kernel_launches``
 sums them by kernel.  They show that a run really went through the
 kernels.
@@ -11,10 +11,12 @@ kernels.
 | wrapper            | replaces (JAX package)                           |
 |--------------------|--------------------------------------------------|
 | ell_spmv           | ops/linop.py:123-127 EllOp.matvec / rmatvec      |
+| coo_spmv           | ops/linop.py:81-90 CooOp.matvec / rmatvec        |
 | ls_dual_update     | solver.py:452-463 linesearch body + box proj.    |
 | sq_dist            | solver.py:459-461 the accept test's norms        |
 | residuals          | solver.py:545-612 _residuals_and_gap reductions  |
 | primal_update_sym  | solver.py:308 + ops/cones.py:172-173             |
+| soc_projection     | ops/cones.py:43-56 + solver.py:414-419 SOC proj. |
 | ns_gemm            | ops/cones.py:84-95, 285-297 the polar products   |
 | fro_scale          | ops/cones.py:85-86, 279-284 Frobenius scaling    |
 | sym                | ops/cones.py:94, 292 S = (Y + Y^T) / 2           |
@@ -50,11 +52,13 @@ import torch
 from ..ops.cones import box_projection
 from ..utils.vech import offdiag_mask_tri, square_gather_index, tri_ij
 from . import build
+from .build import KernelError
 
 # the single-instance solve's kernels and the batch driver's
 SOLVE_KERNELS = ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
                  "primal_update_sym", "ns_gemm", "fro_scale", "sym",
-                 "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov")
+                 "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov",
+                 "soc_projection", "coo_spmv")
 BATCH_KERNELS = ("ell_spmv_batch", "ls_dual_update_batch", "sq_dist_batch",
                  "residuals_batch", "primal_update_batch", "batched_psd_eigh",
                  "tri_to_square", "square_to_tri", "batched_subspace")
@@ -67,8 +71,10 @@ _ARGTYPES = {
     "ell_spmv": [_P, _P, _P, _P, _I, _I, _P],
     "ls_dual_update": [_P] * 11 + [_I, _I, _P],
     "sq_dist": [_P, _P, _P, _P, _I, _P],
-    "residuals": [_P] * 15 + [_I] * 4 + [_P],
-    "primal_update_sym": [_P] * 5 + [_I, _I, _P],
+    "residuals": [_P] * 18 + [_I] * 4 + [_P],
+    "primal_update_sym": [_P] * 6 + [_I] * 3 + [_P],
+    "soc_projection": [_P] * 3 + [_I] + [_P] * 3,
+    "coo_spmv": [_P] * 5 + [_I, _P],
     "ns_gemm": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _D, _D, _P],
     "fro_scale": [_P] * 4 + [_I, _P],
     "sym": [_P, _P, _I, _P],
@@ -102,9 +108,16 @@ launch_counts = {f"{name}_{sfx}": 0 for name in KERNELS
                  for sfx in _suffixes(name)}
 
 
+# the launches of ``residuals`` with a row scale (an equilibrated
+# problem's), by dtype suffix; they also count in ``launch_counts``
+row_scale_launches = {sfx: 0 for sfx in _SUFFIX.values()}
+
+
 def reset_launch_counts() -> None:
     for entry in launch_counts:
         launch_counts[entry] = 0
+    for sfx in row_scale_launches:
+        row_scale_launches[sfx] = 0
 
 
 def kernel_launches() -> dict[str, int]:
@@ -137,7 +150,7 @@ def _launch(name: str, dtype, device: torch.device, *args):
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+        raise KernelError(f"{name}: CUDA launch failed (cudaError {rc})")
     launch_counts[f"{name}_{sfx}"] += 1
 
 
@@ -211,6 +224,33 @@ def ell_spmv(idx: torch.Tensor, vals: torch.Tensor, v: torch.Tensor):
     return out
 
 
+# ---------------------------------------------- K14 COO (segmented) SpMV
+
+
+def coo_spmv_plain(ptr, idx, vals, v, seg):
+    return torch.zeros(ptr.shape[0] - 1, dtype=v.dtype,
+                       device=v.device).index_add_(0, seg, vals * v[idx.long()])
+
+
+def coo_spmv(ptr, idx, vals, v, seg):
+    """out[s] = sum_{k in [ptr[s], ptr[s+1])} vals[k] * v[idx[k]]: ptr the
+    int64 segment starts, idx int32 (in range), ``seg`` the int64 segment
+    of each term (the plain version's scatter index)."""
+    name = "coo_spmv"
+    if (ptr.dtype != torch.int64 or idx.dtype != torch.int32
+            or seg.dtype != torch.int64 or ptr.dim() != 1
+            or idx.shape != vals.shape or seg.shape != vals.shape):
+        raise ValueError(f"{name}: want int64 ptr and seg, int32 idx, and "
+                         "one length for idx, vals and seg")
+    if _on_cpu(name, ptr, idx, vals, v, seg):
+        return coo_spmv_plain(ptr, idx, vals, v, seg)
+    nseg = ptr.shape[0] - 1
+    out = torch.empty(nseg, dtype=v.dtype, device=v.device)
+    _launch(name, v.dtype, v.device, _ptr(ptr), _ptr(idx), _ptr(vals), _ptr(v),
+            _ptr(out), nseg)
+    return out
+
+
 # ------------------------------------------- K2 linesearch dual update + norms
 
 
@@ -265,12 +305,36 @@ def sq_dist(a, b):
 RESIDUAL_SLOTS = 9
 
 
-@functools.lru_cache(maxsize=8)
-def _offdiag_weight(n: int, side: int, dtype, device) -> torch.Tensor:
-    q = torch.arange(side * side, dtype=torch.int64, device=device)
-    w = torch.ones(n, dtype=dtype, device=device)
-    w[: side * side][q // side != q % side] = math.sqrt(2.0)
-    return w
+def _offsets(lens) -> np.ndarray:
+    """Start offsets of blocks of ``lens`` laid end to end from 0, and the
+    end of the last (len(lens) + 1 int64 values)."""
+    return np.concatenate([[0], np.cumsum(lens, dtype=np.int64)]).astype(np.int64)
+
+
+def _square_lens(sides) -> tuple:
+    return tuple(int(s) * int(s) for s in sides)
+
+
+@functools.lru_cache(maxsize=32)
+def _block_table(sides: tuple, device) -> tuple:
+    """residuals.cu's table of square blocks laid end to end from offset
+    0: (offsets (nblk + 1,), sides (nblk,)), int64 on ``device``; (None,
+    None) without blocks."""
+    if not sides:
+        return None, None
+    return (torch.tensor(_offsets(_square_lens(sides)), device=device),
+            torch.tensor(sides, dtype=torch.int64, device=device))
+
+
+@functools.lru_cache(maxsize=32)
+def _offdiag_weight(n: int, sides: tuple, dtype, device) -> torch.Tensor:
+    """sqrt(2) on the off-diagonal positions of the square blocks of
+    ``sides`` laid end to end from offset 0, 1 elsewhere (length n)."""
+    w = np.ones(n)
+    for off, side in zip(_offsets(_square_lens(sides)), sides):
+        q = np.arange(side * side)
+        w[off : off + side * side][q // side != q % side] = math.sqrt(2.0)
+    return torch.tensor(w, dtype=dtype, device=device)
 
 
 def _max_abs(v):
@@ -300,20 +364,23 @@ def _chunk_dot(a, b):
 
 
 def residuals_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
-                    b, h, c, p: int, m: int, side: int):
-    w = _offdiag_weight(x.shape[0], side, x.dtype, x.device)
+                    b, h, c, p: int, m: int, sides: tuple, row_scale=None):
+    w = _offdiag_weight(x.shape[0], tuple(sides), x.dtype, x.device)
     px_old = x_old - tau * Mty_old
     px = x - tau * Mty
     py_old = y_old - sigma * Mx_old
     py = y - sigma * Mx
-    ineq = (torch.amax(Mx[p:] - h) if m
+    r_eq, r_in = Mx[:p] - b, Mx[p:] - h
+    if row_scale is not None:
+        r_eq, r_in = r_eq * row_scale[:p], r_in * row_scale[p:]
+    ineq = (torch.amax(r_in) if m
             else torch.tensor(-math.inf, dtype=x.dtype, device=x.device))
     maxima = torch.stack([
         _max_abs((px - px_old) * w),
         _max_abs(px_old * w),
         _max_abs(py - py_old),
         _max_abs(py_old),
-        _max_abs(Mx[:p] - b),
+        _max_abs(r_eq),
         ineq,
     ]).double()
     if x.dtype == torch.float64:
@@ -324,12 +391,16 @@ def residuals_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
 
 
 def residuals(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
-              b, h, c, p: int, m: int, side: int):
+              b, h, c, p: int, m: int, sides: tuple, row_scale=None):
     """The nine reductions of residuals.cu (see its header) as a (9,) f64
-    tensor; the square PSD block of ``side`` sits at offset 0 of x.  For
-    f32 inputs the maxima are f32 values and the dots two-stage sums."""
+    tensor.  ``sides``: the square PSD blocks laid end to end from offset
+    0 of x (their off-diagonal entries weigh sqrt(2) in the x-space
+    maxima); ``row_scale``: None or the (p + m,) scale of the equality and
+    inequality residuals (an equilibrated problem's 1/E).  For f32 inputs
+    the maxima are f32 values and the dots two-stage sums."""
     name = "residuals"
     n = x.shape[0]
+    sides = tuple(int(s) for s in sides)
     for t, what in ((x, "x"), (x_old, "x_old"), (Mty, "Mty"),
                     (Mty_old, "Mty_old"), (c, "c")):
         _check_vec(name, t, n, what)
@@ -339,11 +410,16 @@ def residuals(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
     _check_vec(name, h, m, "h")
     _check_scalar(name, tau, "tau")
     _check_scalar(name, sigma, "sigma")
-    if side * side > n:
-        raise ValueError(f"{name}: block of side {side} exceeds n={n}")
+    if sum(_square_lens(sides)) > n:
+        raise ValueError(f"{name}: the size of blocks of sides {sides} "
+                         f"exceeds n={n}")
     args = (x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma, b, h, c)
-    if _on_cpu(name, *args):
-        return residuals_plain(*args, p, m, side)
+    extra = ()
+    if row_scale is not None:
+        _check_vec(name, row_scale, p + m, "row_scale")
+        extra = (row_scale,)
+    if _on_cpu(name, *args, *extra):
+        return residuals_plain(*args, p, m, sides, row_scale)
     if x.dtype == torch.float64:
         grid = _reduce_grid(max(n, p + m))
     else:  # residuals.cu:f32_grid, one warp per 128-element chunk
@@ -352,38 +428,161 @@ def residuals(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
     partials = torch.empty(grid * RESIDUAL_SLOTS, dtype=torch.float64,
                            device=x.device)
     out = torch.empty(RESIDUAL_SLOTS, dtype=torch.float64, device=x.device)
-    _launch(name, x.dtype, x.device, *map(_ptr, args + (partials, out)),
-            n, p, m, side)
+    offs, sds = _block_table(sides, x.device)
+    _launch(name, x.dtype, x.device, *map(_ptr, args),
+            None if row_scale is None else _ptr(row_scale),
+            None if offs is None else _ptr(offs),
+            None if sds is None else _ptr(sds), _ptr(partials), _ptr(out),
+            n, p, m, len(sides))
+    if row_scale is not None:
+        row_scale_launches[_SUFFIX[x.dtype]] += 1
     return out
 
 
 # ------------------------------------------ K4 primal update + symmetrise
 
 
-def primal_update_sym_plain(x, Mty, c, tau, side: int):
+def _runs(sides: tuple):
+    """(offset, side, count) of each run of equal consecutive sides of
+    square blocks laid end to end from offset 0."""
+    runs, off = [], 0
+    for side in sides:
+        if runs and runs[-1][1] == side:
+            runs[-1][2] += 1
+        else:
+            runs.append([off, side, 1])
+        off += side * side
+    return [tuple(r) for r in runs]
+
+
+def primal_update_sym_plain(x, Mty, c, tau, sides: tuple):
     u = x - tau * (Mty + c)
-    s2 = side * side
-    if not side:
-        return u
-    X = u[:s2].view(side, side)
-    return torch.cat([(0.5 * (X + X.T)).reshape(-1), u[s2:]])
+    parts, end = [], 0
+    for off, side, cnt in _runs(tuple(sides)):
+        X = u[off : off + cnt * side * side].view(cnt, side, side)
+        parts.append((0.5 * (X + X.transpose(1, 2))).reshape(-1))
+        end = off + cnt * side * side
+    return torch.cat(parts + [u[end:]]) if parts else u
 
 
-def primal_update_sym(x, Mty, c, tau, side: int):
-    """u = x - tau*(Mty + c) with its leading side x side block symmetrised."""
+SYM_TILE = 32  # primal_update_sym.cu's tile
+
+
+@functools.lru_cache(maxsize=32)
+def _tile_table(sides: tuple, device) -> torch.Tensor:
+    """primal_update_sym.cu's tiles: (ntiles, 4) int64 rows (block offset,
+    side, first row, first column) of every 32 x 32 tile of every block."""
+    rows = []
+    for off, side in zip(_offsets(_square_lens(sides)), sides):
+        nt = -(-side // SYM_TILE)
+        rows += [(int(off), side, SYM_TILE * i, SYM_TILE * j)
+                 for i in range(nt) for j in range(nt)]
+    return torch.tensor(rows, dtype=torch.int64,
+                        device=device).reshape(-1, 4)
+
+
+def primal_update_sym(x, Mty, c, tau, sides: tuple):
+    """u = x - tau*(Mty + c) with each square block of ``sides`` (laid end
+    to end from offset 0) symmetrised; one launch."""
     name = "primal_update_sym"
     n = x.shape[0]
+    sides = tuple(int(s) for s in sides)
     _check_vec(name, Mty, n, "Mty")
     _check_vec(name, c, n, "c")
     _check_scalar(name, tau, "tau")
-    if side * side > n:
-        raise ValueError(f"{name}: block of side {side} exceeds n={n}")
+    start = sum(_square_lens(sides))
+    if start > n:
+        raise ValueError(f"{name}: the size of blocks of sides {sides} "
+                         f"exceeds n={n}")
     if _on_cpu(name, x, Mty, c, tau):
-        return primal_update_sym_plain(x, Mty, c, tau, side)
+        return primal_update_sym_plain(x, Mty, c, tau, sides)
     out = torch.empty_like(x)
+    tiles = _tile_table(sides, x.device)
     _launch(name, x.dtype, x.device, _ptr(x), _ptr(Mty), _ptr(c), _ptr(tau),
-            _ptr(out), n, side)
+            _ptr(out), _ptr(tiles), tiles.shape[0], start, n)
     return out
+
+
+# ------------------------------------- K13 second-order-cone projection
+
+
+def _warp_sq_norms(V):
+    """Sums of squares of the rows of V (G, L) in soc_proj.cu's order:
+    lane l adds v_l^2, v_{l+32}^2, ... in turn, then a shuffle tree folds
+    the lanes 16, 8, 4, 2, 1 apart."""
+    G, L = V.shape
+    if L == 0:
+        return V.new_zeros(G)
+    sq = V * V
+    pad = (-L) % 32
+    if pad:
+        sq = torch.cat([sq, sq.new_zeros(G, pad)], dim=1)
+    sq = sq.view(G, -1, 32)
+    acc = sq[:, 0]
+    for r in range(1, sq.shape[1]):
+        acc = acc + sq[:, r]
+    for half in (16, 8, 4, 2, 1):
+        acc = acc[:, :half] + acc[:, half : 2 * half]
+    return acc[:, 0]
+
+
+@functools.lru_cache(maxsize=32)
+def _soc_groups(lens: tuple, device):
+    """(length, (G, length) int64 gather index) per distinct block length
+    of SOC blocks laid end to end from 0."""
+    starts: dict = {}
+    for off, ln in zip(_offsets(lens), lens):
+        starts.setdefault(ln, []).append(int(off))
+    return [(ln, (torch.tensor(st, device=device)[:, None]
+                  + torch.arange(ln, device=device)))
+            for ln, st in starts.items()]
+
+
+def soc_projection_plain(v, lens: tuple):
+    out = torch.empty_like(v)
+    gaps = []
+    for ln, idx in _soc_groups(tuple(lens), v.device):
+        blk = v[idx]
+        s, V = blk[:, 0], blk[:, 1:]
+        nv = torch.sqrt(_warp_sq_norms(V))
+        scale = 0.5 * (1.0 + s / torch.where(nv == 0, 1.0, nv))
+        in_cone, in_polar = nv <= s, nv <= -s
+        new_s = torch.where(in_polar, 0.0, torch.where(in_cone, s, scale * nv))
+        f = torch.where(in_polar, 0.0, torch.where(in_cone, 1.0, scale))
+        new_v = f[:, None] * V
+        out[idx] = torch.cat([new_s[:, None], new_v], dim=1)
+        gaps.append(torch.amax(torch.sqrt(_warp_sq_norms(new_v)) - new_s))
+    return out, torch.amax(torch.stack(gaps))
+
+
+SOC_WARPS = 8  # soc_proj.cu: blocks per CTA
+
+
+def soc_projection(v, lens: tuple):
+    """(proj, gap): every SOC block [s, v_1..] of ``lens`` (a tuple, laid
+    end to end in v) projected onto ||v|| <= s, and gap = max over blocks
+    of ||v'|| - s' of the projected blocks (0-d, v's dtype)."""
+    name = "soc_projection"
+    offs, total = _soc_table(tuple(lens), v.device)
+    _check_vec(name, v, total, "v")
+    if _on_cpu(name, v):
+        return soc_projection_plain(v, lens)
+    grid = min(-(-len(lens) // SOC_WARPS), 1024)
+    out = torch.empty_like(v)
+    partials = torch.empty(grid, dtype=v.dtype, device=v.device)
+    gap = torch.empty((), dtype=v.dtype, device=v.device)
+    _launch(name, v.dtype, v.device, _ptr(v), _ptr(out), _ptr(offs), len(lens),
+            _ptr(partials), _ptr(gap))
+    return out, gap
+
+
+@functools.lru_cache(maxsize=32)
+def _soc_table(lens: tuple, device):
+    """(soc_proj.cu's int64 offsets on ``device``, the blocks' total
+    length), checked once per block list."""
+    if not lens or min(lens) < 1:
+        raise ValueError("soc_projection: want SOC blocks of length >= 1")
+    return torch.tensor(_offsets(lens), device=device), int(sum(lens))
 
 
 # ---------------------------------------------- K5 GEMM with axpby epilogue

@@ -35,6 +35,10 @@ NVCC_FLAGS = (
 LINK_FLAGS = (*ARCH, "-shared")
 
 
+class KernelError(RuntimeError):
+    """A kernel that cannot be built, loaded or launched on the card."""
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
@@ -46,7 +50,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def library_path() -> Path:
@@ -100,7 +104,10 @@ def load() -> ctypes.CDLL:
             BuildInfo.seconds = time.perf_counter() - t0
             BuildInfo.log = "\n".join(logs)
             if failed:
-                raise RuntimeError(
+                raise KernelError(
                     f"nvcc failed ({', '.join(failed)}):\n{BuildInfo.log}")
             os.replace(tmp, path)
-    return ctypes.CDLL(str(path))
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelError(f"cannot load {path}: {e}") from e

@@ -1,20 +1,23 @@
-// K4: primal gradient step fused with the symmetrisation of the PSD block.
+// K4: primal gradient step fused with the symmetrisation of the PSD blocks.
 //
 // Replaces: proxsdp_tpu/solver.py:308 (x - tau * (M'y + c)) with
-// proxsdp_tpu/ops/cones.py:172-173 (X = 0.5 * (X + X^T) on the square
-// block).  With u = x - tau * (Mty + c):
-//   out[i*side + j] = 0.5 * (u[i*side + j] + u[j*side + i])  inside the block
-//   out[k]          = u[k]                                   after it
-// The block starts at offset 0 of the primal vector (PSD blocks come first
-// in the cone-first layout, problem.py) and is stored row-major.
+// proxsdp_tpu/ops/cones.py:172-173 (X = 0.5 * (X + X^T) on each square
+// block).  With u = x - tau * (Mty + c) and a block of side s at offset o:
+//   out[o + i*s + j] = 0.5 * (u[o + i*s + j] + u[o + j*s + i])  inside it
+//   out[k]           = u[k]                    after the last block
+// The square blocks lie end to end from offset 0, row-major (PSD blocks
+// come first in the cone-first layout, problem.py).
 //
 // Bound on the H100: device-memory bytes -- 3 reads and 1 write per entry,
 // 2 MB per call for the max-cut slice's 250 x 250 f64 block.  The
 // transpose read is the hazard: read column-wise from global memory it is
-// uncoalesced.  Design: 32 x 32 tiles; each block computes u for the
-// mirrored tile with coalesced row reads, parks it in shared memory
-// (padded to 33 columns against bank conflicts), and reads it back
-// transposed, so every global access is coalesced.
+// uncoalesced.  Design: 32 x 32 tiles; a host table lists every tile of
+// every block as (offset, side, first row, first column); the CTA of a
+// tile computes u for the mirrored tile with coalesced row reads, parks it
+// in shared memory (padded to 33 columns against bank conflicts), and
+// reads it back transposed, so every global access is coalesced.  The
+// CTAs past the table's tiles run a grid-stride loop over the entries
+// after the last block: one launch covers the whole vector.
 #include "reduce.cuh"
 
 namespace {
@@ -23,22 +26,37 @@ constexpr int kTile = 32;
 constexpr int kRows = 8;  // blockDim = (kTile, kRows)
 
 template <typename T>
-__global__ void sym_tile_kernel(const T* __restrict__ x,
-                                const T* __restrict__ Mty,
-                                const T* __restrict__ c,
-                                const T* __restrict__ tau_ptr,
-                                T* __restrict__ out, int64_t side) {
+__global__ void update_sym_kernel(const T* __restrict__ x,
+                                  const T* __restrict__ Mty,
+                                  const T* __restrict__ c,
+                                  const T* __restrict__ tau_ptr,
+                                  T* __restrict__ out,
+                                  const int64_t* __restrict__ tiles,
+                                  int64_t ntiles, int64_t start, int64_t n) {
   __shared__ T tile[kTile][kTile + 1];
   const T tau = *tau_ptr;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kTile;  // out rows
-  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kTile;  // out cols
   const int tx = threadIdx.x;
+  if (blockIdx.x >= ntiles) {  // the entries after the last block
+    const int64_t nthreads = (gridDim.x - ntiles) * kTile * kRows;
+    for (int64_t i = start + (blockIdx.x - ntiles) * kTile * kRows +
+                     threadIdx.y * kTile + tx;
+         i < n; i += nthreads)
+      out[i] = x[i] - tau * (Mty[i] + c[i]);
+    return;
+  }
+  const int64_t* tl = tiles + 4 * static_cast<int64_t>(blockIdx.x);
+  const int64_t o = tl[0], side = tl[1];
+  const int64_t r0 = tl[2];  // out rows
+  const int64_t c0 = tl[3];  // out cols
+  const T* xb = x + o;
+  const T* mb = Mty + o;
+  const T* cb = c + o;
   // mirrored tile: rows c0.., columns r0.. ; tile[k][tx] = u(c0 + k, r0 + tx)
   for (int k = threadIdx.y; k < kTile; k += kRows) {
     const int64_t r = c0 + k, col = r0 + tx;
     if (r < side && col < side) {
       const int64_t q = r * side + col;
-      tile[k][tx] = x[q] - tau * (Mty[q] + c[q]);
+      tile[k][tx] = xb[q] - tau * (mb[q] + cb[q]);
     }
   }
   __syncthreads();
@@ -46,65 +64,49 @@ __global__ void sym_tile_kernel(const T* __restrict__ x,
     const int64_t r = r0 + k, col = c0 + tx;
     if (r < side && col < side) {
       const int64_t q = r * side + col;
-      const T u = x[q] - tau * (Mty[q] + c[q]);
-      out[q] = T(0.5) * (u + tile[tx][k]);  // tile[tx][k] = u(col, r)
+      const T u = xb[q] - tau * (mb[q] + cb[q]);
+      out[o + q] = T(0.5) * (u + tile[tx][k]);  // tile[tx][k] = u(col, r)
     }
   }
 }
 
 template <typename T>
-__global__ void update_tail_kernel(const T* __restrict__ x,
-                                   const T* __restrict__ Mty,
-                                   const T* __restrict__ c,
-                                   const T* __restrict__ tau_ptr,
-                                   T* __restrict__ out, int64_t start,
-                                   int64_t n) {
-  const T tau = *tau_ptr;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = start + static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride)
-    out[i] = x[i] - tau * (Mty[i] + c[i]);
-}
-
-template <typename T>
 int launch(const void* x, const void* Mty, const void* c, const void* tau,
-           void* out, int64_t n, int64_t side, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xp = static_cast<const T*>(x);
-  const T* mp = static_cast<const T*>(Mty);
-  const T* cp = static_cast<const T*>(c);
-  const T* tp = static_cast<const T*>(tau);
-  T* op = static_cast<T*>(out);
-  if (side > 0) {
-    const unsigned nt = static_cast<unsigned>((side + kTile - 1) / kTile);
-    sym_tile_kernel<T><<<dim3(nt, nt), dim3(kTile, kRows), 0, s>>>(
-        xp, mp, cp, tp, op, side);
-  }
-  const int64_t start = side * side;
-  if (n > start) {
-    int64_t g = (n - start + proxsdp::kThreads - 1) / proxsdp::kThreads;
-    if (g > 65535) g = 65535;
-    update_tail_kernel<T><<<static_cast<int>(g), proxsdp::kThreads, 0, s>>>(
-        xp, mp, cp, tp, op, start, n);
+           void* out, const void* tiles, int64_t ntiles, int64_t start,
+           int64_t n, void* stream) {
+  int64_t tail = (n - start + kTile * kRows - 1) / (kTile * kRows);
+  if (tail > 65535) tail = 65535;
+  if (tail < 0) tail = 0;
+  if (ntiles + tail > 0) {
+    update_sym_kernel<T><<<static_cast<unsigned>(ntiles + tail),
+                           dim3(kTile, kRows), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x), static_cast<const T*>(Mty),
+        static_cast<const T*>(c), static_cast<const T*>(tau),
+        static_cast<T*>(out), static_cast<const int64_t*>(tiles), ntiles,
+        start, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// tiles: ntiles x 4 int64 (block offset, side, first row, first column of
+// a 32 x 32 tile); start: the end of the last block; x, Mty, c, out: (n,).
 extern "C" int proxsdp_primal_update_sym_f64(const void* x, const void* Mty,
                                              const void* c, const void* tau,
-                                             void* out, int64_t n,
-                                             int64_t side, void* stream) {
-  return launch<double>(x, Mty, c, tau, out, n, side, stream);
+                                             void* out, const void* tiles,
+                                             int64_t ntiles, int64_t start,
+                                             int64_t n, void* stream) {
+  return launch<double>(x, Mty, c, tau, out, tiles, ntiles, start, n, stream);
 }
 
 extern "C" int proxsdp_primal_update_sym_f32(const void* x, const void* Mty,
                                              const void* c, const void* tau,
-                                             void* out, int64_t n,
-                                             int64_t side, void* stream) {
-  return launch<float>(x, Mty, c, tau, out, n, side, stream);
+                                             void* out, const void* tiles,
+                                             int64_t ntiles, int64_t start,
+                                             int64_t n, void* stream) {
+  return launch<float>(x, Mty, c, tau, out, tiles, ntiles, start, n, stream);
 }
 
 // ---- the batch driver's entry point: the packed-triangle layout has no

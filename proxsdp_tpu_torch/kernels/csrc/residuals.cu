@@ -2,21 +2,24 @@
 //
 // Replaces: proxsdp_tpu/solver.py:545-612 (_residuals_and_gap).  With
 // Px = x - tau*Mty, Px_old = x_old - tau*Mty_old, Py = y - sigma*Mx,
-// Py_old = y_old - sigma*Mx_old and w = sqrt(2) on the off-diagonal
-// positions of the square PSD block (1 elsewhere, solver.py:545-557), it
-// writes nine scalars:
+// Py_old = y_old - sigma*Mx_old, w = sqrt(2) on the off-diagonal
+// positions of every square PSD block (1 elsewhere, solver.py:545-557)
+// and r the row scale (1/E of an equilibrated problem, solver.py:582-597;
+// 1 where the pointer is null), it writes nine scalars:
 //   out[0] = max |w (Px - Px_old)|     out[1] = max |w Px_old|
 //   out[2] = max |Py - Py_old|         out[3] = max |Py_old|
-//   out[4] = max |Mx[:p] - b|          out[5] = max (Mx[p:] - h)
+//   out[4] = max |(Mx[:p] - b) r[:p]|  out[5] = max ((Mx[p:] - h) r[p:])
 //   out[6] = c . x                     out[7] = b . y[:p]
 //   out[8] = h . y[p:]
-// The weight comes from the index (row != column inside the block, which
-// starts at offset 0 as in primal_update_sym.cu), not from a host array.
-// Empty ranges give 0 for out[0..4] and -inf for out[5]; the caller keeps
-// its previous value then, as the JAX code does.
+// The weight comes from the index and a block table, not from a host
+// array: nblk square blocks laid end to end, blk_off[k] the start of block
+// k (blk_off[nblk] the end of the last), blk_side[k] its side; a binary
+// search finds an entry's block.  Empty ranges give 0 for out[0..4] and
+// -inf for out[5]; the caller keeps its previous value then, as the JAX
+// code does.
 //
 // Bound on the H100: device-memory bytes -- 5 reads per primal entry and
-// 6 per dual row, about 2.5 MB per call at the max-cut slice's shapes
+// 6 or 7 per dual row, about 2.5 MB per call at the max-cut slice's shapes
 // (n = 62,500, p = 250, f64), i.e. ~0.75 us at 3.35 TB/s, so the launch
 // and the second pass dominate.  Design: one grid-stride pass that keeps
 // all nine accumulators in registers and writes per-block partials, then
@@ -43,6 +46,22 @@ using proxsdp::nan_max;
 constexpr int kSlots = 9;
 constexpr unsigned kMaxMask = 0x3Fu;  // slots 0..5 are maxima, 6..8 sums
 
+// whether entry i of x is an off-diagonal position of a square block of
+// the table (see the header)
+__device__ __forceinline__ bool off_diagonal(int64_t i,
+                                             const int64_t* __restrict__ off,
+                                             const int64_t* __restrict__ side,
+                                             int64_t nblk) {
+  if (nblk == 0 || i < off[0] || i >= off[nblk]) return false;
+  int64_t lo = 0, hi = nblk - 1;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= i) lo = mid; else hi = mid - 1;
+  }
+  const int64_t q = i - off[lo], s = side[lo];
+  return q / s != q % s;
+}
+
 template <typename T>
 __global__ void residuals_kernel(
     const T* __restrict__ x, const T* __restrict__ x_old,
@@ -51,8 +70,9 @@ __global__ void residuals_kernel(
     const T* __restrict__ y_old, const T* __restrict__ Mx,
     const T* __restrict__ Mx_old, const T* __restrict__ sigma_ptr,
     const T* __restrict__ b, const T* __restrict__ h,
-    const T* __restrict__ c, T* __restrict__ partials, int64_t n, int64_t p,
-    int64_t m, int64_t side) {
+    const T* __restrict__ c, const T* __restrict__ rs,
+    const int64_t* __restrict__ blk_off, const int64_t* __restrict__ blk_side,
+    T* __restrict__ partials, int64_t n, int64_t p, int64_t m, int64_t nblk) {
   const T tau = *tau_ptr;
   const T sigma = *sigma_ptr;
   const T sqrt2 = static_cast<T>(1.4142135623730951);
@@ -61,14 +81,12 @@ __global__ void residuals_kernel(
   for (int k = 0; k < kSlots; ++k) acc[k] = T(0);
   acc[5] = static_cast<T>(-INFINITY);
   const int64_t pm = p + m;
-  const int64_t sq_end = side * side;
   const int64_t total = n > pm ? n : pm;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < total; i += stride) {
     if (i < n) {
-      T w = T(1);
-      if (i < sq_end && i / side != i % side) w = sqrt2;
+      const T w = off_diagonal(i, blk_off, blk_side, nblk) ? sqrt2 : T(1);
       const T px_old = x_old[i] - tau * Mty_old[i];
       const T px = x[i] - tau * Mty[i];
       acc[0] = nan_max(acc[0], fabs((px - px_old) * w));
@@ -81,10 +99,12 @@ __global__ void residuals_kernel(
       acc[2] = nan_max(acc[2], fabs(py - py_old));
       acc[3] = nan_max(acc[3], fabs(py_old));
       if (i < p) {
-        acc[4] = nan_max(acc[4], fabs(Mx[i] - b[i]));
+        const T r = Mx[i] - b[i];
+        acc[4] = nan_max(acc[4], fabs(rs ? r * rs[i] : r));
         acc[7] += b[i] * y[i];
       } else {
-        acc[5] = nan_max(acc[5], Mx[i] - h[i - p]);
+        const T r = Mx[i] - h[i - p];
+        acc[5] = nan_max(acc[5], rs ? r * rs[i] : r);
         acc[8] += h[i - p] * y[i];
       }
     }
@@ -109,8 +129,10 @@ __global__ void residuals_f32_kernel(
     const float* __restrict__ y_old, const float* __restrict__ Mx,
     const float* __restrict__ Mx_old, const float* __restrict__ sigma_ptr,
     const float* __restrict__ b, const float* __restrict__ h,
-    const float* __restrict__ c, double* __restrict__ partials, int64_t n,
-    int64_t p, int64_t m, int64_t side) {
+    const float* __restrict__ c, const float* __restrict__ rs,
+    const int64_t* __restrict__ blk_off, const int64_t* __restrict__ blk_side,
+    double* __restrict__ partials, int64_t n, int64_t p, int64_t m,
+    int64_t nblk) {
   const float tau = *tau_ptr;
   const float sigma = *sigma_ptr;
   const float sqrt2 = 1.4142135623730951f;
@@ -120,7 +142,6 @@ __global__ void residuals_f32_kernel(
   const int64_t nx = (n + kChunk - 1) / kChunk;
   const int64_t nb = (p + kChunk - 1) / kChunk;
   const int64_t nh = (m + kChunk - 1) / kChunk;
-  const int64_t sq_end = side * side;
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t nwarps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
@@ -133,7 +154,8 @@ __global__ void residuals_f32_kernel(
         const int64_t i = t * kChunk + lane + 32 * j;
         float prod = 0.f;
         if (i < n) {
-          const float w = (i < sq_end && i / side != i % side) ? sqrt2 : 1.f;
+          const float w =
+              off_diagonal(i, blk_off, blk_side, nblk) ? sqrt2 : 1.f;
           const float px_old = x_old[i] - tau * Mty_old[i];
           const float px = x[i] - tau * Mty[i];
           mx[0] = nan_max(mx[0], fabsf((px - px_old) * w));
@@ -157,10 +179,12 @@ __global__ void residuals_f32_kernel(
           mx[2] = nan_max(mx[2], fabsf(py - py_old));
           mx[3] = nan_max(mx[3], fabsf(py_old));
           if (eq) {
-            mx[4] = nan_max(mx[4], fabsf(Mx[i] - b[r]));
+            const float d = Mx[i] - b[r];
+            mx[4] = nan_max(mx[4], fabsf(rs ? d * rs[i] : d));
             prod = b[r] * y[i];
           } else {
-            mx[5] = nan_max(mx[5], Mx[i] - h[r]);
+            const float d = Mx[i] - h[r];
+            mx[5] = nan_max(mx[5], rs ? d * rs[i] : d);
             prod = h[r] * y[i];
           }
         }
@@ -196,8 +220,9 @@ int launch(const void* x, const void* x_old, const void* Mty,
            const void* Mty_old, const void* tau, const void* y,
            const void* y_old, const void* Mx, const void* Mx_old,
            const void* sigma, const void* b, const void* h, const void* c,
+           const void* rs, const void* blk_off, const void* blk_side,
            void* partials, void* out, int64_t n, int64_t p, int64_t m,
-           int64_t side, void* stream) {
+           int64_t nblk, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = proxsdp::reduce_grid(n > p + m ? n : p + m);
   residuals_kernel<T><<<grid, kThreads, 0, s>>>(
@@ -207,7 +232,10 @@ int launch(const void* x, const void* x_old, const void* Mty,
       static_cast<const T*>(y_old), static_cast<const T*>(Mx),
       static_cast<const T*>(Mx_old), static_cast<const T*>(sigma),
       static_cast<const T*>(b), static_cast<const T*>(h),
-      static_cast<const T*>(c), static_cast<T*>(partials), n, p, m, side);
+      static_cast<const T*>(c), static_cast<const T*>(rs),
+      static_cast<const int64_t*>(blk_off),
+      static_cast<const int64_t*>(blk_side), static_cast<T*>(partials), n, p,
+      m, nblk);
   proxsdp::finalize_kernel<T, kSlots, kMaxMask><<<1, kThreads, 0, s>>>(
       static_cast<const T*>(partials), grid, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -216,14 +244,18 @@ int launch(const void* x, const void* x_old, const void* Mty,
 }  // namespace
 
 // partials holds reduce_grid(max(n, p + m)) * 9 entries; out holds 9.
+// rs: null or p + m row scales; blk_off: nblk + 1 int64 offsets and
+// blk_side: nblk int64 sides of the square blocks (null when nblk = 0).
 extern "C" int proxsdp_residuals_f64(
     const void* x, const void* x_old, const void* Mty, const void* Mty_old,
     const void* tau, const void* y, const void* y_old, const void* Mx,
     const void* Mx_old, const void* sigma, const void* b, const void* h,
-    const void* c, void* partials, void* out, int64_t n, int64_t p, int64_t m,
-    int64_t side, void* stream) {
+    const void* c, const void* rs, const void* blk_off, const void* blk_side,
+    void* partials, void* out, int64_t n, int64_t p, int64_t m, int64_t nblk,
+    void* stream) {
   return launch<double>(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,
-                        sigma, b, h, c, partials, out, n, p, m, side, stream);
+                        sigma, b, h, c, rs, blk_off, blk_side, partials, out,
+                        n, p, m, nblk, stream);
 }
 
 // f32 inputs; partials (f32_grid(n, p, m) * 9 doubles) and out (9
@@ -232,8 +264,9 @@ extern "C" int proxsdp_residuals_f32(
     const void* x, const void* x_old, const void* Mty, const void* Mty_old,
     const void* tau, const void* y, const void* y_old, const void* Mx,
     const void* Mx_old, const void* sigma, const void* b, const void* h,
-    const void* c, void* partials, void* out, int64_t n, int64_t p, int64_t m,
-    int64_t side, void* stream) {
+    const void* c, const void* rs, const void* blk_off, const void* blk_side,
+    void* partials, void* out, int64_t n, int64_t p, int64_t m, int64_t nblk,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = f32_grid(n, p, m);
   residuals_f32_kernel<<<grid, kThreads, 0, s>>>(
@@ -243,8 +276,10 @@ extern "C" int proxsdp_residuals_f32(
       static_cast<const float*>(y_old), static_cast<const float*>(Mx),
       static_cast<const float*>(Mx_old), static_cast<const float*>(sigma),
       static_cast<const float*>(b), static_cast<const float*>(h),
-      static_cast<const float*>(c), static_cast<double*>(partials), n, p, m,
-      side);
+      static_cast<const float*>(c), static_cast<const float*>(rs),
+      static_cast<const int64_t*>(blk_off),
+      static_cast<const int64_t*>(blk_side), static_cast<double*>(partials),
+      n, p, m, nblk);
   proxsdp::finalize_kernel<double, kSlots, kMaxMask><<<1, kThreads, 0, s>>>(
       static_cast<const double*>(partials), grid, static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());

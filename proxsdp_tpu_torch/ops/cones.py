@@ -38,8 +38,10 @@ The batch driver's accept-always subspace step (cones.py:427-510 with its
 parallel/batch.py:141) is kernel K12, ``kernels.batched_subspace``, which
 ``parallel/batch.py`` calls directly.
 
-The sign-based subspace body (``subspace_sign=True``, cones.py:337-425)
-is ROADMAP B5', the SOC projection B3'.
+The SOC projection (cones.py:43-56) is kernel K13,
+``kernels.soc_projection``, which ``solver._primal_step`` calls on all
+SOC blocks at once.  The sign-based subspace body (``subspace_sign=True``,
+cones.py:337-425) is ROADMAP B5'.
 """
 
 from __future__ import annotations

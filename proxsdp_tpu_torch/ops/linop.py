@@ -4,9 +4,13 @@
   (the JAX package leaves them to XLA too, linop.py:44-48).
 * ``EllOp`` -- per-row and per-column ELLPACK tables; both products are
   kernel K1 (``kernels.ell_spmv``), a gather + row reduce.
+* ``CooOp`` -- the triplets sorted by row and by column, for a matrix with
+  a row or column too dense for ELL and too large for the dense form;
+  both products are kernel K14 (``kernels.coo_spmv``), a gather and a
+  segmented sum.
 
-Both are ``nn.Module``s holding their tables as buffers, so ``.to(device)``
-moves them.  The COO form is ROADMAP B2'.
+All are ``nn.Module``s holding their tables as buffers, so ``.to(device)``
+moves them.
 """
 
 from __future__ import annotations
@@ -119,13 +123,50 @@ def stack_vertical(A, G):
     return np.vstack([np.asarray(A), np.asarray(G)])
 
 
+class CooOp(nn.Module):
+    """COO operator (linop.py:61-104) held as two segment tables: the
+    triplets sorted by row (the matvec's segments) and by column (the
+    rmatvec's).  ``*_seg`` is each term's segment, the plain version's
+    scatter index."""
+
+    def __init__(self, rows, cols, vals, nrows: int, ncols: int, *, dtype,
+                 device):
+        super().__init__()
+
+        def table(keys, others, nkeys):
+            order = np.argsort(keys, kind="stable")
+            ptr = np.searchsorted(keys[order], np.arange(nkeys + 1))
+            return (torch.tensor(ptr, dtype=torch.int64, device=device),
+                    torch.tensor(others[order], dtype=torch.int32, device=device),
+                    torch.tensor(vals[order], dtype=dtype, device=device),
+                    torch.tensor(keys[order], dtype=torch.int64, device=device))
+
+        for prefix, t in (("row", table(rows, cols, nrows)),
+                          ("col", table(cols, rows, ncols))):
+            for name, buf in zip(("ptr", "idx", "vals", "seg"), t):
+                self.register_buffer(f"{prefix}_{name}", buf)
+
+    @property
+    def shape(self):
+        return (self.row_ptr.shape[0] - 1, self.col_ptr.shape[0] - 1)
+
+    def matvec(self, x):
+        return kernels.coo_spmv(self.row_ptr, self.row_idx, self.row_vals, x,
+                                self.row_seg)
+
+    def rmatvec(self, y):
+        return kernels.coo_spmv(self.col_ptr, self.col_idx, self.col_vals, y,
+                                self.col_seg)
+
+
 def build_linop(A, G, dtype: torch.dtype, *, device, force: str | None = None,
                 dense_limit: int = 1 << 23):
     """Choose and build the operator for M = [A; G] on ``device``.
 
-    force: "dense" | "ell" | None (auto).  Auto is the JAX package's policy
-    for a backend that is not a TPU (linop.py:278-281): ELL for very sparse
-    matrices, dense otherwise.
+    force: "dense" | "ell" | "coo" | None (auto).  Auto is the JAX
+    package's policy for a backend that is not a TPU (linop.py:278-330):
+    ELL for very sparse matrices, dense otherwise; where a row or column is
+    too dense for ELL, dense if the matrix fits ``dense_limit``, else COO.
     """
     M = stack_vertical(A, G)
     nrows, ncols = M.shape
@@ -139,10 +180,8 @@ def build_linop(A, G, dtype: torch.dtype, *, device, force: str | None = None,
             choice = "ell"
         else:
             choice = "dense" if (size <= dense_limit or density > 0.25) else "ell"
-    if choice not in ("dense", "ell"):
-        raise NotImplementedError(
-            f"operator form {choice!r}: the COO operator is ROADMAP B2'"
-        )
+    if choice not in ("dense", "ell", "coo"):
+        raise ValueError(f"operator form {choice!r}")
 
     def dense():
         arr = M.toarray() if sp.issparse(M) else np.asarray(M)
@@ -150,15 +189,14 @@ def build_linop(A, G, dtype: torch.dtype, *, device, force: str | None = None,
 
     if choice == "dense":
         return dense()
-    t = ell_tables(*_to_coo(M), nrows, ncols)
-    if t is not None:
-        return linop_tables_to_ell(*t, dtype=dtype, device=device)
-    if size <= dense_limit:
-        return dense()
-    raise NotImplementedError(
-        "a row/column too dense for ELL on a matrix too large for the dense "
-        "form needs the COO operator: ROADMAP B2'"
-    )
+    rows, cols, vals = _to_coo(M)
+    if choice == "ell":
+        t = ell_tables(rows, cols, vals, nrows, ncols)
+        if t is not None:
+            return linop_tables_to_ell(*t, dtype=dtype, device=device)
+        if size <= dense_limit:
+            return dense()
+    return CooOp(rows, cols, vals, nrows, ncols, dtype=dtype, device=device)
 
 
 def linop_tables_to_ell(row_cols, row_vals, col_rows, col_vals, *, dtype, device):

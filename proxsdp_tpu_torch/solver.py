@@ -1,11 +1,16 @@
 """PDHG (Chambolle-Pock) solver core -- the port of ``proxsdp_tpu/solver.py``.
 
-One square-form PSD block, in f64 or f32; per iteration
+Square-form PSD blocks (any number and sides), SOC blocks, free and LP
+coordinates with equality and inequality rows, in f64 or f32; per
+iteration
 
-1. ``_primal_step``: kernel K4 (update + symmetrise), the PSD projection
-   (``ops.cones``: dense eigh, the polar projection on K5/K6, or the
-   subspace step on K7/K8 with a polar or dense fallback), then ``M x``
-   (kernel K1 for ELL);
+1. ``_primal_step``: kernel K4 (update + symmetrise every square block),
+   the PSD projection of each block (``ops.cones``: same-side small
+   blocks grouped into one batched eigh, kernel K9 on the card; each other
+   block by dense eigh, the polar projection on K5/K6, the subspace step
+   on K7/K8 with a polar or dense fallback, or Lanczos on K11), the SOC
+   projection of every SOC block (kernel K13), then ``M x`` (kernel K1
+   for ELL);
 2. ``_linesearch``: the Malitsky-Pock trials, each kernel K2, K1 on M'y and
    the squared distance of K2's file; the host reads one accept flag per
    trial, at most ``max_linsearch_steps`` of them;
@@ -15,19 +20,22 @@ One square-form PSD block, in f64 or f32; per iteration
    restart-to-average, plain torch on 0-d device tensors (no sync).
 
 The iteration is plain functions on a ``State`` dataclass of tensors.
-``solve`` is the host driver (solver.py:1209-2357): the default
-``Options()`` runs the hybrid f32 race -> f64 polish with its subspace
-entries, watchdog and logging; ``hybrid_precision=False`` one program.
-Anything outside the port raises ``NotImplementedError`` naming its
-ROADMAP item; nothing falls back.
+``solve`` is the host driver (solver.py:1209-2357): Ruiz or block
+equilibration and the ``block_equilibration="auto"`` probe, warm starts,
+and under the default ``Options()`` the hybrid f32 race -> f64 polish with
+its subspace entries, watchdog and logging; ``hybrid_precision=False`` one
+program.  Anything outside the port raises ``NotImplementedError`` naming
+its ROADMAP item; nothing falls back.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import time
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -35,7 +43,12 @@ import torch
 from torch import nn
 
 from . import convert, kernels
-from .ops.cones import projection_kind, psd_projection_block
+from .equilibration import block_equilibrate_host, equilibrate_host
+from .ops.cones import (
+    projection_kind,
+    psd_projection_block,
+    psd_projection_small_batch,
+)
 from .ops.linop import build_linop, stack_vertical
 from .options import Options
 from .problem import (
@@ -53,8 +66,10 @@ from .utils.vech import ivec, offdiag_mask_tri, sympackedlen, tri_ij
 @dataclasses.dataclass
 class Operands:
     """Device problem data.  ``obj_scale`` is SetupProblem.obj_scale *
-    rhs_scale (solver.py:1307); the chunk end is an argument of the chunk
-    runner, not a field."""
+    rhs_scale (solver.py:1307); ``row_unscale`` the (p + m,) 1/E of an
+    equilibrated problem, which puts the feasibility residuals in user
+    units (solver.py:66-71, 1308-1312), or None (no scaling); the chunk
+    end is an argument of the chunk runner, not a field."""
 
     M: nn.Module  # DenseOp | EllOp for [A; G]
     b: torch.Tensor
@@ -64,6 +79,7 @@ class Operands:
     norm_h: torch.Tensor
     norm_c: torch.Tensor
     obj_scale: torch.Tensor
+    row_unscale: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -132,11 +148,13 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(State))
 # ---------------------------------------------------------------------------
 
 
-def init_state(layout: ConeLayout, opts: Options, setup: SetupProblem) -> dict:
-    """Initial solver state as a dict of NumPy arrays (solver.py:158-278,
-    cold start) in ``opts.dtype``, with an orthonormal (side, k) start
-    basis for a subspace program; ``convert.state_from_numpy`` moves it to
-    a device."""
+def init_state(layout: ConeLayout, opts: Options, setup: SetupProblem,
+               warm: tuple | None = None) -> dict:
+    """Initial solver state as a dict of NumPy arrays (solver.py:158-278)
+    in ``opts.dtype``, with an orthonormal (side, k) start basis for each
+    block of a subspace program; ``convert.state_from_numpy`` moves it to
+    a device.  ``warm``: None (cold start) or (x0, y0) in solver space;
+    a warm start seeds the old iterates with it too."""
     dtype = np.float64 if opts.dtype == "float64" else np.float32
     n, pm = layout.n, layout.p + layout.m
     nb = max(len(layout.sdp_sides), 1)
@@ -157,10 +175,16 @@ def init_state(layout: ConeLayout, opts: Options, setup: SetupProblem) -> dict:
         sn = 1.0
     step = 1.0 / sn
 
-    x0 = (step * setup.c).astype(dtype) if opts.advanced_initialization else z(n)
-    y0 = z(pm)
+    if warm is not None:
+        x0 = np.asarray(warm[0], dtype=dtype)
+        y0 = np.asarray(warm[1], dtype=dtype)
+    else:
+        x0 = (step * setup.c).astype(dtype) if opts.advanced_initialization else z(n)
+        y0 = z(pm)
     Mx0 = np.asarray(M_host @ x0, dtype=dtype).ravel() if pm else z(pm)
-    Mty0 = z(n)
+    Mty0 = (np.asarray(M_host.T @ y0, dtype=dtype).ravel()
+            if warm is not None and pm else z(n))
+    cold = warm is None
 
     rng = np.random.RandomState(opts.eigsolver_resid_seed)
     warm_vecs = []
@@ -179,11 +203,11 @@ def init_state(layout: ConeLayout, opts: Options, setup: SetupProblem) -> dict:
     adaptive = opts.restart == "adaptive"
     return dict(
         x=x0,
-        x_old=z(n),
+        x_old=z(n) if cold else x0.copy(),
         y=y0,
         y_old=y0.copy(),
         Mx=Mx0,
-        Mx_old=z(pm),
+        Mx_old=z(pm) if cold else Mx0.copy(),
         Mty=Mty0,
         Mty_old=Mty0.copy(),
         primal_step=dtype(step),
@@ -280,17 +304,54 @@ def _max_abs_cyclic_diff(buf):
     return torch.amax(torch.abs(buf - torch.roll(buf, 1, -1)), -1)
 
 
+class BlockPlan(NamedTuple):
+    """How ``_primal_step`` projects the PSD blocks (solver.py:343-368):
+    ``groups`` [(side, [(block, offset)])] of same-side small blocks, each
+    group one batched dense eigh (kernel K9 on the card); ``singles``
+    [(block, offset, side)] projected one at a time."""
+
+    groups: list
+    singles: list
+
+
+@functools.lru_cache(maxsize=64)
+def _block_plan(layout: ConeLayout, subspace_rank: int, min_size_krylov: int,
+                full_eig_max_side: int) -> BlockPlan:
+    def grouped(side: int) -> bool:
+        # only where the gating always takes the dense full path
+        k_sub = int(min(subspace_rank, side))
+        return (side <= min_size_krylov and side <= full_eig_max_side
+                and not 0 < k_sub < side // 2)
+
+    by_side: dict = {}
+    singles = []
+    for bi, (off, side) in enumerate(zip(layout.sdp_offsets, layout.sdp_sides)):
+        if grouped(side):
+            by_side.setdefault(side, []).append((bi, off))
+        else:
+            singles.append((bi, off, side))
+    # groups of one gain nothing: back to the single path
+    for side in [sd for sd, blks in by_side.items() if len(blks) < 2]:
+        singles += [(bi, off, side) for bi, off in by_side.pop(side)]
+    return BlockPlan(sorted(by_side.items()), sorted(singles))
+
+
+def block_plan(layout: ConeLayout, opts: Options) -> BlockPlan:
+    return _block_plan(layout, opts.subspace_rank, opts.min_size_krylov_eigs,
+                       opts.full_eig_max_side)
+
+
 def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
-                 k: int, target_rank: int | None):
-    """x <- proj_K(x - tau*(M'y + c)); Mx <- M x (pdhg.jl:611-637).
+                 k: int, target_ranks: tuple | None):
+    """x <- proj_K(x - tau*(M'y + c)); Mx <- M x (pdhg.jl:611-637,
+    solver.py:306-433).
 
     ``k`` is the iteration count before the step (the host knows it): the
-    subspace program's forced reseed pulse is a host flag.  ``target_rank``
-    is the block's target rank, read on the host by the chunk runner where
-    the projection is Lanczos (the one branch that uses it), else None."""
-    side = layout.sdp_sides[0]
-    u = kernels.primal_update_sym(s.x, s.Mty, o.c, s.primal_step, side)
-    s2 = side * side
+    subspace program's forced reseed pulse is a host flag.
+    ``target_ranks`` holds each block's target rank as a host int where
+    its projection is Lanczos (the one branch that uses it), else None."""
+    sides = layout.sdp_sides
+    u = kernels.primal_update_sym(s.x, s.Mty, o.c, s.primal_step, sides)
     # relative-inexactness budget of the subspace test: the latest combined
     # PPA residual, clamped (solver.py:315-325); 0 before the first one
     accept_tol = None
@@ -304,21 +365,60 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
         force_full = freq > 0 and k % freq == freq - 1
     if 0 < opts.full_eig_freq and opts.full_eig_len > 0:
         force_full = force_full or k % opts.full_eig_freq < opts.full_eig_len
-    res = psd_projection_block(u[:s2].view(side, side), s.warm[0], opts=opts,
-                               accept_tol=accept_tol, force_full=force_full,
-                               target_rank=target_rank)
-    x = res.block.reshape(-1)
-    if s2 < u.shape[0]:
-        x = torch.cat([x, u[s2:]])
+
+    plan = block_plan(layout, opts)
+    nb = len(sides)
+    blocks = [None] * nb  # projected flat blocks
+    min_eig = list(s.min_eig.unbind(0))
+    current_rank = list(s.current_rank.unbind(0))
+    warm = list(s.warm)
+    any_full = False
+    sub_stats, sub_worst = s.sub_stats, s.sub_worst
+    for side, blks in plan.groups:
+        s2 = side * side
+        stacked = torch.stack([u[off : off + s2] for _, off in blks])
+        proj, me_b, cur_b, warm_b = psd_projection_small_batch(
+            stacked, side, opts=opts)
+        for gi, (bi, _) in enumerate(blks):
+            blocks[bi] = proj[gi]
+            min_eig[bi] = me_b[gi].to(s.min_eig.dtype)
+            current_rank[bi] = cur_b[gi]
+            warm[bi] = warm_b[gi]
+        any_full = True  # the dense eigh ran (the full path's used_full)
+    for bi, off, side in plan.singles:
+        tr = target_ranks[bi] if target_ranks is not None else None
+        res = psd_projection_block(u[off : off + side * side].view(side, side),
+                                   s.warm[bi], opts=opts,
+                                   accept_tol=accept_tol,
+                                   force_full=force_full, target_rank=tr)
+        blocks[bi] = res.block.reshape(-1)
+        min_eig[bi] = res.min_eig.to(s.min_eig.dtype)
+        current_rank[bi] = res.current_rank
+        warm[bi] = res.warm
+        any_full = any_full or res.used_full
+        sub_worst = torch.maximum(sub_worst, res.sub_stats[0])
+        if bi == 0:
+            sub_stats = res.sub_stats
+    max_soc_gap = torch.full((), -math.inf, dtype=u.dtype, device=u.device)
+    pieces = blocks
+    end = sum(side * side for side in sides)
+    if layout.soc_lens:
+        soc_end = end + sum(layout.soc_lens)
+        proj, max_soc_gap = kernels.soc_projection(u[end:soc_end],
+                                                   layout.soc_lens)
+        pieces = pieces + [proj]
+        end = soc_end
+    x = torch.cat(pieces + [u[end:]]) if pieces else u
     return s.replace(
         x=x,
         Mx=o.M.matvec(x),
-        min_eig=res.min_eig.reshape(1).to(s.min_eig.dtype),
-        current_rank=res.current_rank.reshape(1),
-        warm=(res.warm,),
-        proj_fallbacks=s.proj_fallbacks + 1 if res.used_full else s.proj_fallbacks,
-        sub_stats=res.sub_stats,
-        sub_worst=torch.maximum(s.sub_worst, res.sub_stats[0]),
+        min_eig=torch.stack(min_eig),
+        current_rank=torch.stack(current_rank).to(torch.int32),
+        warm=tuple(warm),
+        max_soc_gap=max_soc_gap,
+        proj_fallbacks=s.proj_fallbacks + 1 if any_full else s.proj_fallbacks,
+        sub_stats=sub_stats,
+        sub_worst=sub_worst,
     )
 
 
@@ -379,7 +479,10 @@ def _residuals_and_gap(s: State, o: Operands, layout: ConeLayout, opts: Options)
     if s.x.dim() == 2:  # a batch of packed-triangle instances
         r = kernels.residuals_batch(*args).unbind(-1)
     else:
-        r = kernels.residuals(*args, layout.sdp_sides[0])
+        # the sqrt(2) off-diagonal weight of the square-form blocks
+        # (solver.py:539-557); feasibility in user units (582-597)
+        r = kernels.residuals(*args, layout.sdp_sides if layout.square_form
+                              else (), row_scale=o.row_unscale)
     norm_b, norm_h, norm_c = o.norm_b.double(), o.norm_h.double(), o.norm_c.double()
     # primal PPA residual (sqrt of the tri-equivalent coordinate count,
     # residuals.jl:46-55)
@@ -463,12 +566,17 @@ def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
     active = ~((s.cert_kind != 0) & (k < s.cert_wait_until))
     rank_update = s.rank_update + i32(active)
 
-    blk_conv = (
-        (sides_arr < opts.min_size_krylov_eigs)
-        | (s.target_rank > opts.max_target_rank_krylov_eigs)
-        | (s.min_eig < opts.tol_psd)
-    )
-    rank_conv = torch.all(blk_conv, dim=-1)
+    if layout.sdp_sides:
+        blk_conv = (
+            (sides_arr < opts.min_size_krylov_eigs)
+            | (s.target_rank > opts.max_target_rank_krylov_eigs)
+            | (s.min_eig < opts.tol_psd)
+        )
+        rank_conv = torch.all(blk_conv, dim=-1)
+    else:
+        rank_conv = torch.ones_like(active)
+    if layout.soc_lens:  # the SOC gap of the projection (solver.py:689-691)
+        rank_conv = rank_conv & (s.max_soc_gap < opts.tol_soc)
 
     conv = (gap_k <= opts.tol_gap) & (feas_k <= opts.tol_feasibility)
     opt_ok = conv & rank_conv & (k > opts.min_iter)
@@ -486,7 +594,8 @@ def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
                              sides_arr, opts)
     target_rank = torch.where(_col(do_bump1 | do_bump2), new_target,
                               s.target_rank)
-    any_not_full = torch.any(s.target_rank < sides_arr, dim=-1)
+    any_not_full = (torch.any(s.target_rank < sides_arr, dim=-1)
+                    if layout.sdp_sides else torch.zeros_like(active))
     reset = do_bump1 | (do_bump2 & any_not_full)
     rank_update = torch.where(reset, 0, rank_update)
     update_cont = torch.where(reset, 0, update_cont)
@@ -645,33 +754,45 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
 
     ``run_chunk(s, o, chunk_end)`` iterates until the status flips or the
     iteration count reaches ``chunk_end``; it reads the status once per
-    iteration.  ``fetch(s)`` returns the 14 host-monitored scalars as one
+    iteration (with the target ranks of the Lanczos blocks, where there
+    are any).  ``fetch(s)`` returns the 14 host-monitored scalars as one
     NumPy array (one device-to-host copy)."""
     _check_slice_layout(layout, opts)
-    sides_arr = torch.tensor(layout.sdp_sides, dtype=torch.int32, device=device)
+    sides_arr = torch.tensor(layout.sdp_sides or (1,), dtype=torch.int32,
+                             device=device)
+    singles = block_plan(layout, opts).singles
+    nb = max(len(layout.sdp_sides), 1)
 
-    side = layout.sdp_sides[0]
-
-    def lanczos(s: State) -> bool:
+    def lanczos_blocks(s: State) -> list:
         # the Lanczos branch's target rank is a host decision, read with
         # the iteration count or the status in one transfer
-        return projection_kind(side, opts, s.warm[0].dim() == 2) == "lanczos"
+        return [bi for bi, _, side in singles
+                if projection_kind(side, opts, s.warm[bi].dim() == 2)
+                == "lanczos"]
+
+    def host_ranks(lz, vals) -> tuple:
+        ranks = [None] * nb
+        for bi, v in zip(lz, vals):
+            ranks[bi] = int(v)
+        return tuple(ranks)
 
     def counters(s: State):
-        """(s.iter, s.target_rank[0] where the projection is Lanczos, else
-        None) on the host."""
-        if lanczos(s):
-            return tuple(int(v) for v in
-                         torch.stack([s.iter, s.target_rank[0]]).cpu())
+        """(s.iter, the target ranks of the Lanczos blocks or None) on the
+        host."""
+        lz = lanczos_blocks(s)
+        if lz:
+            v = torch.cat([s.iter.reshape(1), s.target_rank[lz]]).tolist()
+            return int(v[0]), host_ranks(lz, v[1:])
         return int(s.iter), None
 
     def iteration(s: State, o: Operands, k: int | None = None,
-                  target_rank: int | None = None) -> State:
-        # k: the iteration count s.iter and target_rank: s.target_rank[0]
-        # (Lanczos only) when the caller knows them, else read here
-        if k is None or (target_rank is None and lanczos(s)):
-            k, target_rank = counters(s)
-        s = _primal_step(s, o, layout, opts, k, target_rank)
+                  target_ranks: tuple | None = None) -> State:
+        # k: the iteration count s.iter and target_ranks: each block's
+        # s.target_rank (Lanczos blocks only) when the caller knows them,
+        # else read here
+        if k is None or (target_ranks is None and lanczos_blocks(s)):
+            k, target_ranks = counters(s)
+        s = _primal_step(s, o, layout, opts, k, target_ranks)
         if opts.line_search_flag:
             s = _linesearch(s, o, layout, opts)
         else:
@@ -680,14 +801,14 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
         return _control(s, o, layout, opts, sides_arr)
 
     def run_chunk(s: State, o: Operands, chunk_end: int) -> State:
-        lz = lanczos(s)
+        lz = lanczos_blocks(s)
         k, tr = counters(s)
         while k < chunk_end:
             s = iteration(s, o, k, tr)
             k += 1
             if lz:
-                st, tr = (int(v) for v in
-                          torch.stack([s.status, s.target_rank[0]]).cpu())
+                v = torch.cat([s.status.reshape(1), s.target_rank[lz]]).tolist()
+                st, tr = int(v[0]), host_ranks(lz, v[1:])
             else:
                 st = int(s.status)
             if st != 0:
@@ -738,24 +859,11 @@ def _check_slice_options(opts: Options) -> None:
         _unsupported("tp_shards", "A12")
     if opts.checkpoint_path:
         _unsupported("checkpoint_path", "A10")
-    if opts.equilibration or opts.equilibration_force:
-        _unsupported("equilibration", "A6")
-    if opts.block_equilibration is True:
-        _unsupported("block_equilibration=True", "A6")
-    if opts.linop == "coo":
-        _unsupported("linop='coo'", "B2'")
-    if not opts.square_form:
-        _unsupported("square_form=False", "A7 / B12")
 
 
 def _check_slice_layout(layout: ConeLayout, opts: Options) -> None:
-    if layout.soc_lens:
-        _unsupported("SOC blocks", "A7 / B3'")
-    if len(layout.sdp_sides) != 1:
-        _unsupported("problems without exactly one PSD block "
-                     "(multi-block, grouped small blocks, LPs)", "A7 / B11")
-    if not layout.square_form:
-        _unsupported("the packed-triangle layout", "A7 / B12")
+    if layout.sdp_sides and not layout.square_form:
+        _unsupported("the packed-triangle layout of PSD blocks", "A7 / B12")
 
 
 def _row_norm_spread(setup) -> float:
@@ -768,6 +876,112 @@ def _row_norm_spread(setup) -> float:
     if rn.size == 0:
         return 1.0
     return float(rn.max() / rn.min())
+
+
+def _probe_score(res: Result, problem) -> float:
+    """Progress of a probe arm (solver.py:2360-2375): max(rel gap, rel
+    linear violation), lower is better; inf for a missing or non-finite
+    result."""
+    if res is None or res.primal.size == 0:
+        return float("inf")
+    x = res.primal
+    lin = 0.0
+    if problem.A is not None and getattr(problem.A, "shape", (0,))[0]:
+        r = np.abs(np.asarray(problem.A @ x).ravel() - problem.b)
+        lin = max(lin, float(r.max())
+                  / (1.0 + float(np.abs(problem.b).max(initial=0.0))))
+    if problem.G is not None and getattr(problem.G, "shape", (0,))[0]:
+        r = np.maximum(np.asarray(problem.G @ x).ravel() - problem.h, 0.0)
+        lin = max(lin, float(r.max())
+                  / (1.0 + float(np.abs(problem.h).max(initial=0.0))))
+    gap = abs(res.gap) if np.isfinite(res.gap) else float("inf")
+    score = max(gap, lin)
+    return score if np.isfinite(score) else float("inf")
+
+
+def _solve_with_beq_probe(problem, opts: Options, t0: float, device) -> Result:
+    """block_equilibration="auto" (solver.py:2378-2501): race the default
+    and the block-equilibrated pipelines for a short probe, then finish
+    with the winner, warm-started from its probe iterate.
+
+    Each round runs both arms ``block_equilibration_probe_iters`` deep
+    (doubling while their scores lie within the margin, up to four
+    rounds), each capped at probe_t = max(min(0.05 time_limit, 20), 2)
+    seconds; the probe stops early once an arm solves or it has taken a
+    quarter of the time limit.  An arm that solved wins; when both arms
+    still score above 0.3 the equilibrated one does; else the margin
+    decides.  The final solve gets the time that is left.  An arm that
+    raises is dropped, as in the JAX package, unless the error is a
+    ``kernels.KernelError`` (a kernel that does not build or launch),
+    which propagates."""
+    margin = max(opts.block_equilibration_probe_margin, 1.0)
+    probe_t = max(min(0.05 * opts.time_limit, 20.0), 2.0)
+    base = dict(certificate_search=False, log_verbose=False,
+                timer_verbose=False, warn_on_limit=False, checkpoint_path="")
+    arms: dict = {False: None, True: None}
+    scores = {False: float("inf"), True: float("inf")}
+    depth = int(opts.block_equilibration_probe_iters)
+    for _round in range(4):
+        round_t = max(min(probe_t, opts.time_limit - (time.time() - t0)), 1.0)
+        for variant in (False, True):
+            prev = arms[variant]
+            warm = prev if prev is not None and prev.status in (2, 3) else None
+            try:
+                arms[variant] = solve(
+                    problem,
+                    opts.replace(block_equilibration=variant, max_iter=depth,
+                                 time_limit=round_t, **base),
+                    warm_start=warm, device=device)
+            except kernels.KernelError:
+                raise  # a kernel that does not build or launch is a fault
+            except Exception as e:  # a probe must never kill the solve
+                if opts.log_verbose:
+                    print(f"  [beq probe] arm {variant} failed: {e}")
+                arms[variant] = None
+        scores = {v: _probe_score(r, problem) for v, r in arms.items()}
+        if opts.log_verbose:
+            its = [str(arms[v].iter) if arms[v] is not None else "-"
+                   for v in (False, True)]
+            print(f"  [beq probe] depth {depth}: default {scores[False]:.3e} "
+                  f"vs block-equilibrated {scores[True]:.3e} (iterations "
+                  f"{' / '.join(its)})")
+        solved = any(r is not None and r.status == 1 for r in arms.values())
+        separated = (scores[True] * margin < scores[False]
+                     or scores[False] * margin < scores[True])
+        if solved or separated:
+            break
+        if time.time() - t0 > 0.25 * opts.time_limit:
+            break
+        depth *= 2
+    # an arm that solved wins; two arms still far from converging make
+    # the probe uninformative, and the spread that triggered it points to
+    # the equilibrated arm (unless that one crashed or diverged)
+    opt1 = {v: arms[v] is not None and arms[v].status == 1 for v in arms}
+    if opt1[True] != opt1[False]:
+        winner = opt1[True]
+    elif (min(scores.values()) > 0.3 and arms[True] is not None
+          and np.isfinite(scores[True])):
+        winner = True
+    else:
+        winner = bool(scores[True] * margin < scores[False])
+    wres = arms[winner]
+    if opts.log_verbose:
+        print(f"  [beq probe] -> "
+              f"{'block-equilibrated' if winner else 'default'}")
+    if opts.log_verbose or opts.timer_verbose:
+        print(f"  [beq probe] probe consumed {time.time() - t0:.1f}s before "
+              "the main solve")
+    if wres is not None and wres.status == 1:
+        wres.time = time.time() - t0
+        return wres
+    warm = None
+    if (wres is not None and wres.status in (2, 3)
+            and np.isfinite(scores[winner])):
+        warm = wres
+    remaining = opts.time_limit - (time.time() - t0)
+    return solve(problem, opts.replace(block_equilibration=winner,
+                                       time_limit=max(remaining, 1.0)),
+                 warm_start=warm, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +1015,8 @@ def _estimate_subspace(state: State, layout: ConeLayout, opts: Options, c_host):
         lam_max = max(float(w[-1]), 0.0)
         r_blk = int(np.sum(w > max(opts.tol_psd, 1e-4 * max(lam_max, 1e-12))))
         specs.append((side, V, r_blk))
+    if not specs:
+        return 0, 0, specs
     r_obs = max(r for _, _, r in specs)
     k = _sub_bucket(r_obs + opts.polish_subspace_guard)
     if not (k and any(k < side // 2 for side in layout.sdp_sides)):
@@ -897,11 +1113,17 @@ def _ieee_f32_products():
             b.fp32_precision = p
 
 
-def solve(problem, options: Options | None = None, *, device="cuda",
-          **kwargs) -> Result:
+def solve(problem, options: Options | None = None, *, warm_start=None,
+          device="cuda", **kwargs) -> Result:
     """Solve a ConicProblem (or a preprocessed SetupProblem) on ``device``.
 
-    The host driver of solver.py:1209-2357.  Under the default
+    The host driver of solver.py:1209-2357.  ``warm_start``: a previous
+    Result for the same problem geometry, or a tuple (x, dual_eq, dual_in)
+    in user variable order.  With ``block_equilibration="auto"`` (the
+    default) a problem whose constraint-row norms spread more than
+    ``block_equilibration_probe_spread`` races both preconditioners for a
+    short probe and continues with the winner (``_solve_with_beq_probe``).
+    Under the default
     ``Options()`` (f64 with ``hybrid_precision``) an f32 race runs first --
     the polar projection, then from ``race_subspace_warmup`` on the f32
     subspace step with a polar reseed -- and hands over to an f64 polish on
@@ -915,10 +1137,11 @@ def solve(problem, options: Options | None = None, *, device="cuda",
     float32 matmul precision.
     """
     with _ieee_f32_products():
-        return _solve(problem, options, device, kwargs)
+        return _solve(problem, options, device, kwargs, warm_start)
 
 
-def _solve(problem, options: Options | None, device, kwargs) -> Result:
+def _solve(problem, options: Options | None, device, kwargs,
+           warm_start=None) -> Result:
     opts = options or Options()
     if kwargs:
         opts = opts.replace(**kwargs)
@@ -936,17 +1159,33 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
         if isinstance(problem, ConicProblem)
         else problem
     )
+    if setup.layout.sdp_sides and not opts.square_form:
+        _unsupported("square_form=False (the packed-triangle layout)",
+                     "A7 / B12")
     if opts.log_verbose:
         _print_header(setup.layout, opts, device)
-    if opts.block_equilibration == "auto":
-        # the probe race (solver.py:1249-1257) or the static gate (1267-1268)
-        spread = _row_norm_spread(setup)
-        probe = (opts.block_equilibration_probe_spread > 0
-                 and isinstance(problem, ConicProblem)
-                 and spread > opts.block_equilibration_probe_spread)
-        if probe or spread > opts.block_equilibration_spread:
-            _unsupported("block equilibration and its 'auto' probe (row-norm "
-                         f"spread {spread:.3g} above the gate)", "A6")
+    # block_equilibration="auto": race both preconditioners for a short
+    # probe and continue with the winner (solver.py:1246-1257)
+    if (opts.block_equilibration == "auto"
+            and opts.block_equilibration_probe_spread > 0
+            and warm_start is None and isinstance(problem, ConicProblem)
+            and _row_norm_spread(setup) > opts.block_equilibration_probe_spread):
+        return _solve_with_beq_probe(problem, opts, t0, device)
+
+    # diagonal preconditioning (solver.py:1259-1274): mutates setup.A/G/b/
+    # h/c before the operator and the step sizes are built
+    equil = None
+    beq = opts.block_equilibration
+    if isinstance(beq, str) and beq != "auto":
+        # an option string ("True", "off", "0"): only a recognised yes
+        # turns the preconditioner on
+        beq = beq.lower() in ("1", "true", "yes", "on")
+    if beq == "auto":
+        beq = _row_norm_spread(setup) > opts.block_equilibration_spread
+    if beq:
+        equil = block_equilibrate_host(setup, opts)
+    elif opts.equilibration or opts.equilibration_force:
+        equil = equilibrate_host(setup, opts)
 
     setup_h = setup
     setup = to_square_form(setup)
@@ -959,8 +1198,12 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
             M=M, b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
             norm_h=setup.norm_h, norm_c=setup.norm_c,
             obj_scale=setup.obj_scale * setup.rhs_scale, device=device,
-            dtype=dt,
+            dtype=dt, row_unscale=None if equil is None else 1.0 / equil.E,
         )
+
+    warm = None
+    if warm_start is not None:
+        warm = _warm_to_solver(warm_start, setup_h, layout, equil)
 
     def runner(po: Options):
         run, _, fetch_ = make_chunk_runner(layout, po, device=device)
@@ -981,11 +1224,12 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
                                     subspace_fallback="polar")
         operands32 = make_operands(torch.float32)
         run_chunk32, fetch32 = runner(opts32)
-        state = convert.state_from_numpy(init_state(layout, opts32, setup),
-                                         device)
+        state = convert.state_from_numpy(
+            init_state(layout, opts32, setup, warm=warm), device)
         phase32 = True
     else:
-        state = convert.state_from_numpy(init_state(layout, opts, setup), device)
+        state = convert.state_from_numpy(
+            init_state(layout, opts, setup, warm=warm), device)
         phase32 = False
 
     # race subspace entry: retried while the observed rank is too large
@@ -997,11 +1241,11 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
               "window_mult": 1, "guard": None}
     # above polar_fallback_min_side the f64 subspace programs reseed with
     # the f32-compute polar projection instead of a dense f64 eigh
-    big_side = max(layout.sdp_sides) > min(opts.full_eig_max_side,
-                                           opts.polar_fallback_min_side)
+    big_side = bool(layout.sdp_sides) and max(layout.sdp_sides) > min(
+        opts.full_eig_max_side, opts.polar_fallback_min_side)
     polish_fb = {"subspace_fallback": "polar"} if big_side else {}
 
-    budget = _Budget(opts, True)
+    budget = _Budget(opts, bool(layout.sdp_sides or layout.soc_lens))
     chunk = opts.chunk_iters or DEFAULT_CHUNK
     log_next = opts.log_freq
     stall_window = max(3 * opts.convergence_window, 1500)
@@ -1054,7 +1298,11 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
                 timers["snapshot"] += time.time() - t_snap
 
         if opts.log_verbose and k >= log_next:
-            _log_progress(sc, elapsed, opts)
+            dfeas = None
+            if opts.extended_log2:
+                _, dfeas = _dual_cone(_user_duals(state, equil, setup_h),
+                                      setup_h, setup_h.c_orig)
+            _log_progress(sc, elapsed, opts, dfeas)
             log_next += opts.log_freq
 
         if phase32:
@@ -1088,13 +1336,14 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
                 phase32 = False
                 if blew_up:
                     # the race diverged: restart clean in f64
-                    fresh = init_state(layout, opts, setup)
+                    fresh = init_state(layout, opts, setup, warm=warm)
                     fresh["iter"] = np.int32(k)
                     state = convert.state_from_numpy(fresh, device)
                     continue
                 state = _cast_state(state, torch.float64)
                 entered_polish = False
-                if opts.polish_subspace and opts.subspace_rank == 0:
+                if (opts.polish_subspace and opts.subspace_rank == 0
+                        and layout.sdp_sides):
                     k_sub, r_obs, specs = _estimate_subspace(state, layout,
                                                              opts, setup.c)
                     if k_sub:
@@ -1108,7 +1357,7 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
                             print(f"  [hybrid] f64 polish: subspace rank "
                                   f"{k_sub} (observed {r_obs})")
                 if (not entered_polish and opts.subspace_rank == 0
-                        and state.warm[0].dim() == 2):
+                        and layout.sdp_sides and state.warm[0].dim() == 2):
                     state = _collapse_warm(state)
                 if stalled:
                     # the race wedged its step machinery: restart the steps
@@ -1117,7 +1366,7 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
                         opts, device, tau0, tau0, beta=opts.initial_beta))
             elif (opts.race_subspace and not sub32["entered"]
                   and sub32["tries"] < 5 and opts.subspace_rank == 0
-                  and k >= sub32["retry_at"]):
+                  and layout.sdp_sides and k >= sub32["retry_at"]):
                 # past the cold start: size an f32 subspace program from the
                 # observed rank and seed it with the exact top-k basis
                 sub32["tries"] += 1
@@ -1206,8 +1455,8 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
 
         if st == 1:
             if opts.check_dual_feas:
-                y_now = convert.state_to_numpy(state)["y"] * setup_h.obj_scale
-                _, dfeas = _dual_cone(y_now, setup_h, setup_h.c_orig)
+                _, dfeas = _dual_cone(_user_duals(state, equil, setup_h),
+                                      setup_h, setup_h.c_orig)
                 if dfeas >= opts.tol_feasibility_dual:
                     # veto, and suppress re-declaration for a window
                     state = state.replace(
@@ -1256,7 +1505,7 @@ def _solve(problem, options: Options | None, device, kwargs) -> Result:
     res = _cache_solution(
         fields, setup_h, opts, t0, status=final_status,
         status_string=status_string or STATUS_STRINGS[final_status],
-        exact_project=big_side,
+        exact_project=big_side, equil=equil,
     )
     res.iter = total_k
     res = _annotate_limit_feas(res, setup_h, opts)
@@ -1290,6 +1539,38 @@ def _step_reset(opts: Options, device, tau_p: float, tau_d: float,
     if beta is not None:
         kw["beta"] = f64(beta)
     return kw
+
+
+def _warm_to_solver(warm_start, setup_h: SetupProblem, layout: ConeLayout,
+                    equil) -> tuple:
+    """(x, y) in solver space from a Result or an (x, dual_eq, dual_in)
+    tuple in user space: the inverse of _cache_solution's unscaling
+    (solver.py:1319-1343)."""
+    if isinstance(warm_start, Result):
+        x_u = warm_start.primal
+        y_s = np.concatenate([warm_start.dual_eq, warm_start.dual_in])
+    else:
+        x_u, y_eq, y_in = warm_start
+        y_s = np.concatenate([np.asarray(y_eq, np.float64),
+                              np.asarray(y_in, np.float64)])
+    x_s = np.asarray(x_u, np.float64)[np.argsort(setup_h.var_ordering)]
+    if equil is not None:
+        x_s = x_s / equil.D
+        y_s = y_s / equil.E
+    x_s = _fix_diag_scaling(x_s, setup_h.layout, 1.0 / np.sqrt(2.0))
+    x_s = x_s / setup_h.rhs_scale  # user primal -> rhs-scaled primal
+    y_s = y_s / setup_h.obj_scale  # user duals -> scaled-objective duals
+    if layout.square_form:
+        x_s = square_embed_matrix(setup_h.layout) @ x_s
+    return x_s, y_s
+
+
+def _user_duals(state: State, equil, setup_h: SetupProblem) -> np.ndarray:
+    """The iterate's duals in user units (solver.py:1714-1717, 2157-2160)."""
+    y = state.y.cpu().numpy().astype(np.float64)
+    if equil is not None:
+        y = equil.E * y
+    return y * setup_h.obj_scale
 
 
 def _declare_string(st, sc):
@@ -1326,7 +1607,7 @@ def _fix_diag_scaling(x: np.ndarray, layout: ConeLayout, num: float) -> np.ndarr
 
 
 def _cone_feas(v: np.ndarray, layout: ConeLayout) -> float:
-    """Max violation of v against the PSD cones (pdhg.jl:678-699)."""
+    """Max violation of v against the PSD and SOC cones (pdhg.jl:678-699)."""
     viol = 0.0
     for off, side in zip(layout.sdp_offsets, layout.sdp_sides):
         blk = v[off : off + sympackedlen(side)].copy()
@@ -1340,6 +1621,9 @@ def _cone_feas(v: np.ndarray, layout: ConeLayout) -> float:
                 viol = max(viol, -min(0.0, np.linalg.eigvalsh(ivec(blk)).min()))
             except np.linalg.LinAlgError:
                 viol = np.inf
+    for off, ln in zip(layout.soc_offsets, layout.soc_lens):
+        sblk = v[off : off + ln]
+        viol = max(viol, -min(0.0, sblk[0] - np.linalg.norm(sblk[1:])))
     return viol
 
 
@@ -1391,22 +1675,27 @@ def _annotate_limit_feas(res: Result, setup, opts: Options) -> Result:
 def _cache_solution(fields: dict, setup: SetupProblem, opts: Options, t0: float,
                     status: int, status_string: str,
                     exact_project: bool = False,
-                    square_form: bool = True) -> Result:
+                    square_form: bool = True, equil=None) -> Result:
     """Unscale, recover duals/slacks, build the Result (pdhg.jl:745-787;
     solver.py:2749-2883).  ``fields`` are host arrays of the square-form
     state (of the packed-triangle state with ``square_form=False``, the
-    batch driver's); ``setup`` is the tri-space SetupProblem."""
+    batch driver's); ``setup`` is the tri-space SetupProblem; ``equil``
+    the Equilibration to undo (x D, y E), or None."""
     layout = setup.layout
     k = int(fields["iter"])
     buf_gap = fields["buf_gap"]
     i = (k - 1) % buf_gap.shape[0]
 
     x = np.asarray(fields["x"], np.float64)
-    if square_form:
+    y = np.asarray(fields["y"], np.float64)
+    if square_form and layout.sdp_sides:
         x = square_embed_matrix(layout).T @ x
     x = _fix_diag_scaling(x, layout, np.sqrt(2.0))
+    if equil is not None:  # undo E M D (pdhg.jl:752-755)
+        x = equil.D * x
+        y = equil.E * y
     x = x * setup.rhs_scale
-    y = np.asarray(fields["y"], np.float64) * setup.obj_scale
+    y = y * setup.obj_scale
 
     if exact_project:
         # sides above polar_fallback_min_side: one exact host eigh restores
@@ -1531,10 +1820,10 @@ def _progress_columns(opts: Options) -> str:
     return cols
 
 
-def _log_progress(sc, elapsed, opts: Options):
+def _log_progress(sc, elapsed, opts: Options, dfeas=None):
     """One progress-table row (reference print_progress, printing.jl:96-150);
-    extended_log adds the dual objective.  The dual-feasibility column of
-    extended_log2 is not computed here (nan)."""
+    extended_log adds the dual objective, extended_log2 the dual
+    feasibility ``dfeas``."""
     if opts.log_repeat_header:
         print(_progress_columns(opts))
     row = (
@@ -1546,7 +1835,7 @@ def _log_progress(sc, elapsed, opts: Options):
     if opts.extended_log or opts.extended_log2:
         row += f"  dobj={sc['dual_obj']:+.6e}"
     if opts.extended_log2:
-        row += f"  dfeas={float('nan'):.2e}"
+        row += f"  dfeas={float('nan') if dfeas is None else dfeas:.2e}"
     print(row)
 
 

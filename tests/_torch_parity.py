@@ -115,21 +115,23 @@ def jax_iteration(layout, opts):
     return jax.jit(jsolver.make_chunk_runner(layout, opts)[1])
 
 
-def assert_states_close(got: dict, want: dict, rtol=1e-9, atol=1e-11):
+def assert_states_close(got: dict, want: dict, rtol=1e-9, atol=1e-11,
+                        offsets=(0,)):
     """Every State field: floats to rtol/atol, integers exactly.  The warm
     vector is the top eigenvector of the projected matrix: it is compared
     up to sign, and only where that eigenvalue is simple (at iteration 1
-    the matrix is 0 and each LAPACK build returns its own basis)."""
+    the matrix is 0 and each LAPACK build returns its own basis);
+    ``offsets`` are the square blocks' offsets in x (``sdp_offsets``)."""
     assert set(got) == set(want)
     for name in want:
         if name == "warm":
-            for g, w in zip(got[name], want[name]):
+            for g, w, off in zip(got[name], want[name], offsets):
                 g, w = np.asarray(g), np.asarray(w)
                 np.testing.assert_allclose(np.linalg.norm(g), np.linalg.norm(w),
                                            rtol=1e-12)
                 side = g.shape[0]
-                ev = np.linalg.eigvalsh(
-                    np.asarray(want["x"][: side * side]).reshape(side, side))
+                ev = np.linalg.eigvalsh(np.asarray(
+                    want["x"][off : off + side * side]).reshape(side, side))
                 if side > 1 and ev[-1] - ev[-2] > 1e-6 * max(abs(ev[-1]), 1.0):
                     flip = -1.0 if np.dot(g, w) < 0 else 1.0
                     np.testing.assert_allclose(flip * g, w, rtol=1e-7,

@@ -4,7 +4,8 @@ The port copies the NumPy host layer (options, problem building,
 preprocess, to_square_form, init_state) instead of importing it, because
 importing ``proxsdp_tpu`` loads jax.  These tests hold the copies to the
 originals exactly (``np.array_equal``), check that the port never imports
-jax, and that options outside the port raise.  (The default hybrid
+jax, that options outside the port raise, and that the ones ported since
+they raised here solve as the JAX package does.  (The default hybrid
 driver, the polar and subspace projections and f32 programs, which raised
 here before they were ported, are solved against the JAX package in
 tests/test_torch_hybrid.py.)"""
@@ -97,6 +98,7 @@ def test_import_leaves_jax_out():
         "import sys, proxsdp_tpu_torch, proxsdp_tpu_torch.solver, "
         "proxsdp_tpu_torch.convert, proxsdp_tpu_torch.kernels, "
         "proxsdp_tpu_torch.kernels.build, proxsdp_tpu_torch.models, "
+        "proxsdp_tpu_torch.equilibration, proxsdp_tpu_torch.models.randsdp, "
         "proxsdp_tpu_torch.ops.cones, proxsdp_tpu_torch.ops.linop, "
         "proxsdp_tpu_torch.ops.tri, proxsdp_tpu_torch.parallel.batch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -108,8 +110,8 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
-def _soc_problem():
-    opt = tx.Optimizer()
+def _soc_problem(pkg):
+    opt = pkg.Optimizer()
     s = opt.add_soc_var(3)
     opt.add_eq_constraint({int(s[1]): 1.0}, 3.0)
     opt.add_eq_constraint({int(s[2]): 1.0}, 4.0)
@@ -117,13 +119,19 @@ def _soc_problem():
     return opt.build_problem()
 
 
-def _two_block_problem():
-    opt = tx.Optimizer()
+def _two_block_problem(pkg):
+    opt = pkg.Optimizer()
     for _ in range(2):
         X = opt.add_psd_var(3)
         opt.add_eq_constraint({int(X[0, 0]): 1.0}, 1.0)
     opt.set_objective({0: 1.0})
     return opt.build_problem()
+
+
+def _problem(pkg, name):
+    if name == "readme":
+        return tp.build_problem(pkg, "readme")
+    return {"soc": _soc_problem, "two_blocks": _two_block_problem}[name](pkg)
 
 
 @pytest.mark.parametrize(
@@ -132,23 +140,38 @@ def _two_block_problem():
         ("readme", tx.Options(subspace_sign=True)),
         ("readme", tx.Options(subspace_accept_always=True)),
         ("readme", tp.torch_opts(square_form=False)),
-        ("readme", tp.torch_opts(block_equilibration=True)),
-        ("readme", tp.torch_opts(equilibration=True)),
-        ("readme", tp.torch_opts(linop="coo")),
+        ("two_blocks", tp.torch_opts(square_form=False)),
         ("readme", tp.torch_opts(checkpoint_path="ck.npz")),
         ("readme", tp.torch_opts(tp_shards=2)),
-        ("soc", tp.torch_opts()),
-        ("two_blocks", tp.torch_opts()),
     ],
-    ids=["subspace_sign", "accept_always", "tri_layout", "beq",
-         "equilibration", "coo", "checkpoint", "tp_shards", "soc",
-         "two_blocks"],
+    ids=["subspace_sign", "accept_always", "tri_layout",
+         "tri_layout_two_blocks", "checkpoint", "tp_shards"],
 )
 def test_unsupported_raises(problem, options):
-    prob = {"readme": lambda: tp.build_problem(tx, "readme"),
-            "soc": _soc_problem, "two_blocks": _two_block_problem}[problem]()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.solve(prob, options, device="cpu")
+        tx.solve(_problem(tx, problem), options, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "problem, kw",
+    [
+        ("readme", dict(block_equilibration=True)),
+        ("readme", dict(equilibration=True, equilibration_force=True)),
+        ("soc", {}),
+        ("two_blocks", {}),
+        ("readme", dict(linop="coo")),
+    ],
+    ids=["beq", "equilibration", "soc", "two_blocks", "coo"],
+)
+def test_formerly_unsupported_solves_match_jax(problem, kw):
+    """Block and Ruiz equilibration, an SOC block, two PSD blocks and the
+    COO operator, which raised before they were ported: the f64 program's
+    status, iterations and objective against the JAX package's."""
+    rj = jx.solve(_problem(jx, problem), tp.jax_opts(**kw))
+    rt = tx.solve(_problem(tx, problem), tp.torch_opts(**kw), device="cpu")
+    assert rt.status == rj.status == 1
+    assert rt.iter == rj.iter
+    assert abs(rt.objval - rj.objval) <= 1e-9 * (1 + abs(rj.objval))
 
 
 def test_solve_requires_device(monkeypatch):

@@ -61,7 +61,7 @@ def test_primal_update_sym_matches_jax(side, n_free):
     X = u[: side * side].reshape(side, side)
     want = np.asarray(u).copy()
     want[: side * side] = np.asarray(0.5 * (X + X.T)).reshape(-1)  # cones.py:173
-    got = kernels.primal_update_sym(t(x), t(Mty), t(c), t(ps), side)
+    got = kernels.primal_update_sym(t(x), t(Mty), t(c), t(ps), (side,))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=1e-15)
 
 
@@ -86,7 +86,7 @@ def test_residuals_reductions_with_inequalities():
             c @ x, b @ y[:p], h @ y[p:]]
     got = kernels.residuals(t(x), t(x_old), t(Mty), t(Mty_old), t(tau), t(y),
                             t(y_old), t(Mx), t(Mx_old), t(sigma), t(b), t(h),
-                            t(c), p, m, side)
+                            t(c), p, m, (side,))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
 
 
@@ -126,7 +126,7 @@ def test_wrappers_reject_what_kernels_do_not_take():
         kernels.ell_spmv(torch.zeros(8, 1, dtype=torch.int64),
                          torch.zeros(8, 1, dtype=F64), a)
     with pytest.raises(ValueError, match="exceeds"):
-        kernels.primal_update_sym(a, a, a, torch.zeros((), dtype=F64), 3)
+        kernels.primal_update_sym(a, a, a, torch.zeros((), dtype=F64), (3,))
 
 
 

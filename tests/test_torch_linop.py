@@ -1,9 +1,9 @@
 """Operators of the PyTorch port against the JAX package's (ops/linop.py).
 
-``EllOp`` products run kernel K1's wrapper, which on the CPU takes the
-plain PyTorch version; ``DenseOp`` products are ``torch.matmul``.  Both
-are held to the JAX operator at rtol 1e-13: only the summation order of
-at most 32 terms per row (or the BLAS dot order) differs."""
+``EllOp`` products run kernel K1's wrapper and ``CooOp`` products kernel
+K14's, which on the CPU take their plain PyTorch versions; ``DenseOp``
+products are ``torch.matmul``.  All are held to the JAX operator at rtol
+1e-13: only summation orders differ."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,7 +86,31 @@ def test_ell_index_validation():
         tlinop.EllOp(idx.long(), val, idx.long(), val)
 
 
-def test_coo_form_raises():
+def test_coo_form_matches_jax():
+    """The COO operator (kernel K14's plain version), forced on max-cut."""
     s = tp.jax_setup("maxcut30")
-    with pytest.raises(NotImplementedError, match="ROADMAP B2'"):
-        tlinop.build_linop(s.A, s.G, F64, device="cpu", force="coo")
+    jop, top = _pair(s.A, s.G, force="coo")
+    assert type(jop).__name__ == type(top).__name__ == "CooOp"
+    _check_products(jop, top, 3)
+
+
+def test_auto_picks_coo_where_jax_does():
+    """A row denser than ELL's 32 on a matrix too large for the dense form
+    (a trace row of side 60, beside 2500 single-entry rows) takes the COO
+    form in both packages, and their products agree."""
+    rng = np.random.RandomState(8)
+    side, m = 60, 2500
+    n = side * side
+    rows = [np.zeros(side, np.int64)]
+    cols = [np.arange(side) * (side + 1)]
+    rows.append(1 + np.arange(m))
+    cols.append(rng.choice(n, m, replace=False))
+    A = sp.csr_matrix((rng.randn(side + m), (np.concatenate(rows),
+                                             np.concatenate(cols))),
+                      shape=(m + 1, n))
+    G = sp.csr_matrix((0, n))
+    jop, top = _pair(A, G)
+    assert type(jop).__name__ == type(top).__name__ == "CooOp"
+    _check_products(jop, top, 4)
+    assert tlinop.build_linop(A, G, F64, device="cpu",
+                              dense_limit=10**8).__class__.__name__ == "DenseOp"

@@ -570,3 +570,168 @@ def test_phase_g_reference_values(tag):
     assert out["iters"] == k[f"{tag}_REF_ITERS"]
     assert [tuple(r) for r in out["reseeds"]] == k[f"{tag}_REF_RESEEDS"]
     assert [tuple(p) for p in out["programs"]] == k[f"{tag}_REF_PROGRAMS"]
+
+
+# chip_smoke.py's phases H and I: the Lovasz-theta SDP at SDPLIB theta6's
+# shape through the JAX package's default solve (its block-equilibration
+# probe, each arm's round capped at 20 s, then the winner's solve), and
+# the seeded conic program with every block kind -- its default solve and
+# I_ITERS iterations of its f64 program from init_state.  The generators
+# are chip_smoke.py's own (NumPy only), the problems built through the JAX
+# package's Optimizer.
+HI_CHILD = """
+import contextlib, io, json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+sys.path.insert(0, ".")
+import chip_smoke as cs
+import proxsdp_tpu as jx
+from proxsdp_tpu import solver as jsolver
+from proxsdp_tpu.ops.linop import build_linop
+from proxsdp_tpu.problem import preprocess, to_square_form
+out = {}
+for what in sys.argv[1].split(","):
+    if what in ("H", "H2"):
+        problem, X = cs.build_theta(jx, cs.theta_graph())
+        kw = ({} if what == "H" else
+              {"block_equilibration_probe_iters": cs.H2_PROBE_ITERS})
+        for beq in (False, True):  # compile both arms' programs first
+            jx.solve(problem, jx.Options(chunk_iters=256, max_iter=1,
+                                         block_equilibration=beq))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = jx.solve(problem, jx.Options(chunk_iters=256, log_verbose=True,
+                                               log_freq=10**9, **kw))
+        out[what] = {"status": res.status, "objval": res.objval,
+                     "iter": res.iter, "log": buf.getvalue()}
+        continue
+    if what == "Heq":  # the equilibrated arm's extremes (chip_smoke.py)
+        problem, X = cs.build_theta(jx, cs.theta_graph())
+        opts = jx.Options(chunk_iters=256, block_equilibration=True)
+        cold = jx.solve(problem, opts)
+        arm = jx.solve(problem, opts.replace(
+            max_iter=3000, time_limit=600, certificate_search=False,
+            log_verbose=False, timer_verbose=False, warn_on_limit=False,
+            checkpoint_path=""))
+        warm = jx.solve(problem, opts, warm_start=arm)
+        out[what] = {"status": [cold.status, arm.status, warm.status],
+                     "objval": [cold.objval, warm.objval]}
+        continue
+    if what == "Hopt":
+        problem, X = cs.build_theta(jx, cs.theta_graph())
+        res = jx.solve(problem, jx.Options(
+            chunk_iters=256, tol_gap=1e-7, tol_feasibility=1e-7,
+            block_equilibration=True, time_limit=3000, max_iter=200000))
+        out[what] = {"status": res.status, "objval": res.objval}
+        continue
+    data = cs.conic_program_data()
+    problem = cs.build_conic_program(jx, data)[0]
+    if what == "Isolve":
+        res = jx.solve(problem, jx.Options(chunk_iters=256))
+        out[what] = {"status": res.status, "objval": res.objval,
+                     "iter": res.iter}
+        continue
+    opts = jx.Options(hybrid_precision=False, block_equilibration=False,
+                      max_iter=cs.I_ITERS)
+    setup = to_square_form(preprocess(problem))
+    layout = setup.layout
+    o = jsolver.Operands(
+        M=build_linop(setup.A, setup.G, jnp.float64), b=jnp.asarray(setup.b),
+        h=jnp.asarray(setup.h), c=jnp.asarray(setup.c),
+        norm_b=jnp.asarray(setup.norm_b), norm_h=jnp.asarray(setup.norm_h),
+        norm_c=jnp.asarray(setup.norm_c), chunk_end=jnp.asarray(0, jnp.int32),
+        obj_scale=jnp.asarray(setup.obj_scale * setup.rhs_scale))
+    _, it, fetch = jsolver.make_chunk_runner(layout, opts)
+    it = jax.jit(it)
+    s = jax.tree_util.tree_map(jnp.asarray, jsolver.init_state(layout, opts, setup))
+    for _ in range(cs.I_ITERS):
+        s = it(s, o)
+    x = np.asarray(s.x)
+    norms, lmins = [], []
+    for off, side in zip(layout.sdp_offsets, layout.sdp_sides):
+        B = x[off : off + side * side].reshape(side, side)
+        norms.append(float(np.linalg.norm(B)))
+        lmins.append(float(np.linalg.eigvalsh(B)[0]))
+    end = sum(sd * sd for sd in layout.sdp_sides)
+    se = end + sum(layout.soc_lens)
+    out[what] = {"fetch": np.asarray(fetch(s)).tolist(), "norms": norms,
+                 "lmins": lmins, "soc_norm": float(np.linalg.norm(x[end:se])),
+                 "lp_norm": float(np.linalg.norm(x[se:]))}
+print(json.dumps(out))
+"""
+
+
+def _hi(what: str, timeout: int) -> dict:
+    proc = subprocess.run([sys.executable, "-c", HI_CHILD, what], cwd=ROOT,
+                          env={**os.environ, **ONE_THREAD},
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_phase_i_iterate_reference_values():
+    """Phase I's f64 iterate after I_ITERS iterations, re-derived by the
+    JAX package on one thread (~40 s): the counters exactly, the fetched
+    scalars, the blocks' norms and the SOC and LP parts' norms to 1e-9
+    relative, each block's lambda_min to 1e-9 of its norm."""
+    k = _module_constants(SMOKE, ("I_REF_",))
+    out = _hi("Isteps", 600)["Isteps"]
+    got, want = out["fetch"], k["I_REF_FETCH"]
+    assert got[:2] == want[:2] and got[9:11] == want[9:11]
+    for g, w in zip(got[2:9], want[2:9]):
+        assert abs(g - w) <= 1e-9 * abs(w)
+    for g, w in zip(out["norms"], k["I_REF_NORMS"], strict=True):
+        assert abs(g - w) <= 1e-9 * w
+    for g, w, nrm in zip(out["lmins"], k["I_REF_LMINS"], k["I_REF_NORMS"],
+                         strict=True):
+        assert abs(g - w) <= 1e-9 * nrm
+    assert abs(out["soc_norm"] - k["I_REF_SOC_NORM"]) <= 1e-9 * k["I_REF_SOC_NORM"]
+    assert abs(out["lp_norm"] - k["I_REF_LP_NORM"]) <= 1e-9 * k["I_REF_LP_NORM"]
+
+
+@pytest.mark.slow
+def test_phase_hi_solve_reference_values():
+    """Phase H's and I's default solves re-derived on one thread (~2
+    minutes): statuses, phase I's objective to 1e-9 relative and its
+    iterations exactly; H1's to 2e-4 (1 + |obj|), phase H's bound on the
+    card, since its probe arms stop at the clock (20 s a round), so the
+    probe's depths, scores and winner, and the solve after it, move with
+    the host's speed; H2's probe (bound by its depth) exactly, its
+    objective to 1e-9 relative."""
+    k = _module_constants(SMOKE, ("H_REF_", "H2_REF_", "I_REF_"))
+    out = _hi("H,H2,Isolve", 1800)
+    res = out["Isolve"]
+    assert res["status"] == k["I_REF_STATUS"]
+    assert abs(res["objval"] - k["I_REF_OBJ"]) <= 1e-9 * abs(k["I_REF_OBJ"])
+    assert res["iter"] == k["I_REF_ITERS"]
+    res = out["H"]
+    assert res["status"] == 1
+    assert abs(res["objval"] - k["H_REF_OBJ"]) <= 2e-4 * (1 + abs(k["H_REF_OBJ"]))
+    assert re.search(r"\[beq probe\] -> (default|block-equilibrated)", res["log"])
+    res = out["H2"]
+    rounds = [(int(d), float(a), float(b)) for d, a, b in re.findall(
+        r"\[beq probe\] depth (\d+): default (\S+) vs block-equilibrated "
+        r"(\S+)", res["log"])]
+    assert rounds == k["H2_REF_PROBE"]
+    assert f"[beq probe] -> {k['H2_REF_WINNER']}" in res["log"]
+    assert res["status"] == 1 and res["iter"] == k["H2_REF_ITERS"]
+    assert abs(res["objval"] - k["H2_REF_OBJ"]) <= 1e-9 * abs(k["H2_REF_OBJ"])
+
+
+@pytest.mark.slow
+def test_phase_h_equilibrated_range_and_optimum():
+    """Phase H's H_EQ_REF_RANGE -- the JAX equilibrated arm solved in one
+    go, and stopped at 3000 iterations then warm-started -- and the
+    optimum H_OPT_OBJ (a solve at 1e-7 tolerances), re-derived on one
+    thread (~15 minutes), to 1e-9 relative."""
+    k = _module_constants(SMOKE, ("H_EQ_REF_", "H_OPT_"))
+    out = _hi("Heq,Hopt", 3600)
+    lo, hi = k["H_EQ_REF_RANGE"]
+    assert out["Heq"]["status"] == [1, 3, 1]
+    for got, want in zip(out["Heq"]["objval"], (lo, hi), strict=True):
+        assert abs(got - want) <= 1e-9 * abs(want)
+    assert out["Hopt"]["status"] == 1
+    assert abs(out["Hopt"]["objval"] - k["H_OPT_OBJ"]) <= 1e-9 * abs(k["H_OPT_OBJ"])

@@ -150,15 +150,15 @@ def test_batched_entry_points_match_single_rows(tdt):
         assert torch.equal(sq[k], kernels.sq_dist(x[k], x_old[k]))
     u = kernels.primal_update_batch(x, Mty, c, tau)
     for k in range(B):
-        # side 0: the single entry point without the square symmetrisation
+        # no blocks: the single entry point without the square symmetrisation
         assert torch.equal(u[k], kernels.primal_update_sym(x[k], Mty[k], c[k],
-                                                           tau[k], 0))
+                                                           tau[k], ()))
     r = kernels.residuals_batch(x, x_old, Mty, Mty_old, tau, y, y_old, Mx,
                                 Mx_old, sigma, b, h, c, p, m)
     for k in range(B):
         r1 = kernels.residuals(x[k], x_old[k], Mty[k], Mty_old[k], tau[k],
                                y[k], y_old[k], Mx[k], Mx_old[k], sigma[k],
-                               b[k], h[k], c[k], p, m, 0)
+                               b[k], h[k], c[k], p, m, ())
         assert torch.equal(r[k, :6], r1[:6])
         if tdt == torch.float32:
             assert torch.equal(r[k, 6:], r1[6:])

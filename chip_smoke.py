@@ -96,7 +96,20 @@
    of the f64 program from init_state against the JAX package's iterate
    (1e-6 relative), then the default Options(chunk_iters=256) solve
    against the JAX run's status and objective, every PSD block PSD and
-   every SOC block within tol_soc.
+   every SOC block within tol_soc;
+11. phase J: the certificate search.  J1, the side-124 max-cut with the
+   equality X_00 = -1 appended (infeasible), at J1_OPTS; J2, the same
+   graph with X_00 free and rewarded (unbounded), at J2_OPTS; status,
+   certificate_found and status string against the JAX package's runs
+   (J1_REF, J2_REF), the declaration, the final iteration and the ray's
+   farkas() value printed beside them; J3, phase D's instances with two
+   of them infeasible through solve_batch: the others status 1, the two
+   status 6 with a ray after the batch's re-entry into solve.
+
+   Phase B also holds K15 and K15b (the linesearch's trial loop) to the
+   K2 -> product -> sq_dist sequence they replace, bit for bit in f64,
+   at the shapes of phases A, C, D, G, H, I and J; K2 and sq_dist
+   themselves are checked but on no path.
 
     python3 chip_smoke.py --phase-h
 
@@ -667,6 +680,81 @@ def build_conic_program(pkg, data: dict):
     return opt.build_problem(), Xs, socs, lp
 
 
+# phase J: the certificate search at mcp124's side (SDPLIB's files are not
+# in the repo: random graphs of their shapes)
+J_SIDE = 124
+J_BAD = (3, 700)  # phase J3's infeasible instances (X_00 = -1)
+
+
+def j1_problem(maxcut_problem, random_graph_weights):
+    """Max-cut at side 124 with the equality X_00 = -1 appended (the JAX
+    suite's realistic certificate test, tests/test_models.py:144-190):
+    infeasible, as X psd forces X_00 >= 0."""
+    import scipy.sparse as sp
+
+    problem, _ = maxcut_problem(random_graph_weights(0, J_SIDE))
+    row = np.zeros((1, problem.n))
+    row[0, problem.sdp_vars[0][0]] = 1.0
+    return type(problem)(
+        c=problem.c, A=sp.vstack([sp.csr_matrix(problem.A),
+                                  sp.csr_matrix(row)]).tocsr(),
+        b=np.concatenate([problem.b, [-1.0]]), G=problem.G, h=problem.h,
+        sdp_vars=problem.sdp_vars, objective_sense=problem.objective_sense)
+
+
+def j2_problem(maxcut_problem, random_graph_weights):
+    """The same graph without the equality X_00 = 1 and with X_00 added to
+    the maximised objective: X = t e_0 e_0^T is a primal ray (the objective
+    grows by t, every constraint holds).  Dropping the equality alone
+    leaves the supremum infinite but no ray (W's diagonal is 0: the
+    objective grows with sqrt(X_00) through the row's off-diagonals)."""
+    problem, _ = maxcut_problem(random_graph_weights(0, J_SIDE))
+    c = problem.c.copy()  # stored for minimisation: -1 maximises X_00
+    c[problem.sdp_vars[0][0]] -= 1.0
+    return type(problem)(
+        c=c, A=problem.A[1:], b=problem.b[1:], G=problem.G, h=problem.h,
+        sdp_vars=problem.sdp_vars, objective_sense=problem.objective_sense)
+
+
+# J1's options: the JAX test's (hybrid_precision=False) at max_iter 5000,
+# not its 20,000 -- a side-124 f64 iteration takes 7.7 ms on the card
+# (launch-bound, ROADMAP B8), so its 25,632 iterations took 222 s; at 5000
+# the declaration still comes at the iteration limit (the limit-time path)
+J1_OPTS = dict(hybrid_precision=False, max_iter=5000, chunk_iters=256)
+# J2's options: the JAX conformance suite's infeas_opt knobs
+# (tests/test_conformance.py:33-47); at the defaults the 100 %-gap stall
+# that declares an unbounded SDP needs ~1e5-1e6 iterations
+J2_OPTS = dict(chunk_iters=256, infeas_gap_tol=0.3, infeas_stable_gap_tol=1e-2)
+
+
+def j3_problems(problems):
+    """Phase D's instances with X_00 = -1 in the instances J_BAD (one
+    geometry and one constraint matrix still)."""
+    out = []
+    for i, problem in enumerate(problems):
+        if i in J_BAD:
+            b = problem.b.copy()
+            b[0] = -1.0
+            problem = type(problem)(
+                c=problem.c, A=problem.A, b=b, G=problem.G, h=problem.h,
+                sdp_vars=problem.sdp_vars,
+                objective_sense=problem.objective_sense)
+        out.append(problem)
+    return out
+
+
+def farkas(res, problem) -> float:
+    """The ray's value per unit: b'y / ||y|| over the duals (y_eq, y_in)
+    of an infeasibility certificate, c'x / ||x|| over the primal of an
+    unboundedness one (user units, the objective's sense)."""
+    if res.status == 6:
+        y = np.concatenate([res.dual_eq, res.dual_in])
+        bh = np.concatenate([problem.b, problem.h])
+        return float(np.dot(bh, y) / max(np.linalg.norm(y), 1e-300))
+    x = res.primal
+    return float(np.dot(problem.c, x) / max(np.linalg.norm(x), 1e-300))
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -769,6 +857,45 @@ class ShapeCounts:
 SHAPES: ShapeCounts | None = None  # installed by main()
 
 
+class TrialCounts:
+    """The trial counts that K15 and K15b return, kept per entry point
+    until the launch counts are next set to 0 (``reset_launch_counts`` is
+    wrapped to clear them too).  The runs do no device work for it: the
+    outputs are summed when read."""
+
+    def __init__(self, torch, kernels):
+        self.torch = torch
+        self.outs = collections.defaultdict(list)
+        for name in ("linesearch_loop", "linesearch_loop_batch"):
+            def counted(*a, _fn=getattr(kernels, name), _name=name, **kw):
+                out = _fn(*a, **kw)
+                self.outs[_name].append(out[4])
+                return out
+
+            setattr(kernels, name, counted)
+        reset = kernels.reset_launch_counts
+
+        def reset_all():
+            reset()
+            self.outs.clear()
+
+        kernels.reset_launch_counts = reset_all
+
+    def read(self, name: str) -> str:
+        outs = self.outs.get(name)
+        if not outs:
+            return f"{name}: not launched"
+        t = self.torch.cat([o.reshape(-1) for o in outs]).double()
+        ran = t[t > 0]
+        return (f"{name}: {len(outs)} launches, {int(t.sum())} trials, "
+                f"{float(ran.mean()):.3f} trials per "
+                + ("iteration" if name == "linesearch_loop"
+                   else "active instance and iteration"))
+
+
+TRIALS: TrialCounts | None = None  # installed by main()
+
+
 def solve_timed(torch, kernels, solve, problem, opts, capture=False):
     """Warm-up solve, then the timed one with the launch counts set to 0
     just before it and read just after; (result, wall s, counts by entry
@@ -838,7 +965,8 @@ def check_entry(torch, kernels, out, name, sfx, source, replaces, call, plain,
                 tol=None, label="", note=""):
     """Run one entry point on the card and its plain version on the same
     inputs, compare, time both (and the library call), and append the
-    kernels-line row to ``out``; launches are filled in later."""
+    kernels-line row to ``out``; launches are filled in later.  The bound's
+    bytes are those of ``inputs`` and ``outputs``, each once."""
     entry = f"{name}_{sfx}"
     row_name = f"{entry} ({label})" if label else entry
     kernels.reset_launch_counts()
@@ -876,6 +1004,108 @@ def check_entry(torch, kernels, out, name, sfx, source, replaces, call, plain,
         # before the kernels line is printed
         "_shape": shapes.pop() if len(shapes) == 1 else None,
     })
+
+
+def _tables(M) -> list:
+    """The M' tables of a port operator (None where a form has none)."""
+    return list(M.rmatvec_tables()[1:4])
+
+
+def _ls_compare(torch, sfx, label, exact):
+    """K15's (K15b's) outputs against the sequence's: the same trial
+    counts, and in f64 the same bits where ``exact``."""
+    def cmp(got, want):
+        check(torch.equal(got[4], want[4]),
+              f"linesearch ({label}): trial counts differ from the sequence's")
+        if sfx == "f64" and exact:
+            for g, w in zip(got, want):
+                check(torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)),
+                      f"linesearch ({label}): f64 outputs not bit for bit "
+                      "the sequence's")
+        return compare(torch, got[:4], want[:4])
+    return cmp
+
+
+def linesearch_row(torch, kernels, out, M, p, m, sfx, dt, dev, rng, label,
+                   tau=3.0):
+    """Phase B row of K15 on the operator M: a state whose first step is
+    ~tau ||M|| times an accepted one (several trials), against the K2 ->
+    product -> sq_dist sequence with a host read a trial (the plain loop
+    on the card): bit for bit in f64 and within 1e-7 in f32 on the sparse
+    forms; on the dense form, whose plain M' y is a cuBLAS product that
+    sums in another order, the same trial count and RTOL.  Bound: the
+    inputs (y, Mx, Mx_old, y_old, b, h, Mty_old, the M' tables) read once
+    and y_temp, Mty written once -- what a trial rereads stays in the 50 MB
+    L2 at every shape here -- against trials x (10 (p + m) + 2 nnz + 3 n)
+    flops; one trial's bytes in the note."""
+    rows_, n = p + m, M.shape[1]
+
+    def vec(k):
+        return torch.tensor(rng.standard_normal(k), dtype=dt, device=dev)
+
+    def sc(v):
+        return torch.tensor(v, dtype=dt, device=dev)
+
+    y, y_old, Mx, Mx_old = (vec(rows_) for _ in range(4))
+    b, h = vec(p), vec(m)
+    args = (M, y, Mx, Mx_old, b, h, y_old, M.rmatvec(y_old), sc(tau), sc(tau),
+            sc(1.0), sc(1.0), p, m, 0.9999, 0.75, 5000)
+    want = kernels.linesearch_loop_plain(*args)
+    trials = int(want[4])
+    tables = _tables(M)
+    exact = tables[1] is not None  # the sparse forms
+    trial_bytes = y.element_size() * (6 * rows_ + 2 * n) + nbytes(tables)
+    check_entry(torch, kernels, out, "linesearch_loop", sfx, "ls_loop.cu",
+                "proxsdp_tpu/solver.py:436", lambda f: f(*args),
+                kernels.linesearch_loop_plain,
+                [t for t in args if isinstance(t, torch.Tensor)] + tables,
+                want, trials * (10 * rows_ + 2 * tables[2].numel() + 3 * n),
+                compare_fn=_ls_compare(torch, sfx, label, exact),
+                tol=(0.0 if sfx == "f64" else 1e-7) if exact else None,
+                label=label,
+                note=f" ({trials} trials, {trial_bytes} bytes a trial; "
+                "library: none)")
+    LAUNCH_US.append((f"linesearch_loop_{sfx} ({label})",
+                      lambda: kernels.linesearch_loop(*args), "ls_loop_kernel"))
+
+
+def linesearch_batch_row(torch, kernels, out, o, p, m, sfx, dt, dev, rng,
+                         label):
+    """Phase B row of K15b over the batch's shared operator o.M, every
+    instance active with its own step scale (1 to ~8 trials), against
+    the batched K2 -> K1 -> sq_dist sequence.  Bound: the inputs and the
+    shared tables read once, the outputs written once (as K15's)."""
+    B, rows_ = o.b.shape[0], p + m
+    n = o.M.shape[1]
+
+    def rows_of(k):
+        return torch.tensor(rng.standard_normal((B, k)), dtype=dt, device=dev)
+
+    def per(lo, hi):
+        return torch.tensor(rng.uniform(lo, hi, B), dtype=dt, device=dev)
+
+    y, y_old, Mx, Mx_old = (rows_of(rows_) for _ in range(4))
+    tau = per(0.5, 4.0)
+    args = (o.M, y, Mx, Mx_old, o.b, o.h, y_old, rows_of(n),
+            o.M.rmatvec_batch(y_old), tau, tau, per(0.5, 1.0),
+            torch.ones_like(tau), torch.ones(B, dtype=torch.bool, device=dev),
+            p, m, 0.9999, 0.75, 5000)
+    want = kernels.linesearch_loop_batch_plain(*args)
+    trials = want[4].cpu().numpy()
+    tables = _tables(o.M)
+    check_entry(torch, kernels, out, "linesearch_loop_batch", sfx,
+                "ls_loop.cu", "proxsdp_tpu/parallel/batch.py:141",
+                lambda f: f(*args), kernels.linesearch_loop_batch_plain,
+                [t for t in args if isinstance(t, torch.Tensor)] + tables,
+                want, int(trials.sum()) * (10 * rows_ + 2 * tables[2].numel()
+                                           + 3 * n),
+                compare_fn=_ls_compare(torch, sfx, label, True),
+                tol=0.0 if sfx == "f64" else 1e-7, label=label,
+                note=f" (trials {int(trials.min())}-{int(trials.max())}, "
+                f"mean {trials.mean():.2f}; library: none)")
+    LAUNCH_US.append((f"linesearch_loop_batch_{sfx} ({label})",
+                      lambda: kernels.linesearch_loop_batch(*args),
+                      "ls_loop_batch_kernel"))
 
 
 def kernel_checks(torch, kernels, setup, rng, dev):
@@ -930,16 +1160,22 @@ def kernel_checks(torch, kernels, setup, rng, dev):
             (out_pm, out_n), 2 * (M.row_vals.numel() + M.col_vals.numel()),
             library=lambda: (torch.sparse.mm(csr_row, x[:, None]),
                              torch.sparse.mm(csr_col, y[:, None])))
-        add("ls_dual_update", sfx, "ls_dual_update.cu",
-            "proxsdp_tpu/solver.py:452",
-            lambda f: f(y, Mx, Mx_old, b, h, y_old, sigma, theta, p, m),
-            kernels.ls_dual_update_plain,
-            (y, Mx, Mx_old, b, h, y_old, sigma, theta), (out_pm, tau),
-            10 * (p + m))
-        add("sq_dist", sfx, "ls_dual_update.cu", "proxsdp_tpu/solver.py:459",
-            lambda f: (f(Mty, Mty_old),), kernels.sq_dist_plain,
-            (Mty, Mty_old), (tau,), 3 * n,
-            library=lambda: F.mse_loss(Mty, Mty_old, reduction="sum"))
+        # one trial's kernels, checked but on no path: K15 runs the trials
+        check_entry(torch, kernels, TRIAL_ROWS, "ls_dual_update", sfx,
+                    "ls_dual_update.cu", "proxsdp_tpu/solver.py:452",
+                    lambda f: f(y, Mx, Mx_old, b, h, y_old, sigma, theta, p, m),
+                    kernels.ls_dual_update_plain,
+                    (y, Mx, Mx_old, b, h, y_old, sigma, theta), (out_pm, tau),
+                    10 * (p + m), note=" (one trial's kernel: on no path)")
+        check_entry(torch, kernels, TRIAL_ROWS, "sq_dist", sfx,
+                    "ls_dual_update.cu", "proxsdp_tpu/solver.py:459",
+                    lambda f: (f(Mty, Mty_old),), kernels.sq_dist_plain,
+                    (Mty, Mty_old), (tau,), 3 * n,
+                    library=lambda: F.mse_loss(Mty, Mty_old, reduction="sum"),
+                    note=" (one trial's kernel: on no path)")
+        # their own generator: the other rows keep their inputs
+        linesearch_row(torch, kernels, rows, M, p, m, sfx, dt, dev,
+                       np.random.default_rng(10), f"side {SIDE}, ELL")
         add("residuals", sfx, "residuals.cu", "proxsdp_tpu/solver.py:545",
             lambda f: (f(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,
                          sigma, b, h, c, p, m, (SIDE,)),),
@@ -1176,16 +1412,24 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev, eigh_sides=EIGH_SIDES,
             (out_pm, out_n), 2 * B * (M.row_vals.numel() + M.col_vals.numel()),
             library=lambda: (torch.sparse.mm(csr_row, xT),
                              torch.sparse.mm(csr_col, yT)))
-        add("ls_dual_update_batch", sfx, "ls_dual_update.cu",
-            "proxsdp_tpu/solver.py:452",
-            lambda f: f(y, Mx, Mx_old, o.b, o.h, y_old, sigma, theta, p, m),
-            kernels.ls_dual_update_batch_plain,
-            (y, Mx, Mx_old, o.b, o.h, y_old, sigma, theta), (out_pm, tau),
-            10 * B * (p + m))
-        add("sq_dist_batch", sfx, "ls_dual_update.cu",
-            "proxsdp_tpu/solver.py:459",
-            lambda f: (f(Mty, Mty_old),), kernels.sq_dist_batch_plain,
-            (Mty, Mty_old), (tau,), 3 * B * n)
+        # one trial's kernels (off the path: K15b runs the trials)
+        for args in (
+                ("ls_dual_update_batch", sfx, "ls_dual_update.cu",
+                 "proxsdp_tpu/solver.py:452",
+                 lambda f: f(y, Mx, Mx_old, o.b, o.h, y_old, sigma, theta, p, m),
+                 kernels.ls_dual_update_batch_plain,
+                 (y, Mx, Mx_old, o.b, o.h, y_old, sigma, theta), (out_pm, tau),
+                 10 * B * (p + m)),
+                ("sq_dist_batch", sfx, "ls_dual_update.cu",
+                 "proxsdp_tpu/solver.py:459",
+                 lambda f: (f(Mty, Mty_old),), kernels.sq_dist_batch_plain,
+                 (Mty, Mty_old), (tau,), 3 * B * n)):
+            check_entry(torch, kernels, off_path, *args,
+                        label=f"{phase}: side {side}",
+                        note=" (one trial's kernel: not on the path)")
+        linesearch_batch_row(torch, kernels, rows, o, p, m, sfx, dt, dev,
+                             np.random.default_rng(11),
+                             f"{phase}: side {side}, B = {B}")
         add("residuals_batch", sfx, "residuals.cu", "proxsdp_tpu/solver.py:545",
             lambda f: (f(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,
                          sigma, o.b, o.h, o.c, p, m),),
@@ -1384,8 +1628,7 @@ def subspace_kernel_checks(torch, kernels, rng, dev):
 # directions are one function)
 BATCH_DEVICE_FNS = {
     "ell_spmv_batch": "ell_spmv_batch_kernel",
-    "ls_dual_update_batch": "ls_dual_update_batch_kernel",
-    "sq_dist_batch": "sq_dist_batch_kernel",
+    "linesearch_loop_batch": "ls_loop_batch_kernel",
     "residuals_batch": "residuals_batch_",
     "primal_update_batch": "primal_update_batch_kernel",
     "batched_psd_eigh": "batched_psd_eigh_kernel",
@@ -1635,6 +1878,14 @@ def lanczos_compare(torch, kernels, X, sfx, tol, errs):
     return fn
 
 
+# (row label, call, CUDA function name) of the rows whose device time a
+# launch main() reads under the profiler after the phases
+LAUNCH_US: list = []
+# rows of one linesearch trial's kernels (K2, sq_dist): checked against
+# their plain versions, on no path since K15 and K15b run the trials
+TRIAL_ROWS: list = []
+
+
 def device_us(torch, fn, name, calls=3):
     """Device µs per launch of the CUDA functions whose names contain
     ``name``, over ``calls`` calls of fn under torch.profiler (None where
@@ -1643,7 +1894,10 @@ def device_us(torch, fn, name, calls=3):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU and CUDA activities, as profile_steps: a CUDA-only profile
+    # recorded no device event in about half of the late profiles of a run
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -2281,6 +2535,14 @@ def conic_kernel_checks(torch, kernels, rng, dev):
                 library=lambda a=csr_row, b=csr_col, x=x, y=y: (
                     torch.sparse.mm(a, x[:, None]), torch.sparse.mm(b, y[:, None])),
                 label=f"{phase}: {nr} x {nc}, {M.row_vals.numel()} nonzeros")
+            LAUNCH_US.append((f"coo_spmv_{sfx} ({phase}: M x)",
+                              lambda M=M, x=x: kernels.coo_spmv(
+                                  M.row_ptr, M.row_idx, M.row_vals, x,
+                                  M.row_seg), "seg_spmv_kernel"))
+            linesearch_row(torch, kernels, rows[phase], M, st.layout.p,
+                           st.layout.m, sfx, dt, dev,
+                           np.random.default_rng(12),
+                           f"{phase}: {nr} x {nc}, COO")
         # K13: phase I's blocks, then 4096 of lengths 2-257
         for nblk, on in ((len(I_SOC_LENS), True), (4096, False)):
             if on:
@@ -2316,6 +2578,9 @@ def conic_kernel_checks(torch, kernels, rng, dev):
                 label=f"{nblk} blocks of lengths "
                 + (f"{lens[0]}" if on else "2-257"),
                 note="" if on else " (not on phase I's path)")
+            LAUNCH_US.append((f"soc_projection_{sfx} ({nblk} blocks)",
+                              lambda v=v, lens=lens: kernels.soc_projection(
+                                  v, lens), "soc_proj_kernel"))
         # K9 at phase I's grouped stack of side-19 blocks
         s19 = I_PSD_SIDES[0]
         X = eigh_inputs(torch, rng, s19, dt, dev, B=I_PSD_SIDES.count(s19))
@@ -2697,6 +2962,136 @@ def phase_i(torch, kernels, smi, dev=None):
     return entries1, entries2, shapes
 
 
+# The JAX package's phase J runs (one thread, chunk_iters=256, a frozen
+# clock; tests/test_torch_reference_values.py re-derives them, slow):
+# the status, certificate_found and string, the first declaration (status,
+# iteration), the final iteration and the ray's farkas() value
+J1_REF = {"status": 6, "found": True, "string": "Infeasible [Dual ray found]",
+          "decl": [6, 5000], "iters": 7560, "farkas": -1.337860760838697}
+J2_REF = {"status": 5, "found": True, "string": "Unbounded [Primal ray found]",
+          "decl": [5, 5745], "iters": 5746, "farkas": -1.28768498977866}
+# the first declaration's iteration: J1's f64 program declares at the
+# iteration limit; J2's comes after the default hybrid race, whose f32 sums
+# run in other orders in the two packages (0.45 % later on an H100)
+J_DECL_RTOL = {"J1": 0.0, "J2": 5e-3}
+
+
+def j_kernel_checks(torch, kernels, rng, dev, bsetups):
+    """Phase B rows of phase J: K15 on J1's operator (f64) and J2's (f32,
+    f64), K15b at J3's shapes (phase D's), and K15 on the dense operator
+    that J3's re-entries solve through (``solve`` builds it for an
+    instance of side 16: f32 and f64); rows by phase."""
+    from proxsdp_tpu_torch.models.maxcut import (maxcut_problem,
+                                                 random_graph_weights)
+    from proxsdp_tpu_torch.ops.linop import build_linop
+    from proxsdp_tpu_torch.parallel.batch import _batch_operands
+    from proxsdp_tpu_torch.problem import preprocess, to_square_form
+
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    rows = {"J1": [], "J2": [], "J3": []}
+    for tag, build, sfxs in (("J1", j1_problem, ("f64",)),
+                             ("J2", j2_problem, ("f64", "f32"))):
+        st = to_square_form(preprocess(build(maxcut_problem,
+                                             random_graph_weights)))
+        for sfx in sfxs:
+            M = build_linop(st.A, st.G, dtypes[sfx], device=dev)
+            linesearch_row(torch, kernels, rows[tag], M, st.layout.p,
+                           st.layout.m, sfx, dtypes[sfx], dev, rng,
+                           f"{tag}: side {J_SIDE}, {type(M).__name__}")
+    st = to_square_form(bsetups[J_BAD[0]])
+    for sfx, dt in dtypes.items():
+        M = build_linop(st.A, st.G, dt, device=dev)
+        linesearch_row(torch, kernels, rows["J3"], M, st.layout.p,
+                       st.layout.m, sfx, dt, dev, rng,
+                       f"J3 re-entry: side {BATCH_SIDE}, {type(M).__name__}")
+    lay = bsetups[0].layout
+    for sfx, dt in dtypes.items():
+        linesearch_batch_row(torch, kernels, rows["J3"],
+                             _batch_operands(bsetups, dt, dev, "auto"), lay.p,
+                             lay.m, sfx, dt, dev, rng,
+                             f"J3: side {BATCH_SIDE}, B = {len(bsetups)}")
+    return rows
+
+
+def phase_j(torch, kernels, smi, bproblems):
+    """J1 (infeasible) and J2 (unbounded) at side 124 through ``solve``,
+    J3 (phase D's instances, two made infeasible) through ``solve_batch``;
+    (launches by entry point of each)."""
+    from proxsdp_tpu_torch import Options, solve, solve_batch
+    from proxsdp_tpu_torch.models.maxcut import (maxcut_problem,
+                                                 random_graph_weights)
+
+    entries = {}
+    for tag, build, opts, ref in (
+            ("J1", j1_problem, Options(**J1_OPTS), J1_REF),
+            ("J2", j2_problem, Options(**J2_OPTS), J2_REF)):
+        problem = build(maxcut_problem, random_graph_weights)
+        buf = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = solve(problem, opts.replace(log_verbose=True,
+                                              log_freq=10 ** 9))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        entries[tag] = dict(kernels.launch_counts)
+        log = buf.getvalue()
+        decl = [(int(a), int(b)) for a, b in
+                re.findall(r"\[cert\] status (\d) at iter (\d+)", log)]
+        for line in log.splitlines():
+            if line.startswith(("  [cert]", "  [hybrid]", "  [polish]")):
+                print(f"  | {tag} " + line.strip())
+        got = dict(status=res.status, found=res.certificate_found,
+                   string=res.status_string, decl=list(decl[0]) if decl else None,
+                   iters=res.iter, farkas=farkas(res, problem))
+        print(f"phase {tag} on {smi}: {json.dumps(got)} in {wall:.1f} s; the "
+              f"JAX package's: {json.dumps(ref)}")
+        print(f"phase {tag}: {TRIALS.read('linesearch_loop')}")
+        check(res.status == ref["status"] and res.certificate_found
+              == ref["found"] and res.status_string == ref["string"],
+              f"{tag}: status {res.status} ({res.status_string!r}), "
+              f"certificate_found {res.certificate_found}; the JAX package's "
+              f"{ref['status']} ({ref['string']!r}), {ref['found']}")
+        check(res.certificate_found, f"{tag}: no ray")
+        check(bool(decl) and decl[0][0] == ref["decl"][0]
+              and abs(decl[0][1] - ref["decl"][1])
+              <= J_DECL_RTOL[tag] * ref["decl"][1],
+              f"{tag}: first declaration {decl[:1]}, the JAX package's "
+              f"{ref['decl']} (within {J_DECL_RTOL[tag]:.1%})")
+        check(entries[tag]["linesearch_loop_f64"] > 0,
+              f"{tag}: linesearch_loop_f64 (K15) launched no kernel")
+    # J3: the batch's re-entry
+    probs = j3_problems([p for p, _ in bproblems])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_batch(probs, Options(tol_gap=1e-4, tol_feasibility=1e-4))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entries["J3"] = dict(kernels.launch_counts)
+    status = np.array([r.status for r in res])
+    good = np.ones(len(res), bool)
+    good[list(J_BAD)] = False
+    print(f"phase J3 (solve_batch, B = {len(res)}, side {BATCH_SIDE}, "
+          f"instances {list(J_BAD)} with X_00 = -1) on {smi}: {wall:.1f} s; "
+          f"statuses of the others "
+          f"{dict(zip(*np.unique(status[good], return_counts=True)))}; the "
+          "infeasible ones: " + json.dumps(
+              [dict(status=res[i].status, found=res[i].certificate_found,
+                    string=res[i].status_string, iters=res[i].iter,
+                    farkas=farkas(res[i], probs[i])) for i in J_BAD]))
+    print(f"phase J3: {TRIALS.read('linesearch_loop_batch')}; "
+          f"{TRIALS.read('linesearch_loop')} (the re-entries)")
+    check((status[good] == 1).all(), "J3: a feasible instance not at status 1")
+    for i in J_BAD:
+        check(res[i].status == 6 and res[i].certificate_found,
+              f"J3: instance {i}: status {res[i].status} "
+              f"({res[i].status_string!r})")
+    check(entries["J3"]["linesearch_loop_batch_f64"] > 0
+          and entries["J3"]["linesearch_loop_batch_f32"] > 0,
+          "J3: linesearch_loop_batch (K15b) launched no kernel")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2722,10 +3117,11 @@ def main() -> int:
     from proxsdp_tpu_torch.problem import preprocess, to_square_form
 
     # ---- 1. build
-    global SHAPES
+    global SHAPES, TRIALS
     t0 = time.perf_counter()
     kernels.load()
     SHAPES = ShapeCounts(kernels)
+    TRIALS = TrialCounts(torch, kernels)
     print(f"build: {time.perf_counter() - t0:.2f} s to load, nvcc "
           f"{build.BuildInfo.seconds:.2f} s -> {build.BuildInfo.path}")
     for line in build.BuildInfo.log.splitlines():
@@ -2759,9 +3155,13 @@ def main() -> int:
           f"lambda_min(X) {lam_min:.3e}")
     print("phase A launches: " + json.dumps(
         {e: n for e, n in entries_a.items() if n}))
-    check(counts["ell_spmv"] >= 2 * res.iter, "A: ell_spmv launched < 2x iterations")
-    for name in ("ls_dual_update", "sq_dist", "residuals", "primal_update_sym"):
+    # K1 for M x; M' y inside K15, one launch an iteration
+    for name in ("ell_spmv", "linesearch_loop", "residuals",
+                 "primal_update_sym"):
         check(counts[name] >= res.iter, f"A: {name} launched < iterations")
+    check(counts["ls_dual_update"] == counts["sq_dist"] == 0,
+          "A: one trial's kernels launched on the path")
+    print(f"phase A: {TRIALS.read('linesearch_loop')}")
 
     print(f"phase A: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2808,6 +3208,8 @@ def main() -> int:
         crows[phase] += race_kernel_checks(
             torch, kernels, np.random.default_rng(seed), torch.device("cuda"),
             side, ks, polish_k, rank, phase)
+    jrows = j_kernel_checks(torch, kernels, np.random.default_rng(9),
+                            torch.device("cuda"), bsetups)
     print(f"phase B: {time.perf_counter() - t_phase:.1f} s (above side 1024 "
           f"{t_g - t_b:.1f} s, phase G's shapes {t_hi - t_g:.1f} s, phases H "
           f"and I's {time.perf_counter() - t_hi:.1f} s)")
@@ -2854,22 +3256,23 @@ def main() -> int:
         check(counts[name] > 0 or name in ("lanczos_krylov", "soc_projection",
                                            "coo_spmv"),
               f"C: {name} launched no kernel")
-    for name in ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
+    for name in ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym"):
         check(entries.get(f"{name}_f32", 0) > 0, f"C: {name}_f32 not launched")
+    print(f"phase C: {TRIALS.read('linesearch_loop')}")
     # launches: the f64 K1-K4 rows count phase A's solve (the f64
     # program), every other row phase C's (the default path); K5-K8 rows
     # those of their call shape
-    f64_program = {f"{name}_f64" for name in ("ell_spmv", "ls_dual_update",
-                                              "sq_dist", "residuals",
+    f64_program = {f"{name}_f64" for name in ("ell_spmv", "linesearch_loop",
+                                              "residuals",
                                               "primal_update_sym")}
     all_rows = rows + off_path
     rows, c_off = assign_launches(rows, shapes_c, {
         e: (entries_a if e in f64_program else entries)[e] for e in entries})
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} launched no kernel")
-    print("kernels line: launches of the f64 ell_spmv, ls_dual_update, "
-          "sq_dist, residuals and primal_update_sym rows from phase A, the "
+    print("kernels line: launches of the f64 ell_spmv, linesearch_loop, "
+          "residuals and primal_update_sym rows from phase A, the "
           "others from phase C, the K5-K8 rows' at their call shape; checked "
           "against the plain version but left off the line (a second form "
           "of a row's shape, or not launched at its shape there): "
@@ -2909,6 +3312,9 @@ def main() -> int:
           "not launched at their shape there: "
           + ", ".join(row["name"] for row in late_off))
     print_shapes("phases E and F", ran, all_rows + grows)
+    print("kernels line: one trial's kernels, checked against the plain "
+          "version but on no path (K15 runs the trials): "
+          + ", ".join(row["name"] for row in TRIAL_ROWS))
     for name in ("lanczos_krylov_f64", "ns_gemm_f64"):
         check(entries_f[name] > 0, f"F: {name} launched no kernel")
 
@@ -2951,6 +3357,16 @@ def main() -> int:
     t_phase = time.perf_counter()
     _, entries_i2, shapes_i2 = phase_i(torch, kernels, smi)
     print(f"phase I: {time.perf_counter() - t_phase:.1f} s")
+    # ---- 9. phase J: the certificate search (J1 infeasible, J2
+    # unbounded, J3 the batch's re-entry)
+    t_phase = time.perf_counter()
+    entries_j = phase_j(torch, kernels, smi, bproblems)
+    print(f"phase J: {time.perf_counter() - t_phase:.1f} s")
+    for tag, jr in jrows.items():
+        for row in jr:
+            row["launches"] = entries_j[tag][row["name"].split(" ")[0]]
+            check(row["launches"] > 0, f"{row['name']} launched no kernel in {tag}")
+        rows += jr
     # launches: the row-scale K3 rows take phase H's launches of K3 with a
     # row scale, its other rows those of their entry point, phase I's rows
     # those of the default solve (I2), K9's at its shape
@@ -2971,12 +3387,18 @@ def main() -> int:
           "there: " + ", ".join(row["name"] for row in h_left + i_left + coff))
     print_shapes("phase H", shapes_h, crows["H"])
     print_shapes("phase I2", shapes_i2, crows["I"])
+    for label, fn, pattern in LAUNCH_US:
+        us = device_us(torch, fn, pattern, calls=10)
+        print(f"kernel {label}: device "
+              f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
     names = {row["name"].split(" ")[0].rsplit("_f", 1)[0] for row in rows}
-    missing = set(kernels.KERNELS) - {n.replace("_f64", "").replace("_f32", "")
-                                      for n in names}
+    # one trial's kernels (TRIAL_KERNELS) are checked in phase B but run on
+    # no path: K15 and K15b run the trials
+    missing = (set(kernels.SOLVE_KERNELS + kernels.BATCH_KERNELS)
+               - {n.replace("_f64", "").replace("_f32", "") for n in names})
     check(not missing, f"kernels line: no row of {sorted(missing)}")
 
-    print(f"phases A-I: {time.perf_counter() - t_start:.1f} s")
+    print(f"phases A-J: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ kernels.
 |--------------------|--------------------------------------------------|
 | ell_spmv           | ops/linop.py:123-127 EllOp.matvec / rmatvec      |
 | coo_spmv           | ops/linop.py:81-90 CooOp.matvec / rmatvec        |
+| linesearch_loop    | solver.py:436-482 the whole linesearch loop      |
 | ls_dual_update     | solver.py:452-463 linesearch body + box proj.    |
 | sq_dist            | solver.py:459-461 the accept test's norms        |
 | residuals          | solver.py:545-612 _residuals_and_gap reductions  |
@@ -29,10 +30,19 @@ kernels.
 | tri_to_square      | ops/tri.py:39-44 (batched)                       |
 | square_to_tri      | ops/tri.py:47-52 (batched)                       |
 
-The batch driver (``parallel/batch.py``) runs K1-K4 through their
-``*_batch`` entry points: a leading instance axis on every vector,
-per-instance step scalars as (B,) tensors and per-instance b, h, c, one
-launch per batch.
+The batch driver (``parallel/batch.py``) runs K1, K3, K4 and the
+linesearch loop through their ``*_batch`` entry points: a leading instance
+axis on every vector, per-instance step scalars as (B,) tensors and
+per-instance b, h, c, one launch per batch.
+
+The linesearch loop (K15, K15b) runs every trial of one iteration's
+Malitsky-Pock linesearch in one launch.  One trial's kernels, K2
+(``ls_dual_update``) and ``sq_dist``, are not on the solve path any more:
+the fixed-step dual update (``line_search_flag=False``) runs K2, and the
+plain loops (``linesearch_loop_plain``, ``linesearch_loop_batch_plain``)
+call K2, the operator's product and ``sq_dist`` once a trial -- on the
+CPU the plain versions, on the card the kernels, the sequence K15
+replaces and is held to.
 
 The f32 and f64 instantiations share one source each; ``fro_scale`` and
 ``sym_guard`` also take the mixed f64/f32 pairs of the f64 program's
@@ -54,15 +64,18 @@ from ..utils.vech import offdiag_mask_tri, square_gather_index, tri_ij
 from . import build
 from .build import KernelError
 
-# the single-instance solve's kernels and the batch driver's
-SOLVE_KERNELS = ("ell_spmv", "ls_dual_update", "sq_dist", "residuals",
+# the single-instance solve's kernels, the batch driver's, and one
+# linesearch trial's (the plain loops' parts; K2 also the fixed step's)
+SOLVE_KERNELS = ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym", "ns_gemm", "fro_scale", "sym",
                  "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov",
                  "soc_projection", "coo_spmv")
-BATCH_KERNELS = ("ell_spmv_batch", "ls_dual_update_batch", "sq_dist_batch",
-                 "residuals_batch", "primal_update_batch", "batched_psd_eigh",
-                 "tri_to_square", "square_to_tri", "batched_subspace")
-KERNELS = SOLVE_KERNELS + BATCH_KERNELS
+BATCH_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch", "residuals_batch",
+                 "primal_update_batch", "batched_psd_eigh", "tri_to_square",
+                 "square_to_tri", "batched_subspace")
+TRIAL_KERNELS = ("ls_dual_update", "sq_dist", "ls_dual_update_batch",
+                 "sq_dist_batch")
+KERNELS = SOLVE_KERNELS + BATCH_KERNELS + TRIAL_KERNELS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -71,6 +84,8 @@ _ARGTYPES = {
     "ell_spmv": [_P, _P, _P, _P, _I, _I, _P],
     "ls_dual_update": [_P] * 11 + [_I, _I, _P],
     "sq_dist": [_P, _P, _P, _P, _I, _P],
+    "linesearch_loop": [_P] * 21 + [_I] * 6 + [_D, _D, _P],
+    "linesearch_loop_batch": [_P] * 20 + [_I] * 7 + [_D, _D, _P],
     "residuals": [_P] * 18 + [_I] * 4 + [_P],
     "primal_update_sym": [_P] * 6 + [_I] * 3 + [_P],
     "soc_projection": [_P] * 3 + [_I] + [_P] * 3,
@@ -298,6 +313,89 @@ def sq_dist(a, b):
     _launch(name, a.dtype, a.device, _ptr(a), _ptr(b), _ptr(partials),
             _ptr(out), n)
     return out
+
+
+# ------------------------------------------ K15 the linesearch's trial loop
+
+# ls_loop.cu's operator forms
+LS_ELL, LS_COO, LS_DENSE = 0, 1, 2
+
+
+def _rmatvec_form(name: str, M, rows: int, n: int):
+    """M.rmatvec_tables() of a port operator (ops.linop): (form, ptr, idx,
+    vals, width) -- ELL's column tables, COO's column segments or the
+    dense matrix -- after a check of its shape."""
+    if tuple(M.shape) != (rows, n):
+        raise ValueError(f"{name}: operator of shape {tuple(M.shape)}, want "
+                         f"({rows}, {n})")
+    return M.rmatvec_tables()
+
+
+def linesearch_loop_plain(M, y, Mx, Mx_old, b, h, y_old, Mty_old, tau,
+                          tau_old, theta, beta, p: int, m: int, delta: float,
+                          decay: float, max_steps: int):
+    ps = tau * torch.sqrt(1.0 + theta)
+    sqrt_beta = torch.sqrt(beta)
+    y_temp, Mty, trials = torch.zeros_like(y), torch.zeros_like(Mty_old), 0
+    for _ in range(max_steps):
+        theta = ps / tau_old
+        y_temp, dy = ls_dual_update(y, Mx, Mx_old, b, h, y_old, beta * ps,
+                                    theta, p, m)
+        Mty = M.rmatvec(y_temp)
+        dM = sq_dist(Mty, Mty_old)
+        trials += 1
+        # one host read a trial
+        if bool(sqrt_beta * ps * torch.sqrt(dM) <= delta * torch.sqrt(dy)):
+            break
+        ps = ps * decay
+    return (y_temp, Mty, theta, ps,
+            torch.tensor(trials, dtype=torch.int32, device=y.device))
+
+
+def linesearch_loop(M, y, Mx, Mx_old, b, h, y_old, Mty_old, tau, tau_old,
+                    theta, beta, p: int, m: int, delta: float, decay: float,
+                    max_steps: int):
+    """The Malitsky-Pock linesearch of one iteration (solver.py:436-482):
+    from ps = tau sqrt(1 + theta), trials of K2's dual update, Mty = M'
+    y_temp and the accept test sqrt(beta) ps ||Mty - Mty_old|| <= delta
+    ||y_temp - y_old||, ps *= decay after each refused one, at most
+    ``max_steps`` (>= 1) trials.  ``M`` is the port's operator (ELL, COO or
+    dense); tau, tau_old, theta and beta are 0-d.  Returns (y_temp, Mty,
+    theta, ps, trials): the last trial's y_temp, Mty and theta, the final
+    ps, and the trial count (0-d int32).  One launch on the card (no host
+    read); on the CPU the plain loop, one host read a trial."""
+    name = "linesearch_loop"
+    rows, n = p + m, Mty_old.shape[0]
+    form, ptr, idx, vals, width = _rmatvec_form(name, M, rows, n)
+    for t, what in ((y, "y"), (Mx, "Mx"), (Mx_old, "Mx_old"), (y_old, "y_old")):
+        _check_vec(name, t, rows, what)
+    _check_vec(name, b, p, "b")
+    _check_vec(name, h, m, "h")
+    for t, what in ((tau, "tau"), (tau_old, "tau_old"), (theta, "theta"),
+                    (beta, "beta")):
+        _check_scalar(name, t, what)
+    if max_steps < 1 or rows < 1:
+        raise ValueError(f"{name}: want max_steps >= 1 and rows, got "
+                         f"{max_steps} steps and {rows} rows")
+    if _on_cpu(name, y, Mx, Mx_old, b, h, y_old, Mty_old, tau, tau_old, theta,
+               beta, vals):
+        return linesearch_loop_plain(M, y, Mx, Mx_old, b, h, y_old, Mty_old,
+                                     tau, tau_old, theta, beta, p, m, delta,
+                                     decay, max_steps)
+    dev, dt = y.device, y.dtype
+    y_temp, Mty = torch.empty_like(y), torch.empty_like(Mty_old)
+    theta_out, ps_out = torch.empty_like(theta), torch.empty_like(tau)
+    trials = torch.empty((), dtype=torch.int32, device=dev)
+    part_y = torch.empty(_reduce_grid(rows), dtype=dt, device=dev)
+    part_m = torch.empty(_reduce_grid(n), dtype=dt, device=dev)
+    _launch(name, dt, dev, *map(_ptr, (y, Mx, Mx_old, b, h, y_old, Mty_old,
+                                       tau, tau_old, theta, beta)),
+            None if ptr is None else _ptr(ptr),
+            None if idx is None else _ptr(idx), _ptr(vals),
+            *map(_ptr, (y_temp, Mty, theta_out, ps_out, trials, part_y,
+                        part_m)),
+            p, m, n, width, form, int(max_steps), float(delta), float(decay))
+    return y_temp, Mty, theta_out, ps_out, trials
 
 
 # ------------------------------------------------------------ K3 residuals
@@ -967,6 +1065,88 @@ def sq_dist_batch(a, b):
     out = torch.empty(B, dtype=a.dtype, device=a.device)
     _launch(name, a.dtype, a.device, _ptr(a), _ptr(b), _ptr(out), B, n)
     return out
+
+
+def linesearch_loop_batch_plain(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old,
+                                tau, tau_old, theta, beta, active, p: int,
+                                m: int, delta: float, decay: float,
+                                max_steps: int):
+    ps = tau * torch.sqrt(1.0 + theta)
+    sqrt_beta = torch.sqrt(beta)
+    y_temp, Mty_t, theta_t = y, Mty, theta  # an inactive instance's values
+    trials = torch.zeros(active.shape, dtype=torch.int32, device=y.device)
+    done = ~active
+    for _ in range(max_steps):
+        th = ps / tau_old
+        yt, dy = ls_dual_update_batch(y, Mx, Mx_old, b, h, y_old, beta * ps,
+                                      th, p, m)
+        mt = M.rmatvec_batch(yt)
+        dM = sq_dist_batch(mt, Mty_old)
+        ok = sqrt_beta * ps * torch.sqrt(dM) <= delta * torch.sqrt(dy)
+        run = ~done  # an instance that accepted keeps that trial's values
+        theta_t = torch.where(run, th, theta_t)
+        y_temp = torch.where(run[:, None], yt, y_temp)
+        Mty_t = torch.where(run[:, None], mt, Mty_t)
+        ps = torch.where(run & ~ok, ps * decay, ps)
+        trials = trials + run.to(torch.int32)
+        done = done | ok
+        if not bool(torch.any(~done)):  # one host read a trial
+            break
+    return y_temp, Mty_t, theta_t, torch.where(active, ps, tau), trials
+
+
+def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
+                          tau_old, theta, beta, active, p: int, m: int,
+                          delta: float, decay: float, max_steps: int):
+    """``linesearch_loop`` for each instance of a batch (the vmapped
+    while_loop, parallel/batch.py:141) over the batch's shared ELL or
+    dense operator: rows (B, p + m) and (B, n), per-instance b, h and
+    scalars (B,), and ``active`` (B,) bool.  An active instance runs its
+    own trials; an inactive one runs none and keeps its values (y, Mty,
+    theta, tau).  Returns (y_temp, Mty, theta, ps, trials (B,) int32).  One
+    launch on the card; on the CPU the plain loop, one host read a
+    trial."""
+    name = "linesearch_loop_batch"
+    if y.dim() != 2 or Mty_old.dim() != 2:
+        raise ValueError(f"{name}: y and Mty_old must be 2-d")
+    B, rows = y.shape
+    n = Mty_old.shape[1]
+    if rows != p + m:
+        raise ValueError(f"{name}: y has {rows} columns, want p + m = {p + m}")
+    form, _, idx, vals, width = _rmatvec_form(name, M, rows, n)
+    if form == LS_COO:
+        raise TypeError(f"{name}: the COO operator is not supported in a batch")
+    for t, what in ((Mx, "Mx"), (Mx_old, "Mx_old"), (y_old, "y_old")):
+        _check_rows(name, t, B, rows, what)
+    _check_rows(name, b, B, p, "b")
+    _check_rows(name, h, B, m, "h")
+    _check_rows(name, Mty, B, n, "Mty")
+    for t, what in ((tau, "tau"), (tau_old, "tau_old"), (theta, "theta"),
+                    (beta, "beta"), (active, "active")):
+        _check_vec(name, t, B, what)
+    if active.dtype != torch.bool:
+        raise TypeError(f"{name}: active must be bool")
+    if max_steps < 1 or rows < 1:
+        raise ValueError(f"{name}: want max_steps >= 1 and rows, got "
+                         f"{max_steps} steps and {rows} rows")
+    if _on_cpu(name, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau, tau_old,
+               theta, beta, active, vals):
+        return linesearch_loop_batch_plain(M, y, Mx, Mx_old, b, h, y_old, Mty,
+                                           Mty_old, tau, tau_old, theta, beta,
+                                           active, p, m, delta, decay,
+                                           max_steps)
+    dev, dt = y.device, y.dtype
+    y_temp, Mty_out = torch.empty_like(y), torch.empty_like(Mty_old)
+    theta_out, ps_out = torch.empty_like(theta), torch.empty_like(tau)
+    trials = torch.empty(B, dtype=torch.int32, device=dev)
+    _launch(name, dt, dev, *map(_ptr, (y, Mx, Mx_old, b, h, y_old, Mty,
+                                       Mty_old, tau, tau_old, theta, beta,
+                                       active)),
+            None if idx is None else _ptr(idx), _ptr(vals),
+            *map(_ptr, (y_temp, Mty_out, theta_out, ps_out, trials)),
+            B, p, m, n, width, form, int(max_steps), float(delta),
+            float(decay))
+    return y_temp, Mty_out, theta_out, ps_out, trials
 
 
 def residuals_batch_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old,

@@ -45,6 +45,10 @@ class DenseOp(nn.Module):
     def rmatvec_batch(self, Y):
         return torch.matmul(Y, self.mat)
 
+    def rmatvec_tables(self):
+        """M' for the linesearch kernels: (form, ptr, idx, vals, width)."""
+        return kernels.LS_DENSE, None, None, self.mat, 0
+
 
 class EllOp(nn.Module):
     """ELLPACK operator; padding entries point at index 0 with value 0."""
@@ -78,6 +82,11 @@ class EllOp(nn.Module):
 
     def rmatvec_batch(self, Y):
         return kernels.ell_spmv_batch(self.col_rows, self.col_vals, Y)
+
+    def rmatvec_tables(self):
+        """M' for the linesearch kernels: (form, ptr, idx, vals, width)."""
+        return (kernels.LS_ELL, None, self.col_rows, self.col_vals,
+                self.col_rows.shape[1])
 
 
 def ell_tables(rows, cols, vals, nrows, ncols, max_width=32):
@@ -157,6 +166,10 @@ class CooOp(nn.Module):
     def rmatvec(self, y):
         return kernels.coo_spmv(self.col_ptr, self.col_idx, self.col_vals, y,
                                 self.col_seg)
+
+    def rmatvec_tables(self):
+        """M' for the linesearch kernels: (form, ptr, idx, vals, width)."""
+        return kernels.LS_COO, self.col_ptr, self.col_idx, self.col_vals, 0
 
 
 def build_linop(A, G, dtype: torch.dtype, *, device, force: str | None = None,

@@ -16,13 +16,12 @@ Here the instance axis is written out:
   batched Jacobi projection K9, K10 back) or, in the subspace mode,
   ``kernels.batched_subspace`` (the accept-always Rayleigh-Ritz step K12,
   one launch for the batch), the products K1's
-  batched entry point, the linesearch trials K2's;
+  batched entry point, the linesearch's trials one launch of K15b;
 * ``solver._residuals_and_gap`` (K3's batched entry point) and
   ``solver._control`` run on the batched state as they are;
 * ``run_chunk`` reads one flag pair per iteration (any / all instances
   active) and freezes the inactive instances with ``torch.where`` over
-  every field; a linesearch reads one "any active instance still
-  searching" flag per trial.  Nothing loops over instances on the host.
+  every field.  Nothing loops over instances on the host.
 
 Like the JAX driver this runs, under the default ``Options()``, an f32
 race with per-instance stall tracking, a hand-over to f64 that restarts
@@ -36,10 +35,13 @@ worst Ritz residual grew (``_reseed_batch``: an exact host eigh),
 escalates the bucket with the observed rank, or drops the batch to the
 eigh program when the rank outgrows ``side // 2``.
 
+An instance that ends with status 5 or 6 under ``certificate_search``
+goes through the single-instance ``solve``, warm-started from its batch
+iterate, for its ray search.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: ``mesh=`` (multi-GPU, B14); per-instance operators
-(``ell_batched`` / ``dense_batched``, A11o); the certificate re-entry of
-an instance that ends with status 5 or 6 (A4c).
+(``ell_batched`` / ``dense_batched``, A11o).
 """
 
 from __future__ import annotations
@@ -67,13 +69,13 @@ from ..solver import (
     _Budget,
     _cache_solution,
     _cast_state,
-    _col,
     _control,
     _ieee_f32_products,
     _residuals_and_gap,
     _sub_bucket,
     _unsupported,
     init_state,
+    solve,
 )
 
 
@@ -297,35 +299,14 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
 def _linesearch(s: State, o: Operands, layout: ConeLayout, opts: Options,
                 active: torch.Tensor):
     """Malitsky-Pock backtracking with per-instance trials (the vmapped
-    while_loop of solver.py:449-473): an instance that accepts keeps that
-    trial's values while the others go on.  The host reads one flag per
-    trial -- "an active instance is still searching"; the inactive ones
-    are frozen by the caller whatever they computed."""
-    p, m = layout.p, layout.m
-    ps = s.primal_step * torch.sqrt(1.0 + s.theta)
-    sqrt_beta = torch.sqrt(s.beta)
-    done = None
-    for _ in range(opts.max_linsearch_steps):
-        th = ps / s.primal_step_old
-        yt, dy = kernels.ls_dual_update_batch(
-            s.y, s.Mx, s.Mx_old, o.b, o.h, s.y_old, s.beta * ps, th, p, m)
-        mt = o.M.rmatvec_batch(yt)
-        dM = kernels.sq_dist_batch(mt, s.Mty_old)
-        ok = sqrt_beta * ps * torch.sqrt(dM) <= opts.delta * torch.sqrt(dy)
-        if done is None:
-            theta, y_temp, Mty = th, yt, mt
-            ps = torch.where(ok, ps, ps * opts.linsearch_decay)
-            done = ok
-        else:
-            run = ~done
-            theta = torch.where(run, th, theta)
-            y_temp = torch.where(_col(run), yt, y_temp)
-            Mty = torch.where(_col(run), mt, Mty)
-            ps = torch.where(run & ~ok, ps * opts.linsearch_decay, ps)
-            done = done | ok
-        if not bool(torch.any(active & ~done)):
-            break
-    return s.replace(y=y_temp, Mty=Mty, theta=theta, primal_step=ps,
+    while_loop of solver.py:449-473), every trial of every active instance
+    in one launch of kernel K15b (``kernels.linesearch_loop_batch``); an
+    inactive instance keeps its values (the caller freezes it anyway)."""
+    y, Mty, theta, ps, _ = kernels.linesearch_loop_batch(
+        o.M, s.y, s.Mx, s.Mx_old, o.b, o.h, s.y_old, s.Mty, s.Mty_old,
+        s.primal_step, s.primal_step_old, s.theta, s.beta, active, layout.p,
+        layout.m, opts.delta, opts.linsearch_decay, opts.max_linsearch_steps)
+    return s.replace(y=y, Mty=Mty, theta=theta, primal_step=ps,
                      primal_step_old=ps, dual_step=s.beta * ps)
 
 
@@ -628,11 +609,13 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
         st = int(states_np["status"][i])
         if st == 0:
             st = 3 if int(states_np["iter"][i]) >= budget.max_iter else 2
-        if st in (5, 6) and cert_opts.certificate_search:
-            _unsupported(f"the certificate search of instance {i} (status "
-                         f"{st}; pass certificate_search=False to return the "
-                         "declaration)", "A4c (batched certificate re-entry)")
-        results.append(_cache_solution(
+        res = _cache_solution(
             convert.index_state(states_np, i), setups[i], opts, t0,
-            status=st, status_string=STATUS_STRINGS[st], square_form=False))
+            status=st, status_string=STATUS_STRINGS[st], square_form=False)
+        if st in (5, 6) and cert_opts.certificate_search:
+            # the ray search of a declared instance (batch.py:591-604): the
+            # single-instance driver, warm-started from the batch iterate,
+            # re-declares and runs its certificate search
+            res = solve(problems[i], cert_opts, warm_start=res, device=device)
+        results.append(res)
     return results

@@ -11,9 +11,9 @@ iteration
    on K7/K8 with a polar or dense fallback, or Lanczos on K11), the SOC
    projection of every SOC block (kernel K13), then ``M x`` (kernel K1
    for ELL);
-2. ``_linesearch``: the Malitsky-Pock trials, each kernel K2, K1 on M'y and
-   the squared distance of K2's file; the host reads one accept flag per
-   trial, at most ``max_linsearch_steps`` of them;
+2. ``_linesearch``: the Malitsky-Pock trials (K2's dual update, M'y, the
+   accept test), at most ``max_linsearch_steps`` of them, all in one
+   launch of kernel K15;
 3. ``_residuals_and_gap``: kernel K3's nine f64 reductions, the scalar
    formulas in f64, a cast to the program's dtype at the ring writes;
 4. ``_control``: the branch-free scalar control with adaptive
@@ -24,7 +24,9 @@ The iteration is plain functions on a ``State`` dataclass of tensors.
 equilibration and the ``block_equilibration="auto"`` probe, warm starts,
 and under the default ``Options()`` the hybrid f32 race -> f64 polish with
 its subspace entries, watchdog and logging; ``hybrid_precision=False`` one
-program.  Anything outside the port raises ``NotImplementedError`` naming
+program; after a status 5 or 6 the certificate search (the ray search on
+the zeroed operands, its deadlines, the resume after a failed search and
+the demotion of an unproven declaration).  Anything outside the port raises ``NotImplementedError`` naming
 its ROADMAP item; nothing falls back.
 """
 
@@ -423,30 +425,14 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
 
 
 def _linesearch(s: State, o: Operands, layout: ConeLayout, opts: Options):
-    """Malitsky-Pock backtracking dual step (pdhg.jl:532-582).
-
-    The trial loop runs on the host: each trial is K2, K1 (M'y_temp) and
-    the squared distance, then one read of the accept flag."""
-    p, m = layout.p, layout.m
-    ps = s.primal_step * torch.sqrt(1.0 + s.theta)
-    sqrt_beta = torch.sqrt(s.beta)
-    theta = s.theta
-    y_temp = torch.zeros_like(s.y)
-    Mty = torch.zeros_like(s.Mty)
-    for _ in range(opts.max_linsearch_steps):
-        theta = ps / s.primal_step_old
-        bp = s.beta * ps
-        y_temp, dy = kernels.ls_dual_update(
-            s.y, s.Mx, s.Mx_old, o.b, o.h, s.y_old, bp, theta, p, m
-        )
-        Mty = o.M.rmatvec(y_temp)
-        dM = kernels.sq_dist(Mty, s.Mty_old)
-        ok = sqrt_beta * ps * torch.sqrt(dM) <= opts.delta * torch.sqrt(dy)
-        if bool(ok):
-            break
-        ps = ps * opts.linsearch_decay
+    """Malitsky-Pock backtracking dual step (pdhg.jl:532-582): every trial
+    in one launch of kernel K15 (``kernels.linesearch_loop``)."""
+    y, Mty, theta, ps, _ = kernels.linesearch_loop(
+        o.M, s.y, s.Mx, s.Mx_old, o.b, o.h, s.y_old, s.Mty_old,
+        s.primal_step, s.primal_step_old, s.theta, s.beta, layout.p, layout.m,
+        opts.delta, opts.linsearch_decay, opts.max_linsearch_steps)
     return s.replace(
-        y=y_temp,
+        y=y,
         Mty=Mty,
         theta=theta,
         primal_step=ps,
@@ -1130,8 +1116,12 @@ def solve(problem, options: Options | None = None, *, warm_start=None,
     the mixed-precision subspace step, which alone may declare OPTIMAL;
     ``hybrid_precision=False`` runs one program.  Also: the iteration and
     time limits, best-iterate tracking, the polish watchdog (guarded step
-    restart, subspace re-estimate), limit statuses, logging, the timer
-    report and solution recovery.  ``device`` defaults to the CUDA card;
+    restart, subspace re-estimate), limit statuses, the certificate
+    search after an INFEASIBLE (6) or UNBOUNDED (5) declaration (a status
+    5 or 6 comes back only with a ray, ``certificate_found``; an unproven
+    one is demoted to the limit status with "Suspected" in its string),
+    logging, the timer report and solution recovery.  ``device`` defaults
+    to the CUDA card;
     without one it raises (pass ``device="cpu"`` for the plain PyTorch
     path).  Library products run in IEEE f32 whatever the caller's
     float32 matmul precision.
@@ -1250,8 +1240,17 @@ def _solve(problem, options: Options | None, device, kwargs,
     log_next = opts.log_freq
     stall_window = max(3 * opts.convergence_window, 1500)
     hybrid_best = {"value": float("inf"), "since": 0}
-    # best iterate by max(gap, feas), snapshot at most every 2 s
-    best = {"score": float("inf"), "snap": None, "t": t0}
+    # best iterate by max(gap, feas), snapshot at most every 2 s: "snap"
+    # the fields _cache_solution reads, "full" every field (a failed
+    # certificate search resumes from it while "tag", the program that
+    # took it, is still the current one)
+    best = {"score": float("inf"), "snap": None, "full": None, "tag": None,
+            "t": t0}
+    # the certificate search (solver.py:1516-1523): "mode" the status being
+    # certified (0: none), "snapshot" the Result at the declaration,
+    # "resume" the host state before the search, "entries" the searches
+    # started (at most _MAX_CERT_SEARCHES)
+    cert = _no_search(0)
     tau0 = float(state.primal_step)
     timers = {"setup": time.time() - t0, "f32 loop": 0.0, "f64 loop": 0.0,
               "host sync": 0.0, "snapshot": 0.0, "finalize": 0.0}
@@ -1263,10 +1262,44 @@ def _solve(problem, options: Options | None, device, kwargs,
     final_status = None
     status_string = None
 
+    def take_snapshot(score):
+        t_snap = time.time()
+        best["t"] = t_snap
+        best["score"] = score
+        host = convert.state_to_numpy(state)
+        best["full"] = host
+        best["tag"] = (phase32, polish["k_sub"])
+        best["snap"] = {f: host[f] for f in _SNAP_FIELDS}
+        timers["snapshot"] += time.time() - t_snap
+
+    def enter_search(st, status_string):
+        # the declaration's Result and state are kept, then the ray search
+        # starts on the zeroed operands (solver.py:2195-2215, 2238-2254)
+        nonlocal operands, state
+        score_now = max(sc["gap"], sc["feas"])
+        if np.isfinite(score_now) and score_now < best["score"]:
+            take_snapshot(score_now)
+        host = convert.state_to_numpy(state)
+        cert["snapshot"] = _cache_solution(
+            host, setup_h, opts, t0, status=st, status_string=status_string,
+            exact_project=big_side, equil=equil)
+        cert["resume"] = host
+        operands, state = _enter_certificate_mode(st, operands, state, budget,
+                                                  opts)
+        cert["mode"] = st
+        cert["entries"] += 1
+        _set_cert_deadlines(cert, state, opts, k)
+        if opts.log_verbose:
+            print(f"  [cert] status {st} at iter {k}: ray search {cert['entries']}"
+                  f", checks from iter {int(state.cert_wait_until)}, deadlines "
+                  f"iter {cert['deadline_k']} and "
+                  f"{cert['deadline_t'] - time.time():.0f} s")
+
     while True:
         k0 = int(state.iter)
+        cap = budget.hard_cap if cert["mode"] else budget.max_iter
         step_n = 1 if (time.time() - t0) >= budget.time_limit else chunk
-        target = min(k0 + step_n, budget.max_iter)
+        target = min(k0 + step_n, cap)
         if not (target <= k0 and k0 > 0):
             target = max(target, k0 + 1)
             t_chunk = time.time()
@@ -1286,16 +1319,11 @@ def _solve(problem, options: Options | None, device, kwargs,
         k, st = sc["iter"], sc["status"]
         elapsed = time.time() - t0
 
-        if k > 0:
+        if not cert["mode"] and k > 0:
             score = max(sc["gap"], sc["feas"])
             if (np.isfinite(score) and score < 0.95 * best["score"]
                     and time.time() - best["t"] >= 2.0):
-                t_snap = time.time()
-                best["t"] = t_snap
-                best["score"] = score
-                host = convert.state_to_numpy(state)
-                best["snap"] = {f: host[f] for f in _SNAP_FIELDS}
-                timers["snapshot"] += time.time() - t_snap
+                take_snapshot(score)
 
         if opts.log_verbose and k >= log_next:
             dfeas = None
@@ -1386,11 +1414,13 @@ def _solve(problem, options: Options | None, device, kwargs,
                               f"(observed {r_obs})")
             continue
 
+        in_cert = cert["mode"] != 0
+
         # guarded-restart rollback: a step restart that blew the metric up
         # (or led to a 5/6 declaration) within one chunk is undone and
         # further restarts are suppressed (solver.py:1909-1944)
         g = polish["guard"]
-        if g is not None and k > g[2]:
+        if g is not None and not in_cert and k > g[2]:
             g_state, g_metric, _, g_k_sub = g
             polish["guard"] = None
             metric_now = max(sc["gap"], sc["feas"])
@@ -1408,7 +1438,7 @@ def _solve(problem, options: Options | None, device, kwargs,
                 continue
 
         # polish watchdog (solver.py:1946-2052)
-        if st == 0 and sc["gap"] > opts.tol_gap:
+        if not in_cert and st == 0 and sc["gap"] > opts.tol_gap:
             metric = max(sc["gap"], sc["feas"])
             if polish["since"] is None:
                 polish["since"] = k
@@ -1453,7 +1483,55 @@ def _solve(problem, options: Options | None, device, kwargs,
                                   f"subspace rank {k_cur} -> dense eigh "
                                   f"(pre-projection rank {r_obs})")
 
-        if st == 1:
+        # certificate-search monitoring (solver.py:2054-2150): a ray ends
+        # the search; a failed search (no ray by its deadline, or the
+        # modified problem converged) resumes the solve from the state
+        # before it while searches and budget remain, else demotes
+        if in_cert and (k >= int(state.cert_wait_until) or st == 7):
+            done, found = _check_certificate(sc, state, setup_h, opts,
+                                             cert["mode"], st)
+            ended_by = "a ray" if found else "its fail test" if done else ""
+            if not done and k >= cert["deadline_k"]:
+                done, ended_by = True, f"the iteration deadline {cert['deadline_k']}"
+            elif not done and time.time() >= cert["deadline_t"]:
+                done, ended_by = True, "the clock deadline"
+            if done or st == 1:
+                if opts.log_verbose:
+                    print(f"  [cert] search {cert['entries']} ended at iter {k}"
+                          f" by {ended_by or 'a solution of the modified problem'}")
+                if (not found and cert["resume"] is not None
+                        and cert["entries"] < _MAX_CERT_SEARCHES
+                        and k < budget.max_iter and elapsed < budget.time_limit):
+                    # resume from the best iterate when its program is the
+                    # current one, else from the declaration's state; the
+                    # stall detection stays off for a window
+                    rs = dict(best["full"] if best["full"] is not None
+                              and best["tag"] == (phase32, polish["k_sub"])
+                              else cert["resume"])
+                    rs.update(iter=np.int32(k), status=np.int32(0),
+                              cert_kind=np.int32(0),
+                              infeas_block_until=np.int32(k + 2 * stall_window))
+                    state = convert.state_from_numpy(rs, device)
+                    polish.update(since=k, best=best["score"], window_mult=2)
+                    operands = make_operands(dtype)
+                    cert = _no_search(cert["entries"])
+                    if opts.log_verbose:
+                        print("  [cert] no ray found: resuming the solve "
+                              "(detection suppressed until iter "
+                              f"{k + 2 * stall_window})")
+                    continue
+                cert["found"] = found
+                if found:
+                    final_status = cert["mode"]
+                    status_string = STATUS_STRINGS[final_status] + (
+                        " [Dual ray found]" if final_status == 6
+                        else " [Primal ray found]")
+                else:
+                    final_status, status_string = _unproven_status(
+                        budget, k, cert["mode"])
+                break
+
+        if st == 1 and not in_cert:
             if opts.check_dual_feas:
                 _, dfeas = _dual_cone(_user_duals(state, equil, setup_h),
                                       setup_h, setup_h.c_orig)
@@ -1469,26 +1547,44 @@ def _solve(problem, options: Options | None, device, kwargs,
             final_status = 1
             break
 
-        if st in (5, 6):
+        if st in (5, 6) and not in_cert:
             if opts.certificate_search:
-                _unsupported("the status 5/6 certificate search (pass "
-                             "certificate_search=False to return the "
-                             "declaration)", "A4 (certificates)")
+                if cert["entries"] >= _MAX_CERT_SEARCHES:
+                    # the searches are spent: the declaration stays unproven
+                    final_status, status_string = _unproven_status(budget, k,
+                                                                   st)
+                    break
+                enter_search(st, _declare_string(st, sc))
+                continue
             final_status = st
             status_string = _declare_string(st, sc)
             break
 
         if st == 0 and (k >= budget.max_iter or elapsed >= budget.time_limit):
+            if in_cert:  # the search's budget ran out without a ray
+                final_status, status_string = _unproven_status(
+                    budget, k, cert["mode"])
+                break
             lim_status, lim_string = _limit_status(sc, state, opts, budget, k,
                                                    elapsed)
             if lim_status in (5, 6) and opts.certificate_search:
-                _unsupported("the limit-time certificate search",
-                             "A4 (certificates)")
+                if cert["entries"] < _MAX_CERT_SEARCHES:
+                    enter_search(lim_status, lim_string)
+                    continue
+                # never an unproven INFEASIBLE / UNBOUNDED
+                final_status, status_string = _unproven_status(budget, k,
+                                                               lim_status)
+                break
             final_status, status_string = lim_status, lim_string
             if opts.warn_on_limit and lim_status in (2, 3):
                 print("    WARNING: "
                       + ("Iteration" if lim_status == 3 else "Time")
                       + " limit hit.")
+            break
+
+        if in_cert and (k >= budget.hard_cap or elapsed >= budget.time_limit):
+            final_status, status_string = _unproven_status(budget, k,
+                                                           cert["mode"])
             break
 
         if k >= budget.hard_cap:
@@ -1498,16 +1594,39 @@ def _solve(problem, options: Options | None, device, kwargs,
 
     fields = convert.state_to_numpy(state)
     total_k = int(fields["iter"])
-    if final_status in (2, 3, 4) and best["snap"] is not None:
-        cur = max(sc["gap"], sc["feas"])
-        if not np.isfinite(cur) or best["score"] < cur:
+    if cert["found"]:
+        # the ray: the search's iterate, its dual slack without c for an
+        # infeasibility certificate (solver.py:2284-2296)
+        res = _cache_solution(
+            fields, setup_h, opts, t0, status=final_status,
+            status_string=status_string, zero_c=final_status == 6,
+            certificate_found=True, exact_project=big_side, equil=equil)
+    elif cert["mode"]:
+        # no ray: the demoted limit status at the best iterate, which is
+        # at least as good as the declaration's snapshot (2297-2320)
+        if best["snap"] is not None:
             fields.update(best["snap"])
-    res = _cache_solution(
-        fields, setup_h, opts, t0, status=final_status,
-        status_string=status_string or STATUS_STRINGS[final_status],
-        exact_project=big_side, equil=equil,
-    )
-    res.iter = total_k
+            res = _cache_solution(
+                fields, setup_h, opts, t0, status=final_status,
+                status_string=status_string or cert["snapshot"].status_string,
+                exact_project=big_side, equil=equil)
+            res.iter = k
+        else:
+            res = cert["snapshot"]
+            res.status = final_status
+            res.status_string = status_string or res.status_string
+            res.time = time.time() - t0
+    else:
+        if final_status in (2, 3, 4) and best["snap"] is not None:
+            cur = max(sc["gap"], sc["feas"])
+            if not np.isfinite(cur) or best["score"] < cur:
+                fields.update(best["snap"])
+        res = _cache_solution(
+            fields, setup_h, opts, t0, status=final_status,
+            status_string=status_string or STATUS_STRINGS[final_status],
+            exact_project=big_side, equil=equil,
+        )
+        res.iter = total_k
     res = _annotate_limit_feas(res, setup_h, opts)
     timers["finalize"] = time.time() - t0 - sum(
         v for name, v in timers.items() if name != "finalize")
@@ -1577,6 +1696,103 @@ def _declare_string(st, sc):
     if st == 5:
         return f"Unbounded: |Primal objective| = {sc['prim_obj']:.3e} too large"
     return f"Infeasible: detected during iteration (dual objective {sc['dual_obj']:.3e})"
+
+
+# Certificate searches per solve (solver.py:2563-2569): a failed search
+# resumes the solve, so a declare -> search -> fail -> resume cycle is
+# capped; three searches cost about one extra solve.
+_MAX_CERT_SEARCHES = 3
+
+
+def _no_search(entries: int) -> dict:
+    """The certificate context outside a search, after ``entries``
+    searches."""
+    return {"snapshot": None, "mode": 0, "found": False, "resume": None,
+            "entries": entries}
+
+
+def _unproven_status(budget: _Budget, k: int, mode: int):
+    """An INFEASIBLE / UNBOUNDED declaration without a ray, demoted to the
+    limit status with the suspicion in the status string (solver.py:
+    2572-2590; the reference keeps 5/6 there, pdhg.jl:228-244)."""
+    lim = 3 if k >= budget.max_iter else 2
+    suspected = "infeasible" if mode == 6 else "unbounded"
+    return lim, (STATUS_STRINGS[lim]
+                 + f" [Suspected {suspected}: no certificate found]")
+
+
+def _enter_certificate_mode(st: int, o: Operands, state: State,
+                            budget: _Budget, opts: Options):
+    """(operands, state) of the ray search (solver.py:2611-2663, reference
+    pdhg.jl:639-676): c zeroed for an infeasibility declaration (6), b and
+    h for an unboundedness one (5); a side above 1e3 in max norm (a
+    blow-up declaration) scaled to 1, rays being directions; cert_kind and
+    the monitoring wait set; the budgets extended in place."""
+    if st == 6:
+        o = dataclasses.replace(o, c=torch.zeros_like(o.c))
+        names = ("y", "y_old", "Mty", "Mty_old", "avg_y", "avg_Mty")
+    else:
+        o = dataclasses.replace(o, b=torch.zeros_like(o.b),
+                                h=torch.zeros_like(o.h))
+        names = ("x", "x_old", "Mx", "Mx_old", "avg_x", "avg_Mx")
+    side = getattr(state, names[0])
+    scale = max(1.0, float(torch.max(torch.abs(side))))
+    if scale > 1e3:
+        inv = torch.tensor(1.0 / scale, dtype=side.dtype, device=side.device)
+        state = state.replace(**{f: getattr(state, f) * inv for f in names})
+    k = int(state.iter)
+    wait = k + 2 * opts.convergence_window + k // 5 + 1000
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=side.device)
+
+    state = state.replace(cert_kind=i32(st), cert_wait_until=i32(wait),
+                          status=i32(0))
+    budget.time_limit *= 1.1
+    # the reference's +10 % iterations, but at least the monitoring wait
+    # and a margin past it (a declaration at the iteration limit)
+    budget.max_iter = max(budget.max_iter + budget.max_iter // 10,
+                          wait + 2 * opts.convergence_window + 2000)
+    budget.hard_cap = max(budget.hard_cap, budget.max_iter + k)
+    return o, state
+
+
+def _set_cert_deadlines(cert: dict, state: State, opts: Options, k: int):
+    """One search's deadlines (solver.py:2664-2680): twice its monitoring
+    wait in iterations, and 10 % of the time limit clamped to [5, 600] s
+    (60 s without a finite limit); crossing either fails the search."""
+    wait = int(state.cert_wait_until)
+    cert["deadline_k"] = k + 2 * max(wait - k, 1)
+    span_t = 0.1 * opts.time_limit if np.isfinite(opts.time_limit) else 60.0
+    cert["deadline_t"] = time.time() + max(min(span_t, 600.0), 5.0)
+
+
+def _check_certificate(sc, state: State, setup_h: SetupProblem,
+                       opts: Options, mode: int, st: int = 0):
+    """(done, found) of the host's ray checks (solver.py:2681-2715,
+    reference pdhg.jl:184-244).  Mode 6: a dual ray, b'y above
+    certificate_obj_tol with the normalised y dual-feasible for c = 0;
+    mode 5: the device's primal-ray flag (status 7), or a primal objective
+    below -certificate_obj_tol with the feasibility per unit of it below
+    tol_feasibility.  A search whose objectives and feasibility fell below
+    -certificate_fail_tol, or whose residual is NaN, failed."""
+    if mode == 5 and st == 7:
+        return True, True
+    if mode == 6:
+        if sc["dual_obj"] > opts.certificate_obj_tol:
+            y = state.y.cpu().numpy().astype(np.float64) * setup_h.obj_scale
+            y_hat = y / max(sc["dual_obj"], 1.0)
+            _, dfeas = _dual_cone(y_hat, setup_h, 0.0 * setup_h.c_orig)
+            if dfeas < opts.tol_feasibility_dual:
+                return True, True
+    elif sc["prim_obj"] < -opts.certificate_obj_tol and (
+            sc["feas"] / max(abs(sc["prim_obj"]), 1.0) < opts.tol_feasibility):
+        return True, True
+    ft = opts.certificate_fail_tol
+    if (sc["prim_obj"] < -ft and sc["dual_obj"] < -ft and sc["feas"] < -ft) \
+            or np.isnan(sc["comb"]):
+        return True, False
+    return False, False
 
 
 def _limit_status(sc, state, opts: Options, budget: _Budget, k: int, elapsed: float):
@@ -1675,12 +1891,15 @@ def _annotate_limit_feas(res: Result, setup, opts: Options) -> Result:
 def _cache_solution(fields: dict, setup: SetupProblem, opts: Options, t0: float,
                     status: int, status_string: str,
                     exact_project: bool = False,
-                    square_form: bool = True, equil=None) -> Result:
+                    square_form: bool = True, equil=None,
+                    zero_c: bool = False,
+                    certificate_found: bool = False) -> Result:
     """Unscale, recover duals/slacks, build the Result (pdhg.jl:745-787;
     solver.py:2749-2883).  ``fields`` are host arrays of the square-form
     state (of the packed-triangle state with ``square_form=False``, the
     batch driver's); ``setup`` is the tri-space SetupProblem; ``equil``
-    the Equilibration to undo (x D, y E), or None."""
+    the Equilibration to undo (x D, y E), or None; ``zero_c`` takes the
+    dual slack without c (an infeasibility certificate's ray)."""
     layout = setup.layout
     k = int(fields["iter"])
     buf_gap = fields["buf_gap"]
@@ -1716,14 +1935,15 @@ def _cache_solution(fields: dict, setup: SetupProblem, opts: Options, t0: float,
 
     slack_eq = np.asarray(setup.A_orig @ x).ravel() - setup.b_orig
     slack_in = np.asarray(setup.G_orig @ x).ravel() - setup.h_orig
-    dual_cone, dual_feasibility = _dual_cone(y, setup, setup.c_orig)
+    dual_cone, dual_feasibility = _dual_cone(
+        y, setup, 0.0 * setup.c_orig if zero_c else setup.c_orig)
 
     vo = setup.var_ordering
     sense_mul = -1.0 if setup.objective_sense == "max" else 1.0
     objval = float(fields["buf_prim_obj"][i])
     dual_objval = float(fields["buf_dual_obj"][i])
     gap_out = float(buf_gap[i])
-    if exact_project:
+    if exact_project and not zero_c:
         objval = float(np.dot(setup.c_orig, x))
         gap_out = abs(objval - dual_objval) / max(abs(objval), 1.0)
 
@@ -1746,7 +1966,7 @@ def _cache_solution(fields: dict, setup: SetupProblem, opts: Options, t0: float,
         final_rank=int(np.sum(fields["current_rank"])),
         primal_feasible_user_tol=float(fields["buf_feas"][i]) <= opts.tol_feasibility,
         dual_feasible_user_tol=dual_feasibility <= opts.tol_feasibility_dual,
-        certificate_found=False,
+        certificate_found=certificate_found,
         result_count=1,
     )
 

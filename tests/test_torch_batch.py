@@ -172,7 +172,7 @@ def _scaled_rows():
 
 @pytest.mark.parametrize("case, item", [
     ("mesh", "B14"), ("per_instance_operators", "A11"), ("polar", "A11"), ("tp_shards", "A12"),
-    ("equilibration", "A6"), ("certificate", "A4c"), ("soc", "A7")])
+    ("equilibration", "A6"), ("soc", "A7")])
 def test_out_of_slice_raises(case, item):
     """Every mode outside the slice raises, naming its ROADMAP item."""
     problems, kw = _problems(tx, B=2), {}
@@ -186,9 +186,6 @@ def test_out_of_slice_raises(case, item):
         kw["options"] = tx.Options(tp_shards=2)
     elif case == "equilibration":
         kw["options"] = tx.Options(equilibration=True)
-    elif case == "certificate":
-        kw["options"] = tx.Options(max_obj=1.0, min_iter_max_obj=5,
-                                   hybrid_precision=False)
     elif case == "soc":
         opt = tx.Optimizer()
         s = opt.add_soc_var(3)

@@ -449,9 +449,11 @@ def test_solve_on_card_matches_cpu(cuda):
     assert got.status == want.status == 1
     assert abs(got.iter - want.iter) <= max(2, 0.02 * want.iter)
     assert abs(got.objval - want.objval) <= 1e-4 * (1 + abs(want.objval))
-    assert counts["ell_spmv"] >= 2 * got.iter
-    for name in ("ls_dual_update", "sq_dist", "residuals", "primal_update_sym"):
+    # K1 for M x; M' y runs inside K15, one launch an iteration
+    assert counts["ell_spmv"] >= got.iter
+    for name in ("linesearch_loop", "residuals", "primal_update_sym"):
         assert counts[name] >= got.iter, name
+    assert counts["ls_dual_update"] == counts["sq_dist"] == 0
 
 
 @pytest.mark.parametrize("how", ["set_float32_matmul_precision", "fp32_precision"])
@@ -914,3 +916,227 @@ def test_lanczos_solve_on_card_matches_cpu(cuda):
     assert fb_g == fb_w
     assert got[9] == want[9]  # target rank
     np.testing.assert_allclose(got[2:9], want[2:9], rtol=1e-8)
+
+
+# ---- K15 / K15b: the linesearch's trial loop in one launch, against the
+# K2 -> M' product -> sq_dist sequence it replaces (the plain loops on the
+# card launch those kernels and read one flag a trial)
+
+
+class _OrderedDense:
+    """A dense operator whose M' product adds the rows in order, a column
+    at a time -- K15's dense order -- in separate elementwise launches."""
+
+    def __init__(self, mat):
+        self.mat = mat
+        self.shape = tuple(mat.shape)
+
+    def rmatvec(self, y):
+        acc = self.mat[0] * y[0]
+        for r in range(1, self.mat.shape[0]):
+            acc = acc + self.mat[r] * y[r]
+        return acc
+
+    def rmatvec_batch(self, Y):
+        acc = self.mat[0][None, :] * Y[:, :1]
+        for r in range(1, self.mat.shape[0]):
+            acc = acc + self.mat[r][None, :] * Y[:, r : r + 1]
+        return acc
+
+
+def _ls_operator(form, dtype, device, rng):
+    """(operator for K15, operator for the sequence, p, m): max-cut at
+    side 50 (ELL), a random sparse 40 x 300 matrix with a dense row and
+    a dense column (COO), a dense 12 x 30 matrix with 4 inequality rows."""
+    from proxsdp_tpu_torch.ops.linop import CooOp, DenseOp
+
+    if form == "ell":
+        setup = to_square_form(preprocess(maxcut_problem(
+            random_graph_weights(0, 50))[0]))
+        M = build_linop(setup.A, setup.G, dtype, device=device)
+        return M, M, setup.layout.p, setup.layout.m
+    if form == "coo":
+        nr, nc = 40, 300
+        mask = rng.random((nr, nc)) < 0.05
+        mask[0, :] = True
+        mask[:, 7] = True
+        r, c = np.nonzero(mask)
+        M = CooOp(r, c, rng.standard_normal(r.size), nr, nc, dtype=dtype,
+                  device=device)
+        return M, M, 30, 10
+    mat = torch.tensor(rng.standard_normal((12, 30)), dtype=dtype,
+                       device=device)
+    return DenseOp(mat), _OrderedDense(mat), 8, 4
+
+
+LS_CASES = {  # (step scale, max_linsearch_steps, y non-finite)
+    "one": (0.05, 5000, False),
+    "several": (8.0, 5000, False),
+    "max_steps": (1e8, 4, False),
+    "nonfinite": (1.0, 6, True),
+}
+
+
+def _ls_state(rng, M, p, m, scale, nonfinite, dtype, device, B=None):
+    rows, n = p + m, M.shape[1]
+    lead = () if B is None else (B,)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    y = rng.standard_normal(lead + (rows,))
+    if nonfinite:
+        y[..., 0] = np.nan
+    y_old = rng.standard_normal(lead + (rows,))
+    st = dict(y=t(y), Mx=t(rng.standard_normal(lead + (rows,))),
+              Mx_old=t(rng.standard_normal(lead + (rows,))),
+              b=t(rng.standard_normal(lead + (p,))),
+              h=t(rng.standard_normal(lead + (m,))), y_old=t(y_old))
+    sc = scale if B is None else scale * np.exp(rng.uniform(-1, 1, B))
+    st.update(tau=t(sc), tau_old=t(0.9 * np.asarray(sc)),
+              theta=t(np.full(lead, 0.7) if B else 0.7),
+              beta=t(np.full(lead, 1.3) if B else 1.3))
+    st["Mty"] = t(rng.standard_normal(lead + (n,)))
+    return st
+
+
+def _equal_or_close(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    if dtype == torch.float64:  # bit for bit (NaN where NaN)
+        for g, w in zip(got, want):
+            if g.is_floating_point():
+                assert torch.equal(torch.isnan(g), torch.isnan(w))
+                g, w = torch.nan_to_num(g, 7.0), torch.nan_to_num(w, 7.0)
+            assert torch.equal(g, w)
+        return
+    for g, w in zip(got, want):  # K2's f32 bound
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+            continue
+        g, w = g.double().cpu(), w.double().cpu()
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        err = torch.where(same, torch.zeros_like(g), (g - w).abs()).max()
+        finite = w[torch.isfinite(w)]
+        scale = finite.abs().max().clamp_min(1e-30) if finite.numel() else 1.0
+        assert float(err / scale) <= 1e-7
+
+
+@pytest.mark.parametrize("case", list(LS_CASES))
+@pytest.mark.parametrize("form", ["ell", "coo", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_linesearch_loop_matches_sequence(cuda, dtype, form, case):
+    """K15 against K2 -> the product (K1, K14, the ordered dense sum) ->
+    sq_dist with one host read a trial: bit for bit in f64, within K2's
+    f32 bound in f32; one launch of K15 and none of the others."""
+    rng = np.random.default_rng(5)
+    scale, steps, nonfinite = LS_CASES[case]
+    M, M_seq, p, m = _ls_operator(form, dtype, cuda, rng)
+    st = _ls_state(rng, M, p, m, scale, nonfinite, dtype, cuda)
+    Mty_old = M_seq.rmatvec(st["y_old"]) + 1e-3 * st["Mty"]
+    args = (st["y"], st["Mx"], st["Mx_old"], st["b"], st["h"], st["y_old"],
+            Mty_old, st["tau"], st["tau_old"], st["theta"], st["beta"], p, m,
+            0.9999, 0.75, steps)
+    kernels.reset_launch_counts()
+    got = kernels.linesearch_loop(M, *args)
+    torch.cuda.synchronize()
+    counts = kernels.kernel_launches()
+    assert counts["linesearch_loop"] == 1 and sum(counts.values()) == 1
+    want = kernels.linesearch_loop_plain(M_seq, *args)
+    _equal_or_close(got, want, dtype)
+    trials = int(got[4])
+    if case == "one":
+        assert trials == 1
+    elif case == "several":
+        assert 2 < trials < steps
+    else:
+        assert trials == steps
+
+
+@pytest.mark.parametrize("B, side", [(1024, 16), (256, 40)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_linesearch_loop_batch_matches_sequence(cuda, dtype, B, side):
+    """K15b at phase D's and G1's shapes (the shared ELL operator of the
+    max-cut batch, per-instance step scales so that the instances take
+    one to ~20 trials, a third of them inactive) against the batched K2 ->
+    K1 -> sq_dist sequence: bit for bit in f64, within K2's f32 bound in
+    f32; inactive instances keep their values."""
+    from proxsdp_tpu_torch.parallel.batch import _batch_operands
+
+    rng = np.random.default_rng(side)
+    setups = [preprocess(maxcut_problem(random_graph_weights(s, side))[0])
+              for s in range(B)]
+    o = _batch_operands(setups, dtype, cuda, "auto")
+    p, m = setups[0].layout.p, setups[0].layout.m
+    st = _ls_state(rng, o.M, p, m, 2.0, False, dtype, cuda, B=B)
+    st["b"], st["h"] = o.b, o.h
+    Mty_old = o.M.rmatvec_batch(st["y_old"])
+    active = torch.tensor(rng.random(B) > 1 / 3, device=cuda)
+    args = (st["y"], st["Mx"], st["Mx_old"], st["b"], st["h"], st["y_old"],
+            st["Mty"], Mty_old, st["tau"], st["tau_old"], st["theta"],
+            st["beta"], active, p, m, 0.9999, 0.75, 5000)
+    kernels.reset_launch_counts()
+    got = kernels.linesearch_loop_batch(o.M, *args)
+    torch.cuda.synchronize()
+    counts = kernels.kernel_launches()
+    assert counts["linesearch_loop_batch"] == 1 and sum(counts.values()) == 1
+    want = kernels.linesearch_loop_batch_plain(o.M, *args)
+    _equal_or_close(got, want, dtype)
+    trials = got[4].cpu()
+    a = active.cpu()
+    assert int(trials[~a].abs().sum()) == 0
+    assert int(trials[a].min()) >= 1 and int(trials[a].max()) > 2
+    assert torch.equal(got[0][~active], st["y"][~active])
+    assert torch.equal(got[3][~active], st["tau"][~active])
+
+
+def test_linesearch_loop_batch_dense_matches_sequence(cuda):
+    """K15b over a shared dense operator against the ordered dense sum."""
+    rng = np.random.default_rng(9)
+    M, M_seq, p, m = _ls_operator("dense", torch.float64, cuda, rng)
+    B = 16
+    st = _ls_state(rng, M, p, m, 3.0, False, torch.float64, cuda, B=B)
+    Mty_old = M_seq.rmatvec_batch(st["y_old"])
+    active = torch.tensor(rng.random(B) > 0.25, device=cuda)
+    args = (st["y"], st["Mx"], st["Mx_old"], st["b"], st["h"], st["y_old"],
+            st["Mty"], Mty_old, st["tau"], st["tau_old"], st["theta"],
+            st["beta"], active, p, m, 0.9999, 0.75, 5000)
+    got = kernels.linesearch_loop_batch(M, *args)
+    want = kernels.linesearch_loop_batch_plain(M_seq, *args)
+    _equal_or_close(got, want, torch.float64)
+
+
+def test_solve_through_k15_equals_sequence(cuda, monkeypatch):
+    """A side-50 Options(hybrid_precision=False) solve on the card through
+    K15, and again with the linesearch as the K2 -> K1 -> sq_dist sequence
+    (one host read a trial): the same iterations, bit-equal iterates."""
+    problem, _ = maxcut_problem(random_graph_weights(0, 50))
+    opts = tx.Options(hybrid_precision=False)
+    kernels.reset_launch_counts()
+    got = tx.solve(problem, opts)
+    assert kernels.kernel_launches()["linesearch_loop"] >= got.iter
+    monkeypatch.setattr(kernels, "linesearch_loop",
+                        kernels.linesearch_loop_plain)
+    kernels.reset_launch_counts()
+    want = tx.solve(problem, opts)
+    counts = kernels.kernel_launches()
+    assert counts["linesearch_loop"] == 0 and counts["sq_dist"] >= want.iter
+    assert got.status == want.status == 1
+    assert got.iter == want.iter
+    for name in ("primal", "dual_eq", "dual_in", "dual_cone"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    assert got.objval == want.objval
+
+
+def test_linesearch_loop_rejects_bad_input(cuda):
+    rng = np.random.default_rng(1)
+    M, _, p, m = _ls_operator("dense", torch.float64, cuda, rng)
+    st = _ls_state(rng, M, p, m, 1.0, False, torch.float64, cuda)
+    args = [st["y"], st["Mx"], st["Mx_old"], st["b"], st["h"], st["y_old"],
+            st["Mty"], st["tau"], st["tau_old"], st["theta"], st["beta"], p,
+            m, 0.9999, 0.75]
+    with pytest.raises(ValueError, match="max_steps"):
+        kernels.linesearch_loop(M, *args, 0)
+    args[3] = st["b"].float()
+    with pytest.raises(TypeError):
+        kernels.linesearch_loop(M, *args, 10)

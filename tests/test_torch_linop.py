@@ -114,3 +114,32 @@ def test_auto_picks_coo_where_jax_does():
     _check_products(jop, top, 4)
     assert tlinop.build_linop(A, G, F64, device="cpu",
                               dense_limit=10**8).__class__.__name__ == "DenseOp"
+
+
+@pytest.mark.parametrize("force, form", [("dense", kernels.LS_DENSE),
+                                         ("ell", kernels.LS_ELL),
+                                         ("coo", kernels.LS_COO)])
+def test_rmatvec_tables_give_the_jax_rmatvec(force, form):
+    """The M' tables an operator hands the linesearch kernels (K15, K15b)
+    compute the JAX operator's M' y when summed as the kernels read
+    them: the dense matrix's columns, ELL's column rows and values, COO's
+    column segments."""
+    s = tp.jax_setup("maxcut30")
+    jop, top = _pair(s.A, s.G, force=force)
+    got_form, ptr, idx, vals, width = top.rmatvec_tables()
+    assert got_form == form
+    y = np.random.RandomState(5).randn(top.shape[0])
+    vals = vals.numpy()
+    if form == kernels.LS_DENSE:
+        assert ptr is None and idx is None and width == 0
+        mty = vals.T @ y
+    elif form == kernels.LS_ELL:
+        assert ptr is None and width == idx.shape[1]
+        mty = (vals * y[idx.numpy()]).sum(axis=1)
+    else:
+        assert width == 0 and ptr.shape[0] == top.shape[1] + 1
+        ptr, idx = ptr.numpy(), idx.numpy()
+        mty = np.array([np.dot(vals[a:b], y[idx[a:b]])
+                        for a, b in zip(ptr[:-1], ptr[1:])])
+    np.testing.assert_allclose(mty, np.asarray(jop.rmatvec(jnp.asarray(y))),
+                               rtol=1e-13, atol=1e-14)

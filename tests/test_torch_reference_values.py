@@ -36,6 +36,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -735,3 +736,81 @@ def test_phase_h_equilibrated_range_and_optimum():
         assert abs(got - want) <= 1e-9 * abs(want)
     assert out["Hopt"]["status"] == 1
     assert abs(out["Hopt"]["objval"] - k["H_OPT_OBJ"]) <= 1e-9 * abs(k["H_OPT_OBJ"])
+
+
+# chip_smoke.py's phase J references: the JAX package on one thread at
+# chunk_iters=256 with its clock frozen (the best-iterate snapshots and the
+# search's clock deadline read it), each solve also without the search
+# for the first declaration
+J_CHILD = r"""
+import json
+import proxsdp_tpu as jx
+from proxsdp_tpu import solver as jsolver
+from proxsdp_tpu.models.maxcut import maxcut_problem, random_graph_weights
+import chip_smoke as cs
+
+
+class _Frozen:
+    @staticmethod
+    def time():
+        return 0.0
+
+
+jsolver.time = _Frozen
+out = {}
+for tag, build, kw in (
+        ("J1", cs.j1_problem, dict(cs.J1_OPTS)),
+        ("J2", cs.j2_problem, dict(cs.J2_OPTS))):
+    prob = build(maxcut_problem, random_graph_weights)
+    d = jx.solve(prob, jx.Options(certificate_search=False, **kw))
+    r = jx.solve(prob, jx.Options(**kw))
+    out[tag] = dict(status=r.status, found=bool(r.certificate_found),
+                    string=r.status_string, decl=[d.status, d.iter],
+                    iters=r.iter, farkas=cs.farkas(r, prob))
+print(json.dumps(out))
+"""
+
+
+def _smoke_constant(name):
+    for node in ast.parse(SMOKE.read_text()).body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == name):
+            return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+def test_phase_j_problems_match_jax():
+    """Phase J's programs are the same arrays through both packages'
+    max-cut models (the JAX runs pin them, the card solves the port's)."""
+    import chip_smoke as cs
+    from proxsdp_tpu.models import maxcut as jm
+    from proxsdp_tpu_torch.models import maxcut as tm
+
+    for build in (cs.j1_problem, cs.j2_problem):
+        pj = build(jm.maxcut_problem, jm.random_graph_weights)
+        pt = build(tm.maxcut_problem, tm.random_graph_weights)
+        for name in ("c", "b", "h"):
+            np.testing.assert_array_equal(getattr(pj, name), getattr(pt, name))
+        assert (abs(pj.A - pt.A)).max() == 0 and pj.A.shape == pt.A.shape
+        assert pj.objective_sense == pt.objective_sense
+    probs = [tm.maxcut_problem(tm.random_graph_weights(s, 6))[0]
+             for s in range(max(cs.J_BAD) + 1)]
+    bad = cs.j3_problems(probs)
+    for i, (p, q) in enumerate(zip(probs, bad)):
+        assert (q.b[0] == -1.0) == (i in cs.J_BAD)
+        assert (abs(p.A - q.A)).max() == 0
+
+
+@pytest.mark.slow
+def test_phase_j_reference_values():
+    """chip_smoke.py's J1_REF and J2_REF re-derived (~2 minutes)."""
+    proc = subprocess.run([sys.executable, "-c", J_CHILD], cwd=ROOT,
+                          env={**os.environ, **ONE_THREAD},
+                          capture_output=True, text=True, timeout=1800)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for tag in ("J1", "J2"):
+        want = _smoke_constant(f"{tag}_REF")
+        g = got[tag]
+        assert g["farkas"] == pytest.approx(want.pop("farkas"), rel=1e-9)
+        assert {k: g[k] for k in want} == want, (tag, g)

@@ -84,8 +84,3 @@ def test_solve_matches_jax(name, kw):
         np.testing.assert_allclose(got.dual_eq, want.dual_eq, rtol=0, atol=1e-6)
     # on the CPU every kernel wrapper takes its plain version
     assert all(v == 0 for v in kernels.launch_counts.values())
-
-
-def test_certificate_search_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tx.solve(_tiny_infeasible(tx), tp.torch_opts(), device=tp.DEV)

@@ -64,7 +64,7 @@
    the batched K1-K4 at G1's and G2's shapes;
 8. phase G: solve_batch's subspace mode under Options(tol_gap=1e-4,
    tol_feasibility=1e-4) and projection "auto": G1, 256 max-cut
-   instances of side 40 (a first solve, then the counted warm one), G2,
+   instances of side 40 (one counted solve), G2,
    64 of side 100 (one solve).  Every status 1, each X within the
    solver's feasibility bound and PSD, the objectives against the exact
    optima within the JAX solve's own scatter; prints instances/s, each
@@ -102,14 +102,33 @@
    graph with X_00 free and rewarded (unbounded), at J2_OPTS; status,
    certificate_found and status string against the JAX package's runs
    (J1_REF, J2_REF), the declaration, the final iteration and the ray's
-   farkas() value printed beside them; J3, phase D's instances with two
-   of them infeasible through solve_batch: the others status 1, the two
+   farkas() value printed beside them; J3, phase D's instances with one
+   of them infeasible through solve_batch: the others status 1, that one
    status 6 with a ray after the batch's re-entry into solve.
 
    Phase B also holds K15 and K15b (the linesearch's trial loop) to the
    K2 -> product -> sq_dist sequence they replace, bit for bit in f64,
    at the shapes of phases A, C, D, G, H, I and J; K2 and sq_dist
    themselves are checked but on no path.
+12. phase K: per-instance operators in solve_batch and the API.  K1,
+   solve_batch of randsdp_problem(s, 40, 20, varbounds=False) for s < 64
+   ("dense_batched") at Options(tol_gap=1e-4, tol_feasibility=1e-4),
+   projection "eigh": every status 1, feasibility within the solver's
+   bound, PSD, randsdp's relative violation and the objectives beside
+   the optimum and the JAX batch of instances 0-7 (printed: C19); then
+   the f64 program of instances 0-7 for 300 iterations against the JAX
+   package's (1e-6).  K3, 64 max-cut instances whose diagonal rows carry
+   per-instance weights ("ell_batched"): status 1, feasibility, PSD,
+   instances 0-7 within 2e-4 (1 + |obj|) of the JAX batch.  K2, the API:
+   MIMO n = 100 and sensor localisation n = 100 through
+   Optimizer.optimize against the JAX runs (MIMO under the default
+   options to 3000 iterations, C18, and in the f64 program to status 1),
+   one solve_cone_program and one solve_sdp against known answers.
+
+   Phase B also holds phase K's kernels to their plain versions: K16
+   (the batched GEMV, both directions) at K1's (64, 20, 820) stack, K1b'
+   (a value stride) at K3's stacked ELL values bit for bit, K15b' over
+   K3's per-instance ELL and K1's per-instance dense M'.
 
     python3 chip_smoke.py --phase-h
 
@@ -117,6 +136,10 @@ builds the kernels and runs phase H alone, then the equilibrated arm's
 path of H1 with the arm capped at 10, 15, 20, 25 and 30 s (as the probe
 runs it when that arm wins on a slower or faster host), each answer held
 to H1's bound for that arm.
+
+    python3 chip_smoke.py --phase-k
+
+builds the kernels and runs phase K's phase-B rows and phase K alone.
 
 Each phase prints its wall time.  Any failed phase exits non-zero.  The
 last line is a JSON object with the device; the line before it lists the
@@ -222,6 +245,7 @@ LZE_REF_RESEEDS = 406
 # with the replay; tests/test_torch_reference_values.py keeps all of them
 # true.
 LZF_ITERS = 300
+LZF_SOLVE_ITERS = 100  # phase F's solve() through the iteration limit
 LZF_REF_ACCEPT = (
     "100000000000000000000000000000000000000000000000000000000000"
     "000000000000000000000000000000000000000000000000001111111111"
@@ -683,7 +707,9 @@ def build_conic_program(pkg, data: dict):
 # phase J: the certificate search at mcp124's side (SDPLIB's files are not
 # in the repo: random graphs of their shapes)
 J_SIDE = 124
-J_BAD = (3, 700)  # phase J3's infeasible instances (X_00 = -1)
+# phase J3's infeasible instance (X_00 = -1): one, since each re-entry
+# into solve takes ~25-35 s of the run's time
+J_BAD = (3,)
 
 
 def j1_problem(maxcut_problem, random_graph_weights):
@@ -716,11 +742,12 @@ def j2_problem(maxcut_problem, random_graph_weights):
         sdp_vars=problem.sdp_vars, objective_sense=problem.objective_sense)
 
 
-# J1's options: the JAX test's (hybrid_precision=False) at max_iter 5000,
+# J1's options: the JAX test's (hybrid_precision=False) at max_iter 2000,
 # not its 20,000 -- a side-124 f64 iteration takes 7.7 ms on the card
-# (launch-bound, ROADMAP B8), so its 25,632 iterations took 222 s; at 5000
-# the declaration still comes at the iteration limit (the limit-time path)
-J1_OPTS = dict(hybrid_precision=False, max_iter=5000, chunk_iters=256)
+# (launch-bound, ROADMAP B8), so its 25,632 iterations took 222 s; at 2000
+# the declaration still comes at the iteration limit (the limit-time
+# path), and the whole run stays inside its time
+J1_OPTS = dict(hybrid_precision=False, max_iter=2000, chunk_iters=256)
 # J2's options: the JAX conformance suite's infeas_opt knobs
 # (tests/test_conformance.py:33-47); at the defaults the 100 %-gap stall
 # that declares an unbounded SDP needs ~1e5-1e6 iterations
@@ -753,6 +780,92 @@ def farkas(res, problem) -> float:
         return float(np.dot(bh, y) / max(np.linalg.norm(y), 1e-300))
     x = res.primal
     return float(np.dot(problem.c, x) / max(np.linalg.norm(x), 1e-300))
+
+
+# phase K: per-instance operators in solve_batch and the API on the card.
+# K1 a randsdp sweep (dense A_k: "dense_batched"), K3 a max-cut sweep whose
+# diagonal rows carry per-instance weights (one pattern: "ell_batched"),
+# both at Options(tol_gap=1e-4, tol_feasibility=1e-4), projection "eigh".
+K1_SIZE, K1_SIDE, K1_ROWS = 64, 40, 20
+K3_SIZE, K3_SIDE = 64, 40
+# the JAX package's solve_batch of instances 0-7 of K1 and of K3 under the
+# same options (one CPU thread; tests/test_torch_reference_values.py
+# re-derives them, slow): statuses all 1
+K1_REF_OBJ = [261.17132528210976, 307.2981278408135, 292.07665619251867,
+              233.98145155829496, 341.98730920071716, 268.03817336382343,
+              583.0453599912692, 239.88813876941833]
+K1_REF_ITERS = [7619, 10058, 19307, 2670, 16574, 11344, 6187, 11813]
+K3_REF_OBJ = [72.76375332712261, 69.93610649084243, 77.66198958210019,
+              66.06956412877948, 66.39328895115288, 67.56914574196529,
+              65.71511650481064, 66.67022793203446]
+K3_REF_ITERS = [353, 339, 388, 274, 332, 380, 378, 187]
+K_OBJ_RTOL = 2e-4
+# randsdp's answers at 1e-4 tolerances do not pin the objective: its dense
+# A_k (entries ~10, b_k ~1e3) let a 1e-4 relative infeasibility move it
+# by percent, and where in that box a solve stops depends on its f32
+# race's rounding (ROADMAP C19).  The JAX package's own solves of
+# instances 0-7 lie up to 2.33e-2 (1 + |obj|) from the optimum
+# (K1_EXACT_OBJ: its f64 program at 1e-7 tolerances) in the hybrid mode
+# (K1_REF_OBJ) and 1.6e-2 in the f64 program; the port's CPU hybrid run
+# up to 1.95e-2, the card's 7.08e-2 (PERF.md).  So the
+# default sweep is held to status, feasibility and PSD, its objectives
+# printed beside the optimum and the JAX batch, and the like-mode check
+# is K1's f64 program: instances 0-7 for K1_F64_ITERS iterations, the
+# objective and ||x|| within 1e-6 relative of the JAX package's
+# (K1_F64_REF; the port's CPU run agrees to 6e-11).
+K1_EXACT_OBJ = [261.1705530574257, 307.28433608202124, 292.07716446981266,
+                228.63672150567578, 341.98563513516183, 268.03812287957504,
+                583.0440330403297, 239.88800938387803]
+K1_F64_ITERS = 300
+K1_F64_REF = {
+    "obj": [4615.220057550045, 7435.738825943252, 6267.703904380513,
+            5410.940466712292, 5295.253585391379, 7389.202902621326,
+            6696.068142044327, 5505.911410142615],
+    "xnorm": [688.6628999282582, 854.6454769751252, 866.7300276262781,
+              636.6193143759991, 701.846481305907, 695.7210282814125,
+              744.3761246229025, 559.6818629878279]}
+K1_F64_RTOL = 1e-6
+# K2: the smallest MIMO and sensor-localisation sizes of
+# benchmarks/applications.py:109-110 through Optimizer.optimize.  MIMO
+# n = 100 under the default options does not reach status 1 in the JAX
+# package: its hybrid solve stops at the iteration limit (1e6, status 3,
+# objective 0.034, 1226 s on one CPU thread; the TPU run of
+# benchmarks/results/tpu_queue_r5/mimo100_long_tpu.csv: 715,194
+# iterations, gap 0.133), while its f64 program (hybrid_precision=False)
+# reaches status 1 in 254 iterations at the optimum ~1e-5 (ROADMAP C18).
+# So K2 runs MIMO twice: under the default options to K2_MIMO_MAX_ITER
+# iterations (the API's default path; status and decode error against
+# the JAX run's; the objective, printed beside it, is that of the
+# best-iterate snapshot, taken at most every 2 s of wall time, so it moves
+# with the host's speed in either package), and in the f64 program to
+# status 1, against the JAX run's objective within K_OBJ_RTOL.
+K2_MIMO_N, K2_MIMO_MAX_ITER = 100, 3000
+K2_MIMO_REF = {"status": 3, "obj": 0.03030874766409397, "iter": 3000,
+               "gap": 0.012704258784651756, "decode": 0.0}
+K2_MIMO64_REF = {"status": 1, "obj": 9.952962778533468e-06, "iter": 254,
+                 "gap": 5.854201266358679e-06, "decode": 0.0}
+K2_SL_N = 100
+K2_SL_REF = {"status": 1, "iter": 1677, "pos_err": 0.0009424733177226924}
+
+
+def k3_problems(Optimizer, random_graph_weights, B=K3_SIZE, side=K3_SIDE):
+    """Max-cut relaxations whose row i reads d_i X_ii = d_i, d_i = 1 + the
+    weighted degree of vertex i (a degree-scaled constraint, as a model
+    whose rows carry their own units states it): the same feasible set and
+    optimum as the max-cut's, the same sparsity pattern in every
+    instance, per-instance values."""
+    problems = []
+    for s in range(B):
+        W = random_graph_weights(s, side)
+        d = 1.0 + np.abs(W).sum(axis=1)
+        opt = Optimizer()
+        X = opt.add_psd_var(side)
+        for i in range(side):
+            opt.add_eq_constraint({int(X[i, i]): float(d[i])}, float(d[i]))
+        opt.set_objective(opt.psd_inner_product_coeffs(X, 0.25 * W),
+                          sense="max")
+        problems.append(opt.build_problem())
+    return problems
 
 
 def fail(msg: str):
@@ -1070,11 +1183,15 @@ def linesearch_row(torch, kernels, out, M, p, m, sfx, dt, dev, rng, label,
 
 
 def linesearch_batch_row(torch, kernels, out, o, p, m, sfx, dt, dev, rng,
-                         label):
-    """Phase B row of K15b over the batch's shared operator o.M, every
+                         label, exact=True):
+    """Phase B row of K15b over the batch's operator o.M -- shared, or one
+    per instance (K15b': stacked ELL values or dense matrices) -- every
     instance active with its own step scale (1 to ~8 trials), against
-    the batched K2 -> K1 -> sq_dist sequence.  Bound: the inputs and the
-    shared tables read once, the outputs written once (as K15's)."""
+    the batched K2 -> M' product -> sq_dist sequence: bit for bit in f64
+    where ``exact`` (and within 1e-7 in f32), else the same trial counts
+    and RTOL (a dense M' whose plain product sums in another order).
+    Bound: the inputs and the tables read once, the outputs written once
+    (as K15's); flops per trial of an instance count its own table."""
     B, rows_ = o.b.shape[0], p + m
     n = o.M.shape[1]
 
@@ -1093,14 +1210,15 @@ def linesearch_batch_row(torch, kernels, out, o, p, m, sfx, dt, dev, rng,
     want = kernels.linesearch_loop_batch_plain(*args)
     trials = want[4].cpu().numpy()
     tables = _tables(o.M)
+    nnz = tables[2].numel() // (B if o.M.batched else 1)
     check_entry(torch, kernels, out, "linesearch_loop_batch", sfx,
                 "ls_loop.cu", "proxsdp_tpu/parallel/batch.py:141",
                 lambda f: f(*args), kernels.linesearch_loop_batch_plain,
                 [t for t in args if isinstance(t, torch.Tensor)] + tables,
-                want, int(trials.sum()) * (10 * rows_ + 2 * tables[2].numel()
-                                           + 3 * n),
-                compare_fn=_ls_compare(torch, sfx, label, True),
-                tol=0.0 if sfx == "f64" else 1e-7, label=label,
+                want, int(trials.sum()) * (10 * rows_ + 2 * nnz + 3 * n),
+                compare_fn=_ls_compare(torch, sfx, label, exact),
+                tol=(0.0 if sfx == "f64" else 1e-7) if exact else None,
+                label=label,
                 note=f" (trials {int(trials.min())}-{int(trials.max())}, "
                 f"mean {trials.mean():.2f}; library: none)")
     LAUNCH_US.append((f"linesearch_loop_batch_{sfx} ({label})",
@@ -1284,6 +1402,7 @@ def kernel_checks(torch, kernels, setup, rng, dev):
 
 
 EIGH_SIDES = (2, 10, 16, 31, 32, 33, 40, 64)
+EIGH_OFF_PATH_B = 128
 # K9 against torch.linalg.eigh: two backward-stable eigensolvers, whose
 # projections and eigenvalues differ by a few s * eps * ||X||; held
 # relative to the batch's largest entry, to EIGH_RTOL, and in f32 above
@@ -1356,14 +1475,19 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev, eigh_sides=EIGH_SIDES,
         for s in eigh_sides:
             if s > kernels.EIGH_MAX_SIDE[dt]:
                 continue
-            X = eigh_inputs(torch, rng, s, dt, dev, B)
+            # an off-path side is checked on at most EIGH_OFF_PATH_B
+            # matrices: cuSOLVER's batched eigh, the library row, takes
+            # ~0.5-0.9 s a call on 1024 of them above side 32
+            X = eigh_inputs(torch, rng, s, dt, dev,
+                            B if s == side else min(B, EIGH_OFF_PATH_B))
             # the function's work, whatever the algorithm: a symmetric
             # eigendecomposition with vectors ~9 s^3 (symmetric QR), the
             # reconstruction V diag(max(w, 0)) V^T ~1.5 s^3
-            flops = B * 10.5 * s ** 3
-            outs = (torch.empty_like(X), torch.empty(B, s, dtype=dt, device=dev),
-                    torch.empty(B, dtype=torch.int32, device=dev),
-                    torch.empty(B, s, dtype=dt, device=dev))
+            nb = X.shape[0]
+            flops = nb * 10.5 * s ** 3
+            outs = (torch.empty_like(X), torch.empty(nb, s, dtype=dt, device=dev),
+                    torch.empty(nb, dtype=torch.int32, device=dev),
+                    torch.empty(nb, s, dtype=dt, device=dev))
             on = s == side
             tol = EIGH_RTOL_F32_WIDE if sfx == "f32" and s > 118 else EIGH_RTOL[sfx]
             check_entry(
@@ -1637,7 +1761,7 @@ BATCH_DEVICE_FNS = {
 }
 
 
-def profile_steps(torch, kernels, setups, opts, steps=64, sub_k=0):
+def profile_steps(torch, kernels, setups, opts, steps=32, sub_k=0):
     """``steps`` iterations of the batch program of ``opts`` on the setups
     (after 8 warm-up ones; the subspace program at bucket ``sub_k`` when it
     is not 0) under torch.profiler: (CUDA kernels per
@@ -1692,22 +1816,18 @@ def profile_steps(torch, kernels, setups, opts, steps=64, sub_k=0):
 
 
 def phase_d(torch, kernels, smi, problems, setups, brows):
-    """Two solve_batch runs of the BATCH_SIZE side-16 max-cut instances at
-    Options(tol_gap=1e-4, tol_feasibility=1e-4): a first one, then the
-    timed warm one with the launch counts set to 0 just before it and read
-    just after.  Checks every status, the feasibility and PSD bounds per
-    instance and the objectives of instances 0-15; fills the launches of
-    the batch rows."""
+    """One solve_batch run of the BATCH_SIZE side-16 max-cut instances at
+    Options(tol_gap=1e-4, tol_feasibility=1e-4), timed, with the launch
+    counts set to 0 just before it and read just after (no warm-up
+    repeat: the run keeps within its time).  Checks every status,
+    the feasibility and PSD bounds per instance and the objectives of
+    instances 0-15; fills the launches of the batch rows."""
     from proxsdp_tpu_torch import Options, solve_batch
     from proxsdp_tpu_torch.parallel import batch as tbatch
 
     probs = [p for p, _ in problems]
     Xidx = problems[0][1]
     opts = Options(tol_gap=1e-4, tol_feasibility=1e-4)
-    t0 = time.perf_counter()
-    solve_batch(probs, opts)
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
     kernels.reset_launch_counts()
     stats = tbatch.BatchStats()
     t0 = time.perf_counter()
@@ -1728,8 +1848,8 @@ def phase_d(torch, kernels, smi, problems, setups, brows):
     obj_dev = np.abs(obj - ref) / (1.0 + np.abs(ref))
     f64_dev = np.abs(obj - BATCH_REF_OBJ) / (1.0 + np.abs(BATCH_REF_OBJ))
     print(f"phase D (solve_batch, B = {B}, side {BATCH_SIDE}, Options(tol_gap="
-          f"1e-4, tol_feasibility=1e-4)) on {smi}: warm solve {wall:.3f} s, "
-          f"{B / wall:.1f} instances/s (first solve {first:.3f} s); "
+          f"1e-4, tol_feasibility=1e-4)) on {smi}: solve {wall:.3f} s, "
+          f"{B / wall:.1f} instances/s; "
           f"statuses {dict(zip(*np.unique(status, return_counts=True)))}; "
           f"iterations min/median/max {iters.min()}/{int(np.median(iters))}/"
           f"{iters.max()}; f32 race {stats.race_iters} iterations "
@@ -1752,7 +1872,7 @@ def phase_d(torch, kernels, smi, problems, setups, brows):
         per_step, ours, busy, ms, per_launch = profile_steps(
             torch, kernels, setups, Options(dtype=dtype, hybrid_precision=False,
                                             tol_gap=1e-4, tol_feasibility=1e-4))
-        print(f"phase D profile ({label} program, 64 iterations of all "
+        print(f"phase D profile ({label} program, 32 iterations of all "
               f"{B} instances): {ms:.3f} ms/iteration, CUDA kernels per "
               f"iteration {'not measured' if per_step is None else f'{per_step:.1f}'}"
               f" (the port's own {ours:.1f}), device busy "
@@ -2225,7 +2345,7 @@ def phase_f(torch, kernels, smi, W):
     2000: LZF_ITERS iterations of the chunk runner's iteration from
     init_state with the launch counts set to 0 just before and read just
     after, against the JAX package's accept sequence and last iterate;
-    then solve(..., max_iter=LZF_ITERS), which must return status 3."""
+    then solve(..., max_iter=LZF_SOLVE_ITERS), which must return status 3."""
     from proxsdp_tpu_torch import Options, convert, solve
     from proxsdp_tpu_torch import solver as tsolver
     from proxsdp_tpu_torch.models.maxcut import maxcut_problem
@@ -2316,11 +2436,12 @@ def phase_f(torch, kernels, smi, W):
         check(int(got[9]) == int(ref[9]), "F: target_rank differs")
         check(rel["prim_obj"] <= 1e-4, f"F: objective differs by "
               f"{rel['prim_obj']:.3e} > 1e-4 after a rounding parting")
-    # the public entry point, through the iteration limit
+    # the public entry point, through the iteration limit (a shorter one
+    # than N, to keep the run within its time)
     t0 = time.perf_counter()
-    res = solve(problem, Options(hybrid_precision=False, max_iter=N))
+    res = solve(problem, Options(hybrid_precision=False, max_iter=LZF_SOLVE_ITERS))
     torch.cuda.synchronize()
-    print(f"phase F solve(max_iter={N}): status {res.status} iterations "
+    print(f"phase F solve(max_iter={LZF_SOLVE_ITERS}): status {res.status} iterations "
           f"{res.iter} objval {res.objval!r} gap {res.gap:.3e} wall "
           f"{time.perf_counter() - t0:.3f} s ({res.status_string})")
     check(res.status == 3, f"F: solve status {res.status}, want 3")
@@ -2428,7 +2549,7 @@ def phase_g(torch, kernels, smi, label, B, side, warm_first, ref):
             torch, kernels, setups, Options(dtype=dtype, hybrid_precision=False,
                                             tol_gap=1e-4, tol_feasibility=1e-4),
             sub_k=k)
-        print(f"phase {label} profile ({name} program, 64 iterations of all "
+        print(f"phase {label} profile ({name} program, 32 iterations of all "
               f"{B} instances): {ms:.3f} ms/iteration, CUDA kernels per "
               f"iteration {'not measured' if per_step is None else f'{per_step:.1f}'}"
               f" (the port's own {ours:.1f}), device busy "
@@ -2967,7 +3088,7 @@ def phase_i(torch, kernels, smi, dev=None):
 # the status, certificate_found and string, the first declaration (status,
 # iteration), the final iteration and the ray's farkas() value
 J1_REF = {"status": 6, "found": True, "string": "Infeasible [Dual ray found]",
-          "decl": [6, 5000], "iters": 7560, "farkas": -1.337860760838697}
+          "decl": [6, 2000], "iters": 4048, "farkas": -1.414189505095264}
 J2_REF = {"status": 5, "found": True, "string": "Unbounded [Primal ray found]",
           "decl": [5, 5745], "iters": 5746, "farkas": -1.28768498977866}
 # the first declaration's iteration: J1's f64 program declares at the
@@ -3015,7 +3136,7 @@ def j_kernel_checks(torch, kernels, rng, dev, bsetups):
 
 def phase_j(torch, kernels, smi, bproblems):
     """J1 (infeasible) and J2 (unbounded) at side 124 through ``solve``,
-    J3 (phase D's instances, two made infeasible) through ``solve_batch``;
+    J3 (phase D's instances, one made infeasible) through ``solve_batch``;
     (launches by entry point of each)."""
     from proxsdp_tpu_torch import Options, solve, solve_batch
     from proxsdp_tpu_torch.models.maxcut import (maxcut_problem,
@@ -3092,6 +3213,311 @@ def phase_j(torch, kernels, smi, bproblems):
     return entries
 
 
+def k_setups(torch):
+    """Phase K's sweeps: (K1 problems, K1 randsdp data, K3 problems, the
+    shared index matrix of a side-40 block)."""
+    from proxsdp_tpu_torch import Optimizer
+    from proxsdp_tpu_torch.models.maxcut import random_graph_weights
+    from proxsdp_tpu_torch.models.randsdp import randsdp_problem
+
+    built = [randsdp_problem(s, K1_SIDE, K1_ROWS, varbounds=False)
+             for s in range(K1_SIZE)]
+    k3 = k3_problems(Optimizer, random_graph_weights)
+    return ([b[0] for b in built], [b[2] for b in built], k3,
+            built[0][1])
+
+
+def k_kernel_checks(torch, kernels, rng, dev, k1, k3):
+    """Phase B rows of phase K: K16 (both directions) at K1's per-instance
+    dense operator, K1b' (K1's batched entry point with a value stride)
+    at K3's stacked ELL values, K15b' over K3's per-instance ELL (bit for
+    bit its plain loop in f64) and K1's per-instance dense M' (RTOL), in
+    f32 (the race) and f64; (rows on the path, K16's M' y row: the plain
+    loop's part, on the path only inside K15b')."""
+    from proxsdp_tpu_torch.parallel.batch import _batch_operands, operator_kind
+    from proxsdp_tpu_torch.problem import preprocess
+
+    rows, off_path = [], []
+    s1 = [preprocess(p) for p in k1]
+    s3 = [preprocess(p) for p in k3]
+    for sfx, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        o1 = _batch_operands(s1, dt, dev, "auto")
+        o3 = _batch_operands(s3, dt, dev, "auto")
+        check(operator_kind(o1.M) == "dense_batched"
+              and operator_kind(o3.M) == "ell_batched",
+              f"K: operators {operator_kind(o1.M)}, {operator_kind(o3.M)}")
+        M = o1.M.mat
+        B, R, n = M.shape
+        X = torch.tensor(rng.standard_normal((B, n)), dtype=dt, device=dev)
+        Y = torch.tensor(rng.standard_normal((B, R)), dtype=dt, device=dev)
+        label = f"K1: B = {B}, {R} x {n} per instance"
+        check_entry(torch, kernels, rows, "batched_gemv", sfx,
+                    "batched_gemv.cu", "proxsdp_tpu/ops/linop.py:44",
+                    lambda f: f(M, X), kernels.batched_gemv_plain, (M, X),
+                    (torch.empty(B, R, dtype=dt, device=dev),), 2 * B * R * n,
+                    library=lambda: torch.bmm(M, X.unsqueeze(-1)), label=label)
+        check_entry(torch, kernels, off_path, "batched_gemv_t", sfx,
+                    "batched_gemv.cu", "proxsdp_tpu/ops/linop.py:47",
+                    lambda f: f(M, Y), kernels.batched_gemv_t_plain, (M, Y),
+                    (torch.empty(B, n, dtype=dt, device=dev),), 2 * B * R * n,
+                    library=lambda: torch.bmm(Y.unsqueeze(1), M), label=label,
+                    note=" (M' y: on the path inside K15b')")
+        E = o3.M
+        B3, n3 = E.row_vals.shape[0], E.shape[1]
+        x3 = torch.tensor(rng.standard_normal((B3, n3)), dtype=dt, device=dev)
+        y3 = torch.tensor(rng.standard_normal((B3, E.shape[0])), dtype=dt,
+                          device=dev)
+        # library: none (no one PyTorch call multiplies B sparse matrices
+        # of one pattern, each by its own vector)
+        check_entry(torch, kernels, rows, "ell_spmv_batch", sfx, "ell_spmv.cu",
+                    "proxsdp_tpu/ops/linop.py:123",
+                    lambda f: (f(E.row_cols, E.row_vals, x3),
+                               f(E.col_rows, E.col_vals, y3)),
+                    kernels.ell_spmv_batch_plain,
+                    (E.row_cols, E.row_vals, x3, E.col_rows, E.col_vals, y3),
+                    (torch.empty(B3, E.shape[0], dtype=dt, device=dev),
+                     torch.empty(B3, n3, dtype=dt, device=dev)),
+                    2 * (E.row_vals.numel() + E.col_vals.numel()),
+                    tol=0.0, label=f"K3: B = {B3}, values per instance")
+        lay1, lay3 = s1[0].layout, s3[0].layout
+        linesearch_batch_row(torch, kernels, rows, o3, lay3.p, lay3.m, sfx, dt,
+                             dev, np.random.default_rng(12),
+                             f"K3: B = {B3}, ELL per instance")
+        linesearch_batch_row(torch, kernels, rows, o1, lay1.p, lay1.m, sfx, dt,
+                             dev, np.random.default_rng(13),
+                             f"K1: B = {B}, dense per instance", exact=False)
+    return rows, off_path
+
+
+def _rel_dev(got, want):
+    want = np.asarray(want)
+    return np.abs(np.asarray(got)[:len(want)] - want) / (1 + np.abs(want))
+
+
+def _optimizer_of(module, build, *args):
+    """(the Optimizer a model builder filled, what the builder returned):
+    the builders return the built problem only, and phase K2 solves
+    through Optimizer.optimize."""
+    made = []
+
+    class Kept(module.Optimizer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    original = module.Optimizer
+    module.Optimizer = Kept
+    try:
+        out = build(*args)
+    finally:
+        module.Optimizer = original
+    return made[0], out
+
+
+def phase_k(torch, kernels, smi, k1, k1_data, k3, Xidx):
+    """K1 (randsdp, dense_batched) and K3 (scaled max-cut, ell_batched):
+    solve_batch of 64 instances each; K2: the API on the card (MIMO and
+    sensor localisation through Optimizer.optimize, one solve_cone_program
+    and one solve_sdp).  Returns the launches by entry point and the
+    per-instance launches of each sweep."""
+    from proxsdp_tpu_torch import (ConeDims, Options, solve_batch,
+                                   solve_cone_program, solve_sdp)
+    from proxsdp_tpu_torch.models import mimo, sensorloc
+    from proxsdp_tpu_torch.models.randsdp import randsdp_eval
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+    from proxsdp_tpu_torch.problem import preprocess
+
+    out = {}
+    opts = Options(tol_gap=1e-4, tol_feasibility=1e-4)
+    for tag, probs, ref_obj, ref_iters, kind in (
+            ("K1", k1, K1_REF_OBJ, K1_REF_ITERS, "dense_batched"),
+            ("K3", k3, K3_REF_OBJ, K3_REF_ITERS, "ell_batched")):
+        setups = [preprocess(p) for p in probs]
+        stats = tbatch.BatchStats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve_batch(probs, opts, projection="eigh", stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[tag] = (dict(kernels.launch_counts),
+                    dict(kernels.per_instance_launches))
+        B = len(res)
+        status = np.array([r.status for r in res])
+        iters = np.array([r.iter for r in res])
+        X = np.stack([r.primal[Xidx] for r in res])
+        lam_min = np.linalg.eigvalsh(X)[:, 0]
+        fro = np.linalg.norm(X, axis=(1, 2))
+        # max |A x - b| against the solver's own bound (preprocess's rhs
+        # scale): the test it declares on
+        viol = np.array([np.abs(p.A @ r.primal - p.b).max()
+                         for p, r in zip(probs, res)])
+        bound = np.array([opts.tol_feasibility * (1 + s.norm_b) * s.rhs_scale
+                          for s in setups])
+        obj = np.array([r.objval for r in res])
+        ref = np.array(ref_obj)
+        dev = np.abs(obj[:len(ref)] - ref) / (1 + np.abs(ref))
+        extra = ""
+        if tag == "K1":
+            rel = np.array([max(abs(v) / (1 + abs(d[1][k]))
+                                for k, v in enumerate(randsdp_eval(
+                                    d[0], d[1], d[2], x)[3]))
+                            for d, x in zip(k1_data, X)])
+            exact = np.array(K1_EXACT_OBJ)
+            extra = (f"; vs the optimum: max {_rel_dev(obj, exact).max():.3e}"
+                     f" (the JAX batch's {_rel_dev(ref, exact).max():.3e}; "
+                     "C19: not held); randsdp's relative violation max_k "
+                     f"|<A_k, X> - b_k| / (1 + |b_k|): max {rel.max():.3e}, "
+                     f"median {np.median(rel):.3e}")
+        print(f"phase {tag} (solve_batch, B = {B}, {kind}, Options(tol_gap="
+              f"1e-4, tol_feasibility=1e-4), projection 'eigh') on {smi}: "
+              f"{wall:.3f} s, {B / wall:.2f} instances/s; f32 race "
+              f"{stats.race_iters} iterations ({stats.race_seconds:.3f} s), "
+              f"final phase {stats.final_seconds:.3f} s, program steps "
+              f"{stats.steps}; statuses "
+              f"{dict(zip(*np.unique(status, return_counts=True)))}; "
+              f"iterations min/median/max {iters.min()}/"
+              f"{int(np.median(iters))}/{iters.max()} (JAX, instances 0-7: "
+              f"{ref_iters})")
+        print(f"phase {tag} checks: max|A x - b| worst {viol.max():.3e} "
+              f"(its bound {bound[viol.argmax()]:.3e}), min over instances of "
+              f"lambda_min(X)/||X||_F {float((lam_min / fro).min()):.3e}; "
+              f"objectives of instances 0-{len(ref) - 1} vs the JAX batch "
+              f"solve: max |diff|/(1+|ref|) {dev.max():.3e}"
+              + (f" (bound {K_OBJ_RTOL:.0e})" if tag == "K3" else " (not held)")
+              + f", mean {dev.mean():.3e}" + extra)
+        print(f"phase {tag} objectives 0-{len(ref) - 1}: "
+              + json.dumps(obj[:len(ref)].tolist()))
+        print(f"phase {tag} launches: " + json.dumps(
+            {e: n for e, n in out[tag][0].items() if n})
+            + "; with per-instance operator values: "
+            + json.dumps(out[tag][1]))
+        check((status == 1).all(), f"{tag}: not every instance reached "
+              "status 1")
+        check((viol <= bound).all(), f"{tag}: max|A x - b| above the solver's"
+              f" bound for {int((viol > bound).sum())} instances")
+        check((lam_min >= -1e-6 * fro).all(),
+              f"{tag}: lambda_min(X) < -1e-6 ||X||_F for "
+              f"{int((lam_min < -1e-6 * fro).sum())} instances")
+        check(tag == "K1" or (dev <= K_OBJ_RTOL).all(),
+              f"{tag}: objectives of instances "
+              f"{np.nonzero(dev > K_OBJ_RTOL)[0].tolist()} differ from the "
+              f"JAX batch solve by more than {K_OBJ_RTOL} (1 + |obj|)")
+        for sfx in ("f32", "f64"):
+            check(out[tag][1][f"linesearch_loop_batch_{sfx}"] > 0,
+                  f"{tag}: K15b' launched no per-instance kernel in {sfx}")
+            check(out[tag][0]["batched_gemv_" + sfx] > 0 if tag == "K1" else
+                  out[tag][1][f"ell_spmv_batch_{sfx}"] > 0,
+                  f"{tag}: its operator's M x kernel not launched in {sfx}")
+
+    # ---- K1's f64 program, instances 0-7, against the JAX package's
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_batch(k1[:8], Options(tol_gap=1e-4, tol_feasibility=1e-4,
+                                      hybrid_precision=False,
+                                      max_iter=K1_F64_ITERS),
+                      projection="eigh")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.per_instance_launches)
+    got_obj = np.array([r.objval for r in res])
+    got_x = np.array([np.linalg.norm(r.primal) for r in res])
+    d_obj = np.abs(got_obj / np.array(K1_F64_REF["obj"]) - 1.0)
+    d_x = np.abs(got_x / np.array(K1_F64_REF["xnorm"]) - 1.0)
+    print(f"phase K1 f64 (instances 0-7, hybrid_precision=False, "
+          f"{K1_F64_ITERS} iterations) on {smi}: {wall:.2f} s; statuses "
+          f"{[r.status for r in res]}; objective vs the JAX f64 program: max "
+          f"relative {d_obj.max():.3e}, ||x|| {d_x.max():.3e} (bound "
+          f"{K1_F64_RTOL:.0e}); K15b' launches {launches}")
+    check(all(r.status == 3 and r.iter == K1_F64_ITERS for r in res),
+          "K1 f64: not at the iteration limit")
+    check(max(d_obj.max(), d_x.max()) <= K1_F64_RTOL,
+          "K1 f64: the f64 program parts from the JAX package's")
+    check(launches["linesearch_loop_batch_f64"] > 0, "K1 f64: no K15b'")
+
+    # ---- K2: the API on the card
+    kernels.reset_launch_counts()
+    t_k2 = time.perf_counter()
+    for label, kw, ref in (
+            ("MIMO default", dict(chunk_iters=256), K2_MIMO_REF),
+            ("MIMO f64", dict(chunk_iters=256, hybrid_precision=False),
+             K2_MIMO64_REF)):
+        opt, (problem, X_m, s_true) = _optimizer_of(
+            mimo, mimo.mimo_problem, 0, K2_MIMO_N)
+        t0 = time.perf_counter()
+        res = opt.optimize(max_iter=K2_MIMO_MAX_ITER, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        decode = float(mimo.mimo_eval(s_true, opt.get_psd_solution(X_m))[1])
+        diff = (opt.objective_value - ref["obj"]) / (1 + abs(ref["obj"]))
+        print(f"phase K2 {label} (mimo_problem(0, {K2_MIMO_N}), side "
+              f"{K2_MIMO_N + 1}, {problem.G.shape[0]} box rows, "
+              f"Options({', '.join(f'{k}={v}' for k, v in kw.items())}, "
+              f"max_iter={K2_MIMO_MAX_ITER})) on {smi}: {opt.termination_status}"
+              f" (status {res.status}, JAX {ref['status']}), objective "
+              f"{opt.objective_value!r} (JAX {ref['obj']!r}, diff/(1+|ref|) "
+              f"{diff:+.3e}), gap {res.gap:.3e} (JAX {ref['gap']:.3e}), "
+              f"decode error {decode} (JAX {ref['decode']}), "
+              f"{opt.pdhg_iterations} iterations in {wall:.2f} s "
+              f"({opt.pdhg_iterations / wall:.1f} iterations/s)")
+        check(res.status == ref["status"], f"K2 {label}: status {res.status}")
+        check(decode == ref["decode"], f"K2 {label}: decode error {decode}")
+        if not kw.get("hybrid_precision", True):
+            check(abs(diff) <= K_OBJ_RTOL, f"K2 {label}: objective {diff:+.3e}"
+                  " (relative) from the JAX run's")
+    opt, (problem, X_s, x_true) = _optimizer_of(
+        sensorloc, sensorloc.sensorloc_problem, 0, K2_SL_N)
+    t0 = time.perf_counter()
+    res = opt.optimize(chunk_iters=256)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    Xs = opt.get_psd_solution(X_s)
+    pos_err = float(np.sqrt(np.mean(np.sum((Xs[:2, 2:] - x_true) ** 2,
+                                           axis=0))))
+    setup = preprocess(problem)
+    viol = float(np.abs(problem.A @ res.primal - problem.b).max())
+    bound = opt.options.tol_feasibility * (1 + setup.norm_b) * setup.rhs_scale
+    lam = float(np.linalg.eigvalsh(Xs)[0])
+    print(f"phase K2 sensorloc (sensorloc_problem(0, {K2_SL_N}), side "
+          f"{K2_SL_N + 2}, {problem.A.shape[0]} rows, Options(chunk_iters=256))"
+          f" on {smi}: {opt.termination_status} (status {res.status}, JAX "
+          f"{K2_SL_REF['status']}) in {opt.pdhg_iterations} iterations (JAX "
+          f"{K2_SL_REF['iter']}), {wall:.2f} s; max|A x - b| {viol:.3e} (the "
+          f"solver's bound {bound:.3e}); position error {pos_err:.4e} (JAX "
+          f"{K2_SL_REF['pos_err']:.4e}); lambda_min(X) {lam:.3e}; primal "
+          f"{opt.primal_status}, dual {opt.dual_status}")
+    check(res.status == K2_SL_REF["status"], f"K2 sensorloc: status "
+          f"{res.status}")
+    check(viol <= bound, f"K2 sensorloc: max|A x - b| {viol} > {bound}")
+    check(lam >= -1e-6 * float(np.linalg.norm(Xs)),
+          f"K2 sensorloc: lambda_min(X) = {lam}")
+    # one solve_cone_program (the conformance battery's every-cone case,
+    # objective 5) and one solve_sdp (the minimum eigenvalue of [[2, 1],
+    # [1, 2]], 1)
+    sol = solve_cone_program(
+        np.array([1.0, 1.0, 0.0]),
+        np.array([[1.0, 0.0, -1.0], [0.0, -1.0, 0.0], [0.0, 0.0, -1.0],
+                  [0.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, 0.0],
+                  [0.0, 0.0, 0.0]]),
+        np.array([0.0, -2.0, 0.0, 3.0, 0.0, 0.0, 0.0]),
+        dims=ConeDims(z=1, l=1, q=(2,), s=(2,)))
+    Xe, r_sdp = solve_sdp([[2.0, 1.0], [1.0, 2.0]], As=[np.eye(2)], bs=[1.0])
+    print(f"phase K2 solve_cone_program: {sol.termination_status} objective "
+          f"{sol.objval!r} (known 5); solve_sdp: {r_sdp.termination_status} "
+          f"objective {r_sdp.objval!r} (known 1), tr X {np.trace(Xe):.6f}")
+    check(sol.status == 1 and abs(sol.objval - 5.0) <= 1e-4 + 1e-3 * 5.0,
+          f"K2 solve_cone_program: status {sol.status}, {sol.objval}")
+    check(r_sdp.status == 1 and abs(r_sdp.objval - 1.0) <= 1e-3,
+          f"K2 solve_sdp: status {r_sdp.status}, {r_sdp.objval}")
+    out["K2"] = (dict(kernels.launch_counts), dict(kernels.per_instance_launches))
+    print(f"phase K2: {time.perf_counter() - t_k2:.1f} s; launches: "
+          + json.dumps({e: n for e, n in out["K2"][0].items() if n}))
+    for name in ("ell_spmv", "linesearch_loop", "residuals",
+                 "primal_update_sym"):
+        check(out["K2"][0][f"{name}_f32"] > 0 and out["K2"][0][f"{name}_f64"] > 0,
+              f"K2: {name} launched no kernel")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3127,6 +3553,18 @@ def main() -> int:
     for line in build.BuildInfo.log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("  " + line.strip())
+
+    if "--phase-k" in sys.argv[1:]:
+        # phase K's kernel rows and phase K alone
+        t_phase = time.perf_counter()
+        k1, k1_data, k3, k_xidx = k_setups(torch)
+        krows, koff = k_kernel_checks(torch, kernels, np.random.default_rng(10),
+                                      torch.device("cuda"), k1, k3)
+        print(f"phase K rows: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        phase_k(torch, kernels, smi, k1, k1_data, k3, k_xidx)
+        print(f"phase K: {time.perf_counter() - t_phase:.1f} s")
+        return 0
 
     if "--phase-h" in sys.argv[1:]:
         # phase H alone, then the equilibrated arm's path at several caps
@@ -3210,6 +3648,9 @@ def main() -> int:
             side, ks, polish_k, rank, phase)
     jrows = j_kernel_checks(torch, kernels, np.random.default_rng(9),
                             torch.device("cuda"), bsetups)
+    k1, k1_data, k3, k_xidx = k_setups(torch)
+    krows, koff = k_kernel_checks(torch, kernels, np.random.default_rng(10),
+                                  torch.device("cuda"), k1, k3)
     print(f"phase B: {time.perf_counter() - t_phase:.1f} s (above side 1024 "
           f"{t_g - t_b:.1f} s, phase G's shapes {t_hi - t_g:.1f} s, phases H "
           f"and I's {time.perf_counter() - t_hi:.1f} s)")
@@ -3322,8 +3763,9 @@ def main() -> int:
     # the README's record and bench.py's batch sweep) and B = 64 at side
     # 100 (G2, SDPLIB mcp100's side)
     t_phase = time.perf_counter()
+    # one G1 solve (no warm-up repeat: the run keeps within its time)
     entries_g1, shapes_g1, _ = phase_g(torch, kernels, smi, "G1", G1_SIZE,
-                                       G1_SIDE, True, G1_REF)
+                                       G1_SIDE, False, G1_REF)
     print(f"phase G1: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     entries_g2, shapes_g2, _ = phase_g(torch, kernels, smi, "G2", G2_SIZE,
@@ -3387,6 +3829,24 @@ def main() -> int:
           "there: " + ", ".join(row["name"] for row in h_left + i_left + coff))
     print_shapes("phase H", shapes_h, crows["H"])
     print_shapes("phase I2", shapes_i2, crows["I"])
+    # ---- 10. phase K: per-instance operators in solve_batch (K1, K3) and
+    # the API on the card (K2)
+    t_phase = time.perf_counter()
+    entries_k = phase_k(torch, kernels, smi, k1, k1_data, k3, k_xidx)
+    print(f"phase K: {time.perf_counter() - t_phase:.1f} s")
+    for row in krows:
+        entry, tag = row["name"].split(" ")[0], row["name"].split("(")[1][:2]
+        counts, per_instance = entries_k[tag]
+        row["launches"] = (per_instance[entry] if entry in per_instance
+                           else counts[entry])
+        check(row["launches"] > 0, f"{row['name']} launched no kernel in {tag}")
+    rows += krows
+    print("kernels line: phase K's rows take the launches of their entry "
+          "point in K1 or K3 (K1b' and K15b': those over per-instance "
+          "values); checked against the plain version but on the path only "
+          "inside K15b' (and the fixed step): "
+          + ", ".join(row["name"] for row in koff))
+
     for label, fn, pattern in LAUNCH_US:
         us = device_us(torch, fn, pattern, calls=10)
         print(f"kernel {label}: device "
@@ -3398,7 +3858,8 @@ def main() -> int:
                - {n.replace("_f64", "").replace("_f32", "") for n in names})
     check(not missing, f"kernels line: no row of {sorted(missing)}")
 
-    print(f"phases A-J: {time.perf_counter() - t_start:.1f} s")
+    print(f"phases A-K: {time.perf_counter() - t_start:.1f} s")
+
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
-"""Problem-building part of the modeling API (``proxsdp_tpu/api.py:33-183``).
+"""The modeling API (``proxsdp_tpu/api.py``), the reference's MOI-wrapper
+equivalent.
 
 ``Optimizer`` builds a ``ConicProblem`` incrementally, with the same
 variable convention as MOI's PSDTriangle: the declared variables are the
 raw upper-triangle entries X_ij (column-major, i <= j), so a full-matrix
-inner product <A, X> contributes 2*A_ij on off-diagonal variables.  Solve
-the built problem with ``proxsdp_tpu_torch.solve(problem, options,
-device=...)``; ``optimize`` and ``solve_sdp`` are ROADMAP A9.
+inner product <A, X> contributes 2*A_ij on off-diagonal variables.
+``Optimizer.optimize`` solves the built problem and keeps the result for
+the MOI-style accessors; ``solve_sdp`` is the one-call standard-form SDP.
+Both solve on the CUDA card unless the caller passes ``device="cpu"``
+(the plain PyTorch path); ``device`` is not an ``Options`` field.
 """
 
 from __future__ import annotations
@@ -15,11 +18,13 @@ import scipy.sparse as sp
 
 from .options import Options
 from .problem import ConicProblem
+from .result import Result
+from .solver import solve
 from .utils.vech import sympackedlen, tri_ij
 
 
 class Optimizer:
-    """Incremental conic model builder."""
+    """Incremental conic model builder and solver (api.py:33-306)."""
 
     def __init__(self, options: Options | None = None, **kwargs):
         base = options or Options()
@@ -34,6 +39,8 @@ class Optimizer:
         self._obj: dict = {}
         self._sense = "min"
         self._obj_constant = 0.0
+        self._time_limit_set = False
+        self.result: Result | None = None
 
     def add_free_vars(self, k: int) -> np.ndarray:
         idx = np.arange(self._nvars, self._nvars + k)
@@ -135,3 +142,142 @@ class Optimizer:
             objective_sense=self._sense,
             objective_constant=self._obj_constant,
         )
+
+    def optimize(self, warm_start=None, *, device="cuda", **kwargs) -> Result:
+        """Solve on ``device`` (api.py:184-190); ``warm_start`` accepts a
+        previous Result (or (x, dual_eq, dual_in)) for the same model
+        geometry; keyword arguments are ``Options`` fields for this solve."""
+        opts = self.options.replace(**kwargs) if kwargs else self.options
+        self.result = solve(self.build_problem(), opts, warm_start=warm_start,
+                            device=device)
+        return self.result
+
+    # ---- result accessors, MOI-style (api.py:192-306; reference
+    # src/MOI_wrapper.jl:356-530)
+
+    def _solved(self) -> Result:
+        if self.result is None:
+            raise RuntimeError("call optimize() first")
+        return self.result
+
+    def get_psd_solution(self, Xidx: np.ndarray) -> np.ndarray:
+        """The solved PSD block as a dense symmetric matrix."""
+        return self._solved().primal[Xidx]
+
+    @property
+    def termination_status(self) -> str:
+        return self._solved().termination_status
+
+    @property
+    def objective_value(self) -> float:
+        return self._solved().objval
+
+    @property
+    def dual_objective_value(self) -> float:
+        return self._solved().dual_objval
+
+    @property
+    def solve_time_sec(self) -> float:
+        """MOI.SolveTimeSec (MOI_wrapper.jl:455-457)."""
+        return self._solved().time
+
+    @property
+    def raw_status_string(self) -> str:
+        """MOI.RawStatusString (MOI_wrapper.jl:459-461)."""
+        return self._solved().status_string
+
+    @property
+    def result_count(self) -> int:
+        """MOI.ResultCount (MOI_wrapper.jl:463-465)."""
+        return 0 if self.result is None else max(self.result.result_count, 1)
+
+    @property
+    def pdhg_iterations(self) -> int:
+        """ProxSDP.PDHGIterations (MOI_wrapper.jl:364-375)."""
+        return self._solved().iter
+
+    @property
+    def silent(self) -> bool:
+        """MOI.Silent: suppresses the banner and progress log."""
+        return not self.options.log_verbose
+
+    @silent.setter
+    def silent(self, value: bool):
+        self.options = self.options.replace(log_verbose=not value)
+
+    @property
+    def time_limit_sec(self) -> float | None:
+        """MOI.TimeLimitSec (seconds); None when unset (MOI_wrapper.jl:447-453)."""
+        if not self._time_limit_set:
+            return None
+        return self.options.time_limit
+
+    @time_limit_sec.setter
+    def time_limit_sec(self, value: float | None):
+        self._time_limit_set = value is not None
+        self.options = self.options.replace(
+            time_limit=360000.0 if value is None else float(value))
+
+    @property
+    def primal_status(self) -> str:
+        """MOI.PrimalStatus (MOI_wrapper.jl:413-425): FEASIBLE_POINT,
+        INFEASIBILITY_CERTIFICATE (unbounded with a primal ray) or
+        NO_SOLUTION."""
+        r = self.result
+        if r is None:
+            return "NO_SOLUTION"
+        if r.status == 5 and r.certificate_found:
+            return "INFEASIBILITY_CERTIFICATE"
+        if r.primal_feasible_user_tol:
+            return "FEASIBLE_POINT"
+        return "NO_SOLUTION" if r.status != 1 else "FEASIBLE_POINT"
+
+    @property
+    def dual_status(self) -> str:
+        """MOI.DualStatus (MOI_wrapper.jl:427-441): FEASIBLE_POINT,
+        INFEASIBILITY_CERTIFICATE (infeasible with a dual ray) or
+        NO_SOLUTION."""
+        r = self.result
+        if r is None:
+            return "NO_SOLUTION"
+        if r.status == 6 and r.certificate_found:
+            return "INFEASIBILITY_CERTIFICATE"
+        if r.dual_feasible_user_tol:
+            return "FEASIBLE_POINT"
+        return "NO_SOLUTION" if r.status != 1 else "FEASIBLE_POINT"
+
+    def get_eq_dual(self, row: int) -> float:
+        """Dual multiplier of the row-th equality (ConstraintDual of a
+        Zeros row, MOI_wrapper.jl:487-497)."""
+        return float(self._solved().dual_eq[row])
+
+    def get_ineq_dual(self, row: int) -> float:
+        """Dual multiplier of the row-th inequality."""
+        return float(self._solved().dual_in[row])
+
+    def get_eq_slack(self, row: int) -> float:
+        """A x - b of the row-th equality (ConstraintPrimal is b + slack)."""
+        return float(self._solved().slack_eq[row])
+
+    def get_ineq_slack(self, row: int) -> float:
+        return float(self._solved().slack_in[row])
+
+
+def solve_sdp(C, As=(), bs=(), Gs=(), hs=(), sense: str = "min",
+              options: Options | None = None, warm_start=None, *,
+              device="cuda", **kwargs) -> tuple[np.ndarray, Result]:
+    """Standard-form single-block SDP (api.py:309-336):
+
+        sense  <C, X>   s.t.  <A_i, X> = b_i,  <G_j, X> <= h_j,  X psd,
+
+    solved on ``device``.  Returns (X, result), X the dense solution."""
+    C = np.asarray(C, dtype=np.float64)
+    opt = Optimizer(options, **kwargs)
+    X = opt.add_psd_var(C.shape[0])
+    for A, b in zip(As, bs):
+        opt.add_eq_constraint(opt.psd_inner_product_coeffs(X, A), b)
+    for G, h in zip(Gs, hs):
+        opt.add_ineq_constraint(opt.psd_inner_product_coeffs(X, G), h)
+    opt.set_objective(opt.psd_inner_product_coeffs(X, C), sense=sense)
+    res = opt.optimize(warm_start=warm_start, device=device)
+    return opt.get_psd_solution(X), res

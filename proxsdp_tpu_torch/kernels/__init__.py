@@ -29,11 +29,17 @@ kernels.
 | batched_subspace   | ops/cones.py:427-510 accept-always subspace step |
 | tri_to_square      | ops/tri.py:39-44 (batched)                       |
 | square_to_tri      | ops/tri.py:47-52 (batched)                       |
+| batched_gemv(_t)   | ops/linop.py:44-48 DenseOp products, vmapped     |
 
 The batch driver (``parallel/batch.py``) runs K1, K3, K4 and the
 linesearch loop through their ``*_batch`` entry points: a leading instance
 axis on every vector, per-instance step scalars as (B,) tensors and
-per-instance b, h, c, one launch per batch.
+per-instance b, h, c, one launch per batch.  K1's and the linesearch
+loop's batched entry points take one operator for every instance or one
+per instance (stacked ELL values or dense matrices, a value stride in the
+kernel; ``per_instance_launches`` counts those launches apart), and
+``batched_gemv`` (K16) is the per-instance dense operator's M x
+(``batched_gemv_t`` its M' y, which the linesearch loop computes itself).
 
 The linesearch loop (K15, K15b) runs every trial of one iteration's
 Malitsky-Pock linesearch in one launch.  One trial's kernels, K2
@@ -65,16 +71,17 @@ from . import build
 from .build import KernelError
 
 # the single-instance solve's kernels, the batch driver's, and one
-# linesearch trial's (the plain loops' parts; K2 also the fixed step's)
+# linesearch trial's (the plain loops' parts; K2 and K16's M' y also the
+# fixed step's)
 SOLVE_KERNELS = ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym", "ns_gemm", "fro_scale", "sym",
                  "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov",
                  "soc_projection", "coo_spmv")
 BATCH_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch", "residuals_batch",
                  "primal_update_batch", "batched_psd_eigh", "tri_to_square",
-                 "square_to_tri", "batched_subspace")
+                 "square_to_tri", "batched_subspace", "batched_gemv")
 TRIAL_KERNELS = ("ls_dual_update", "sq_dist", "ls_dual_update_batch",
-                 "sq_dist_batch")
+                 "sq_dist_batch", "batched_gemv_t")
 KERNELS = SOLVE_KERNELS + BATCH_KERNELS + TRIAL_KERNELS
 
 _P = ctypes.c_void_p
@@ -85,7 +92,7 @@ _ARGTYPES = {
     "ls_dual_update": [_P] * 11 + [_I, _I, _P],
     "sq_dist": [_P, _P, _P, _P, _I, _P],
     "linesearch_loop": [_P] * 21 + [_I] * 6 + [_D, _D, _P],
-    "linesearch_loop_batch": [_P] * 20 + [_I] * 7 + [_D, _D, _P],
+    "linesearch_loop_batch": [_P] * 20 + [_I] * 8 + [_D, _D, _P],
     "residuals": [_P] * 18 + [_I] * 4 + [_P],
     "primal_update_sym": [_P] * 6 + [_I] * 3 + [_P],
     "soc_projection": [_P] * 3 + [_I] + [_P] * 3,
@@ -97,7 +104,7 @@ _ARGTYPES = {
     "cholqr": [_P, _P, _P, _I, _I, _D, _P],
     "ritz_accept": [_P] * 4 + [_I, _I, _D, _D, _I] + [_P] * 4,
     "lanczos_krylov": [_P] * 6 + [_I, _I, _D, _P],
-    "ell_spmv_batch": [_P] * 4 + [_I] * 4 + [_P],
+    "ell_spmv_batch": [_P] * 4 + [_I] * 5 + [_P],
     "ls_dual_update_batch": [_P] * 10 + [_I] * 3 + [_P],
     "sq_dist_batch": [_P] * 3 + [_I, _I, _P],
     "residuals_batch": [_P] * 14 + [_I] * 4 + [_P],
@@ -106,6 +113,8 @@ _ARGTYPES = {
     "tri_to_square": [_P] * 4 + [_I] * 3 + [_P],
     "square_to_tri": [_P] * 4 + [_I] * 3 + [_P],
     "batched_subspace": [_P, _I] + [_P] * 7 + [_I] * 3 + [_D] * 4 + [_P],
+    "batched_gemv": [_P] * 3 + [_I] * 3 + [_P],
+    "batched_gemv_t": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -127,12 +136,18 @@ launch_counts = {f"{name}_{sfx}": 0 for name in KERNELS
 # problem's), by dtype suffix; they also count in ``launch_counts``
 row_scale_launches = {sfx: 0 for sfx in _SUFFIX.values()}
 
+# the launches of K1's and the linesearch loop's batched entry points over
+# per-instance operator values (a value stride > 0), by entry point; they
+# also count in ``launch_counts``
+PER_INSTANCE_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch")
+per_instance_launches = {f"{name}_{sfx}": 0 for name in PER_INSTANCE_KERNELS
+                         for sfx in _SUFFIX.values()}
+
 
 def reset_launch_counts() -> None:
-    for entry in launch_counts:
-        launch_counts[entry] = 0
-    for sfx in row_scale_launches:
-        row_scale_launches[sfx] = 0
+    for counts in (launch_counts, row_scale_launches, per_instance_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def kernel_launches() -> dict[str, int]:
@@ -366,6 +381,9 @@ def linesearch_loop(M, y, Mx, Mx_old, b, h, y_old, Mty_old, tau, tau_old,
     read); on the CPU the plain loop, one host read a trial."""
     name = "linesearch_loop"
     rows, n = p + m, Mty_old.shape[0]
+    if M.batched:
+        raise ValueError(f"{name}: a per-instance operator (stacked values) "
+                         "needs linesearch_loop_batch")
     form, ptr, idx, vals, width = _rmatvec_form(name, M, rows, n)
     for t, what in ((y, "y"), (Mx, "Mx"), (Mx_old, "Mx_old"), (y_old, "y_old")):
         _check_vec(name, t, rows, what)
@@ -374,9 +392,9 @@ def linesearch_loop(M, y, Mx, Mx_old, b, h, y_old, Mty_old, tau, tau_old,
     for t, what in ((tau, "tau"), (tau_old, "tau_old"), (theta, "theta"),
                     (beta, "beta")):
         _check_scalar(name, t, what)
-    if max_steps < 1 or rows < 1:
-        raise ValueError(f"{name}: want max_steps >= 1 and rows, got "
-                         f"{max_steps} steps and {rows} rows")
+    if max_steps < 1 or (rows < 1 and form == LS_ELL):
+        raise ValueError(f"{name}: want max_steps >= 1 and an ELL operator "
+                         f"with rows, got {max_steps} steps and {rows} rows")
     if _on_cpu(name, y, Mx, Mx_old, b, h, y_old, Mty_old, tau, tau_old, theta,
                beta, vals):
         return linesearch_loop_plain(M, y, Mx, Mx_old, b, h, y_old, Mty_old,
@@ -996,23 +1014,40 @@ def _check_rows(name: str, t: torch.Tensor, B: int, n: int, what: str) -> None:
                          f"want ({B}, {n})")
 
 
+def _value_stride(name: str, vals: torch.Tensor, table: tuple, B: int) -> int:
+    """The per-instance value stride of an operator's values: 0 for one
+    operator's ``table``-shaped values, the product of ``table`` for a
+    (B, *table) stack of per-instance values."""
+    if tuple(vals.shape) == table:
+        return 0
+    if tuple(vals.shape) == (B, *table):
+        return math.prod(table)
+    raise ValueError(f"{name}: operator values of shape {tuple(vals.shape)}, "
+                     f"want {table} or {(B, *table)}")
+
+
 def ell_spmv_batch_plain(idx, vals, V):
     return torch.sum(vals * V[:, idx], dim=-1)
 
 
 def ell_spmv_batch(idx: torch.Tensor, vals: torch.Tensor, V: torch.Tensor):
-    """out[b, r] = sum_j vals[r, j] * V[b, idx[r, j]] for a (B, ncols) V."""
+    """out[b, r] = sum_j vals[r, j] * V[b, idx[r, j]] for a (B, ncols) V,
+    the (nrows, width) values shared by every instance; or, for stacked
+    (B, nrows, width) values, instance b's own vals[b, r, j] (K1b')."""
     name = "ell_spmv_batch"
-    if idx.dtype != torch.int32 or idx.dim() != 2 or vals.shape != idx.shape:
-        raise ValueError(f"{name}: want int32 idx and vals of one 2-d shape")
+    if idx.dtype != torch.int32 or idx.dim() != 2:
+        raise ValueError(f"{name}: want a 2-d int32 idx")
     if V.dim() != 2 or idx.shape[1] < 1:
         raise ValueError(f"{name}: bad V or table width")
+    vstride = _value_stride(name, vals, tuple(idx.shape), V.shape[0])
     if _on_cpu(name, idx, vals, V):
         return ell_spmv_batch_plain(idx, vals, V)
     (nrows, width), (B, ncols) = idx.shape, V.shape
     out = torch.empty((B, nrows), dtype=V.dtype, device=V.device)
     _launch(name, V.dtype, V.device, _ptr(idx), _ptr(vals), _ptr(V), _ptr(out),
-            B, nrows, width, ncols)
+            B, nrows, width, ncols, vstride)
+    if vstride:
+        per_instance_launches[f"{name}_{_SUFFIX[V.dtype]}"] += 1
     return out
 
 
@@ -1099,13 +1134,14 @@ def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
                           tau_old, theta, beta, active, p: int, m: int,
                           delta: float, decay: float, max_steps: int):
     """``linesearch_loop`` for each instance of a batch (the vmapped
-    while_loop, parallel/batch.py:141) over the batch's shared ELL or
-    dense operator: rows (B, p + m) and (B, n), per-instance b, h and
-    scalars (B,), and ``active`` (B,) bool.  An active instance runs its
-    own trials; an inactive one runs none and keeps its values (y, Mty,
-    theta, tau).  Returns (y_temp, Mty, theta, ps, trials (B,) int32).  One
-    launch on the card; on the CPU the plain loop, one host read a
-    trial."""
+    while_loop, parallel/batch.py:141) over the batch's ELL or dense
+    operator -- one shared by every instance, or one per instance (stacked
+    ELL values or (B, p + m, n) matrices: K15b') -- rows (B, p + m) and
+    (B, n), per-instance b, h and scalars (B,), and ``active`` (B,) bool.
+    An active instance runs its own trials; an inactive one runs none and
+    keeps its values (y, Mty, theta, tau).  Returns (y_temp, Mty, theta,
+    ps, trials (B,) int32).  One launch on the card; on the CPU the plain
+    loop, one host read a trial."""
     name = "linesearch_loop_batch"
     if y.dim() != 2 or Mty_old.dim() != 2:
         raise ValueError(f"{name}: y and Mty_old must be 2-d")
@@ -1116,6 +1152,8 @@ def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
     form, _, idx, vals, width = _rmatvec_form(name, M, rows, n)
     if form == LS_COO:
         raise TypeError(f"{name}: the COO operator is not supported in a batch")
+    vstride = _value_stride(name, vals, (n, width) if form == LS_ELL
+                            else (rows, n), B)
     for t, what in ((Mx, "Mx"), (Mx_old, "Mx_old"), (y_old, "y_old")):
         _check_rows(name, t, B, rows, what)
     _check_rows(name, b, B, p, "b")
@@ -1126,9 +1164,9 @@ def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
         _check_vec(name, t, B, what)
     if active.dtype != torch.bool:
         raise TypeError(f"{name}: active must be bool")
-    if max_steps < 1 or rows < 1:
-        raise ValueError(f"{name}: want max_steps >= 1 and rows, got "
-                         f"{max_steps} steps and {rows} rows")
+    if max_steps < 1 or (rows < 1 and form == LS_ELL):
+        raise ValueError(f"{name}: want max_steps >= 1 and an ELL operator "
+                         f"with rows, got {max_steps} steps and {rows} rows")
     if _on_cpu(name, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau, tau_old,
                theta, beta, active, vals):
         return linesearch_loop_batch_plain(M, y, Mx, Mx_old, b, h, y_old, Mty,
@@ -1144,8 +1182,10 @@ def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
                                        active)),
             None if idx is None else _ptr(idx), _ptr(vals),
             *map(_ptr, (y_temp, Mty_out, theta_out, ps_out, trials)),
-            B, p, m, n, width, form, int(max_steps), float(delta),
+            B, p, m, n, width, vstride, form, int(max_steps), float(delta),
             float(decay))
+    if vstride:
+        per_instance_launches[f"{name}_{_SUFFIX[dt]}"] += 1
     return y_temp, Mty_out, theta_out, ps_out, trials
 
 
@@ -1219,6 +1259,51 @@ def primal_update_batch(x, Mty, c, tau):
     out = torch.empty_like(x)
     _launch(name, x.dtype, x.device, _ptr(x), _ptr(Mty), _ptr(c), _ptr(tau),
             _ptr(out), B, n)
+    return out
+
+
+# ----------------------------- K16 batched GEMV (per-instance dense M)
+
+
+def batched_gemv_plain(M, X):
+    return torch.matmul(M, X.unsqueeze(-1)).squeeze(-1)
+
+
+def batched_gemv_t_plain(M, Y):
+    return torch.matmul(Y.unsqueeze(-2), M).squeeze(-2)
+
+
+def _check_gemv(name: str, M: torch.Tensor, V: torch.Tensor, k: int) -> None:
+    if M.dim() != 3:
+        raise ValueError(f"{name}: M must be (B, R, n), got {tuple(M.shape)}")
+    B, R, n = M.shape
+    _check_rows(name, V, B, (R, n)[k], "the vector")
+
+
+def batched_gemv(M: torch.Tensor, X: torch.Tensor):
+    """out[b, r] = sum_j M[b, r, j] X[b, j]: each instance's (R, n) matrix
+    times its own vector (the vmapped DenseOp.matvec of a
+    ``dense_batched`` sweep), as (B, R)."""
+    name = "batched_gemv"
+    _check_gemv(name, M, X, 1)
+    if _on_cpu(name, M, X):
+        return batched_gemv_plain(M, X)
+    B, R, n = M.shape
+    out = torch.empty((B, R), dtype=X.dtype, device=X.device)
+    _launch(name, X.dtype, X.device, _ptr(M), _ptr(X), _ptr(out), B, R, n)
+    return out
+
+
+def batched_gemv_t(M: torch.Tensor, Y: torch.Tensor):
+    """out[b, j] = sum_r M[b, r, j] Y[b, r] (the vmapped DenseOp.rmatvec),
+    as (B, n)."""
+    name = "batched_gemv_t"
+    _check_gemv(name, M, Y, 0)
+    if _on_cpu(name, M, Y):
+        return batched_gemv_t_plain(M, Y)
+    B, R, n = M.shape
+    out = torch.empty((B, n), dtype=Y.dtype, device=Y.device)
+    _launch(name, Y.dtype, Y.device, _ptr(M), _ptr(Y), _ptr(out), B, R, n)
     return out
 
 

@@ -61,10 +61,14 @@ extern "C" int proxsdp_ell_spmv_f32(const void* idx, const void* vals,
 }
 
 // ---- the batch driver's entry point (proxsdp_tpu/parallel/batch.py:141,
-// the vmapped EllOp product with one operator shared by every instance):
-// out[b, r] = sum_j vals[r, j] * v[b, idx[r, j]] for B rows of v, one
-// launch for the batch.  One thread per (instance, row), rows of one
-// instance on neighbouring threads, terms in column order as above.
+// the vmapped EllOp product): out[b, r] = sum_j vals[b, r, j] *
+// v[b, idx[r, j]] for B rows of v, one launch for the batch.  The index
+// tables are shared; the values are instance b's at vals + b * vstride:
+// vstride 0 for one operator shared by every instance (batch.py:133's
+// M = None axes), nrows * width for the stacked per-instance values of an
+// "ell_batched" sweep (EllOp(None, 0, None, 0), batch.py:133, 241-248).
+// One thread per (instance, row), rows of one instance on neighbouring
+// threads, terms in column order as above.
 namespace {
 
 template <typename T>
@@ -73,13 +77,13 @@ __global__ void ell_spmv_batch_kernel(const int32_t* __restrict__ idx,
                                       const T* __restrict__ v,
                                       T* __restrict__ out, int64_t total,
                                       int64_t nrows, int64_t width,
-                                      int64_t ncols) {
+                                      int64_t ncols, int64_t vstride) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < total; e += stride) {
     const int64_t b = e / nrows, r = e % nrows;
     const int32_t* ri = idx + r * width;
-    const T* rv = vals + r * width;
+    const T* rv = vals + b * vstride + r * width;
     const T* vb = v + b * ncols;
     T acc = rv[0] * vb[ri[0]];
     for (int64_t j = 1; j < width; ++j) acc += rv[j] * vb[ri[j]];
@@ -90,7 +94,7 @@ __global__ void ell_spmv_batch_kernel(const int32_t* __restrict__ idx,
 template <typename T>
 int launch_batch(const void* idx, const void* vals, const void* v, void* out,
                  int64_t B, int64_t nrows, int64_t width, int64_t ncols,
-                 void* stream) {
+                 int64_t vstride, void* stream) {
   const int64_t total = B * nrows;
   if (total > 0) {
     int64_t g = (total + proxsdp::kThreads - 1) / proxsdp::kThreads;
@@ -99,26 +103,29 @@ int launch_batch(const void* idx, const void* vals, const void* v, void* out,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(idx), static_cast<const T*>(vals),
         static_cast<const T*>(v), static_cast<T*>(out), total, nrows, width,
-        ncols);
+        ncols, vstride);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// v: (B, ncols); out: (B, nrows).
+// v: (B, ncols); out: (B, nrows); vals: (nrows, width) with vstride 0, or
+// (B, nrows, width) with vstride nrows * width.
 extern "C" int proxsdp_ell_spmv_batch_f64(const void* idx, const void* vals,
                                           const void* v, void* out, int64_t B,
                                           int64_t nrows, int64_t width,
-                                          int64_t ncols, void* stream) {
+                                          int64_t ncols, int64_t vstride,
+                                          void* stream) {
   return launch_batch<double>(idx, vals, v, out, B, nrows, width, ncols,
-                              stream);
+                              vstride, stream);
 }
 
 extern "C" int proxsdp_ell_spmv_batch_f32(const void* idx, const void* vals,
                                           const void* v, void* out, int64_t B,
                                           int64_t nrows, int64_t width,
-                                          int64_t ncols, void* stream) {
+                                          int64_t ncols, int64_t vstride,
+                                          void* stream) {
   return launch_batch<float>(idx, vals, v, out, B, nrows, width, ncols,
-                             stream);
+                             vstride, stream);
 }

@@ -44,8 +44,13 @@
 // bits and leaves the loop together.  Values written by another block in
 // this launch are read with ld.global.cg (L2, never a stale L1 line).
 //
-// K15b design: one block per instance of the batch (one operator shared by
-// all, ELL or dense), which runs that instance's trials alone: K2b's rows
+// K15b design: one block per instance of the batch, which runs that
+// instance's trials alone over its own M': the operator's values of
+// instance b start at vals + b * vstride -- vstride 0 for one operator
+// shared by every instance (ELL or dense), the (n, width) ELL values or
+// the (p + m, n) dense matrix of each instance for the per-instance
+// operators of an "ell_batched" / "dense_batched" sweep
+// (proxsdp_tpu/parallel/batch.py:129-136, 241-256).  K2b's rows
 // and K1b's products strided over the block's threads, each squared
 // distance folded by reduce.cuh's block tree (K2b's and sq_dist_batch's
 // order).  No grid barrier: the launch ends when the last instance has
@@ -102,7 +107,7 @@ __device__ __forceinline__ T dual_row(int64_t i, int64_t p, const T* y,
   return yh - bp * proj;
 }
 
-// (M' v)[j] for ELL (K1's order) or a dense M (rows in order)
+// (M' v)[j] for ELL (K1's order) or a dense M (rows in order, from 0)
 template <typename T, int F>
 __device__ __forceinline__ T product(int64_t j, const int32_t* idx,
                                      const T* vals, const T* v, int64_t rows,
@@ -114,8 +119,8 @@ __device__ __forceinline__ T product(int64_t j, const int32_t* idx,
     for (int64_t k = 1; k < width; ++k) acc += rv[k] * ld(v + ri[k]);
     return acc;
   }
-  T acc = vals[j] * ld(v);
-  for (int64_t r = 1; r < rows; ++r) acc += vals[r * n + j] * ld(v + r);
+  T acc = T(0);  // no row is read where there are none (p + m = 0)
+  for (int64_t r = 0; r < rows; ++r) acc += vals[r * n + j] * ld(v + r);
   return acc;
 }
 
@@ -313,8 +318,8 @@ ls_loop_batch_kernel(const T* __restrict__ y, const T* __restrict__ Mx,
                      const int32_t* __restrict__ idx,
                      const T* __restrict__ vals, T* y_temp, T* Mty,
                      T* theta_out, T* ps_out, int32_t* trials_out, int64_t p,
-                     int64_t m, int64_t n, int64_t width, T delta, T decay,
-                     int64_t max_steps) {
+                     int64_t m, int64_t n, int64_t width, int64_t vstride,
+                     T delta, T decay, int64_t max_steps) {
   const int64_t inst = blockIdx.x;
   const int t = threadIdx.x;
   const int64_t rows = p + m;
@@ -327,6 +332,7 @@ ls_loop_batch_kernel(const T* __restrict__ y, const T* __restrict__ Mx,
   const T* Mtyoi = Mty_old + inst * n;
   T* yti = y_temp + inst * rows;
   T* Mtyi = Mty + inst * n;
+  const T* valsi = vals + inst * vstride;
   if (!active[inst]) {  // no trial: the instance keeps its values
     for (int64_t i = t; i < rows; i += kThreads) yti[i] = yi[i];
     for (int64_t j = t; j < n; j += kThreads) Mtyi[j] = Mty_in[inst * n + j];
@@ -358,7 +364,7 @@ ls_loop_batch_kernel(const T* __restrict__ y, const T* __restrict__ Mx,
     const T dy = block_sum(acc);
     acc = T(0);
     for (int64_t j = t; j < n; j += kThreads) {
-      const T v = product<T, F>(j, idx, vals, yti, rows, n, width);
+      const T v = product<T, F>(j, idx, valsi, yti, rows, n, width);
       Mtyi[j] = v;
       const T d = v - Mtyoi[j];
       acc += d * d;
@@ -384,8 +390,8 @@ void launch_batch_form(const void* y, const void* Mx, const void* Mx_old,
                        const void* active, const void* idx, const void* vals,
                        void* y_temp, void* Mty, void* theta_out, void* ps_out,
                        void* trials, int64_t B, int64_t p, int64_t m,
-                       int64_t n, int64_t width, double delta, double decay,
-                       int64_t max_steps, cudaStream_t stream) {
+                       int64_t n, int64_t width, int64_t vstride, double delta,
+                       double decay, int64_t max_steps, cudaStream_t stream) {
   ls_loop_batch_kernel<T, F><<<static_cast<unsigned>(B), kThreads, 0,
                                stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(Mx),
@@ -398,7 +404,7 @@ void launch_batch_form(const void* y, const void* Mx, const void* Mx_old,
       static_cast<const T*>(vals), static_cast<T*>(y_temp),
       static_cast<T*>(Mty), static_cast<T*>(theta_out),
       static_cast<T*>(ps_out), static_cast<int32_t*>(trials), p, m, n, width,
-      static_cast<T>(delta), static_cast<T>(decay), max_steps);
+      vstride, static_cast<T>(delta), static_cast<T>(decay), max_steps);
 }
 
 template <typename T>
@@ -409,8 +415,9 @@ int launch_batch(const void* y, const void* Mx, const void* Mx_old,
                  const void* active, const void* idx, const void* vals,
                  void* y_temp, void* Mty, void* theta_out, void* ps_out,
                  void* trials, int64_t B, int64_t p, int64_t m, int64_t n,
-                 int64_t width, int64_t form, int64_t max_steps, double delta,
-                 double decay, void* stream) {
+                 int64_t width, int64_t vstride, int64_t form,
+                 int64_t max_steps, double delta, double decay,
+                 void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form != kEll && form != kDense)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -419,13 +426,14 @@ int launch_batch(const void* y, const void* Mx, const void* Mx_old,
       launch_batch_form<T, kEll>(y, Mx, Mx_old, b, h, y_old, Mty_in, Mty_old,
                                  tau, tau_old, theta, beta, active, idx, vals,
                                  y_temp, Mty, theta_out, ps_out, trials, B, p,
-                                 m, n, width, delta, decay, max_steps, s);
+                                 m, n, width, vstride, delta, decay, max_steps,
+                                 s);
     else
       launch_batch_form<T, kDense>(y, Mx, Mx_old, b, h, y_old, Mty_in,
                                    Mty_old, tau, tau_old, theta, beta, active,
                                    idx, vals, y_temp, Mty, theta_out, ps_out,
-                                   trials, B, p, m, n, width, delta, decay,
-                                   max_steps, s);
+                                   trials, B, p, m, n, width, vstride, delta,
+                                   decay, max_steps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -460,8 +468,10 @@ PROXSDP_LS_ENTRY(f32, float)
 // K15b.  Rows of B instances: y, Mx, Mx_old, y_old, y_temp (B, p + m); b
 // (B, p); h (B, m); Mty_in, Mty_old, Mty (B, n); tau, tau_old, theta, beta,
 // theta_out, ps_out (B,); active (B,) bool; trials (B,) int32.  form: 0
-// ELL (idx, vals: the shared (n, width) column tables) or 2 dense (vals:
-// the shared (p + m, n) matrix).  max_steps >= 1.
+// ELL (idx: the shared (n, width) column indices; vals: their values) or 2
+// dense (vals: the (p + m, n) matrix).  vals holds one operator's values
+// (vstride 0) or B of them, instance b's at vals + b * vstride.
+// max_steps >= 1.
 #define PROXSDP_LS_BATCH_ENTRY(SFX, T)                                       \
   extern "C" int proxsdp_linesearch_loop_batch_##SFX(                       \
       const void* y, const void* Mx, const void* Mx_old, const void* b,     \
@@ -470,13 +480,13 @@ PROXSDP_LS_ENTRY(f32, float)
       const void* theta, const void* beta, const void* active,              \
       const void* idx, const void* vals, void* y_temp, void* Mty,           \
       void* theta_out, void* ps_out, void* trials, int64_t B, int64_t p,    \
-      int64_t m, int64_t n, int64_t width, int64_t form, int64_t max_steps, \
-      double delta, double decay, void* stream) {                           \
+      int64_t m, int64_t n, int64_t width, int64_t vstride, int64_t form,   \
+      int64_t max_steps, double delta, double decay, void* stream) {        \
     return launch_batch<T>(y, Mx, Mx_old, b, h, y_old, Mty_in, Mty_old,     \
                            tau, tau_old, theta, beta, active, idx, vals,    \
                            y_temp, Mty, theta_out, ps_out, trials, B, p, m, \
-                           n, width, form, max_steps, delta, decay,         \
-                           stream);                                         \
+                           n, width, vstride, form, max_steps, delta,       \
+                           decay, stream);                                  \
   }
 PROXSDP_LS_BATCH_ENTRY(f64, double)
 PROXSDP_LS_BATCH_ENTRY(f32, float)

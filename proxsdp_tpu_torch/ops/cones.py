@@ -106,10 +106,16 @@ def _cholqr2(Y):
 
 def _eigh(A):
     """torch.linalg.eigh with jnp.linalg.eigh's semantics on a non-finite
-    input: NaN eigenpairs (torch raises there).  The test is on the
+    input, and where LAPACK's or cuSOLVER's iteration does not converge:
+    NaN eigenpairs (torch raises in both cases; the NaNs send the caller
+    to its fallback, as in the JAX package).  The finite test is on the
     device, so it costs no host sync."""
     ok = torch.all(torch.isfinite(A))
-    w, V = torch.linalg.eigh(torch.where(ok, A, torch.zeros_like(A)))
+    try:
+        w, V = torch.linalg.eigh(torch.where(ok, A, torch.zeros_like(A)))
+    except torch.linalg.LinAlgError:
+        return (torch.full(A.shape[:-1], torch.nan, dtype=A.dtype,
+                           device=A.device), torch.full_like(A, torch.nan))
     return torch.where(ok, w, torch.nan), torch.where(ok, V, torch.nan)
 
 

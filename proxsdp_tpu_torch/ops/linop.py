@@ -9,6 +9,15 @@
   both products are kernel K14 (``kernels.coo_spmv``), a gather and a
   segmented sum.
 
+A batch (``parallel/batch.py``) whose instances differ in [A; G] holds
+one operator per instance, as the JAX driver's vmapped ``DenseOp(0)`` and
+``EllOp(None, 0, None, 0)`` operands do (batch.py:129-136): a
+``DenseOp`` over a (B, p+m, n) stack, whose batched products are kernel
+K16 (``kernels.batched_gemv``, ``batched_gemv_t``), or an ``EllOp`` with
+shared index tables and stacked (B, rows, width) values, whose batched
+products are K1's batched entry point with a value stride.  Such an
+operator is ``batched``; it has no single-instance products.
+
 All are ``nn.Module``s holding their tables as buffers, so ``.to(device)``
 moves them.
 """
@@ -23,26 +32,47 @@ from torch import nn
 from .. import kernels
 
 
+def _single(op):
+    if op.batched:
+        raise ValueError("a per-instance operator has only batched products")
+
+
 class DenseOp(nn.Module):
+    """A dense (p+m, n) matrix, or a (B, p+m, n) stack of one per instance."""
+
     def __init__(self, mat: torch.Tensor):
         super().__init__()
-        self.register_buffer("mat", mat)
+        if mat.dim() not in (2, 3):
+            raise ValueError(f"dense operator of shape {tuple(mat.shape)}")
+        # the kernels read it row-major (a transposed host array arrives
+        # with column-major strides)
+        self.register_buffer("mat", mat.contiguous())
+
+    @property
+    def batched(self) -> bool:
+        return self.mat.dim() == 3
 
     @property
     def shape(self):
-        return tuple(self.mat.shape)
+        return tuple(self.mat.shape[-2:])
 
     def matvec(self, x):
+        _single(self)
         return torch.matmul(self.mat, x)
 
     def rmatvec(self, y):
+        _single(self)
         return torch.matmul(self.mat.T, y)
 
     def matvec_batch(self, X):
-        """M x for each row of the (B, n) X."""
+        """M x for each row of the (B, n) X (per instance: K16)."""
+        if self.batched:
+            return kernels.batched_gemv(self.mat, X)
         return torch.matmul(X, self.mat.T)
 
     def rmatvec_batch(self, Y):
+        if self.batched:
+            return kernels.batched_gemv_t(self.mat, Y)
         return torch.matmul(Y, self.mat)
 
     def rmatvec_tables(self):
@@ -51,7 +81,9 @@ class DenseOp(nn.Module):
 
 
 class EllOp(nn.Module):
-    """ELLPACK operator; padding entries point at index 0 with value 0."""
+    """ELLPACK operator; padding entries point at index 0 with value 0.  A
+    per-instance operator shares the index tables and stacks the values:
+    row_vals (B, nrows, r), col_vals (B, ncols, c)."""
 
     def __init__(self, row_cols, row_vals, col_rows, col_vals):
         super().__init__()
@@ -67,17 +99,24 @@ class EllOp(nn.Module):
         self.register_buffer("col_vals", col_vals)  # (ncols, c)
 
     @property
+    def batched(self) -> bool:
+        return self.row_vals.dim() == 3
+
+    @property
     def shape(self):
         return (self.row_cols.shape[0], self.col_rows.shape[0])
 
     def matvec(self, x):
+        _single(self)
         return kernels.ell_spmv(self.row_cols, self.row_vals, x)
 
     def rmatvec(self, y):
+        _single(self)
         return kernels.ell_spmv(self.col_rows, self.col_vals, y)
 
     def matvec_batch(self, X):
-        """M x for each row of the (B, n) X (K1's batched entry point)."""
+        """M x for each row of the (B, n) X (K1's batched entry point;
+        per instance, its value stride)."""
         return kernels.ell_spmv_batch(self.row_cols, self.row_vals, X)
 
     def rmatvec_batch(self, Y):
@@ -154,6 +193,8 @@ class CooOp(nn.Module):
                           ("col", table(cols, rows, ncols))):
             for name, buf in zip(("ptr", "idx", "vals", "seg"), t):
                 self.register_buffer(f"{prefix}_{name}", buf)
+
+    batched = False
 
     @property
     def shape(self):

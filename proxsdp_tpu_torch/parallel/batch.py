@@ -17,6 +17,11 @@ Here the instance axis is written out:
   ``kernels.batched_subspace`` (the accept-always Rayleigh-Ritz step K12,
   one launch for the batch), the products K1's
   batched entry point, the linesearch's trials one launch of K15b;
+* the operator is one shared by every instance or, where the instances'
+  [A; G] differ, one per instance (``_batch_operands``): stacked ELL
+  values over shared index tables (K1's and K15b's value stride) or a
+  (B, p+m, n) stack of dense matrices (K16 ``batched_gemv`` for M x,
+  K15b's own per-instance M' y);
 * ``solver._residuals_and_gap`` (K3's batched entry point) and
   ``solver._control`` run on the batched state as they are;
 * ``run_chunk`` reads one flag pair per iteration (any / all instances
@@ -39,9 +44,8 @@ An instance that ends with status 5 or 6 under ``certificate_search``
 goes through the single-instance ``solve``, warm-started from its batch
 iterate, for its ray search.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``mesh=`` (multi-GPU, B14); per-instance operators
-(``ell_batched`` / ``dense_batched``, A11o).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``mesh=`` (multi-GPU, B14).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ import torch
 
 from .. import convert, kernels
 from ..ops.cones import psd_projection_small_batch
-from ..ops.linop import build_linop
+from ..ops.linop import DenseOp, EllOp, build_linop
 from ..ops.tri import tri_len
 from ..options import Options
 from ..problem import ConeLayout, ConicProblem, preprocess
@@ -128,19 +132,43 @@ def _same_constraints(s0, s1) -> bool:
 
 
 def _batch_operands(setups, dt, device, linop: str) -> Operands:
-    """Operands of the sweep: one operator shared by every instance and
-    per-instance b, h, c (B, .) and norms (B,) (batch.py:219-270).
+    """Operands of the sweep (batch.py:219-270): the operator and
+    per-instance b, h, c (B, .) and norms (B,).  The operator follows the
+    JAX driver's rule (batch.py:227-256):
 
-    The shared operator is ELL whenever its tables build (``linop="auto"``):
-    a batched product is then one K1 launch that reads B * nnz values,
-    where the dense form reads the whole (p + m) x n matrix."""
-    if not all(_same_constraints(setups[0], s) for s in setups[1:]):
-        _unsupported("instances with different constraint matrices "
-                     "(per-instance operators, ell_batched / dense_batched)",
-                     "A11")
+    * "shared" when every instance has the same [A; G]: one operator;
+    * else "ell_batched" when every instance's operator builds ELL tables
+      and all their index tables are equal: the tables shared, the values
+      stacked, (B, rows, width);
+    * else "dense_batched": the (B, p+m, n) stack of dense matrices.
+
+    Which form an instance's operator takes is the port's own policy,
+    ELL first (``linop="auto"``: ELL whenever its rows and columns hold at
+    most 32 entries, so a shared batched product is one K1 launch that
+    reads B * nnz values, where the dense form reads the whole (p + m) x n
+    matrix); the JAX package's CPU policy (linop.py:278-330) builds ELL
+    only below density 0.02 on more than 2^16 entries, else dense.  So a
+    small sweep the JAX driver stacks dense may share ELL tables here: the
+    products round differently, the rule is the same.  ``linop="dense"``
+    gives the dense forms.  ``operator_kind`` names the result."""
+    force = "ell" if linop == "auto" else linop
     s0 = setups[0]
-    M = build_linop(s0.A, s0.G, dt, device=device,
-                    force="ell" if linop == "auto" else linop)
+    if all(_same_constraints(s0, s) for s in setups[1:]):
+        M = build_linop(s0.A, s0.G, dt, device=device, force=force)
+    else:
+        # each instance's operator on the host, then the stack on device
+        ops = [build_linop(s.A, s.G, dt, device="cpu", force=force)
+               for s in setups]
+        o0 = ops[0]
+        if all(isinstance(o, EllOp) and torch.equal(o.row_cols, o0.row_cols)
+               and torch.equal(o.col_rows, o0.col_rows) for o in ops):
+            M = EllOp(o0.row_cols, torch.stack([o.row_vals for o in ops]),
+                      o0.col_rows, torch.stack([o.col_vals for o in ops]))
+        else:
+            M = DenseOp(torch.stack([
+                build_linop(s.A, s.G, dt, device="cpu", force="dense").mat
+                for s in setups]))
+        M = M.to(device)
 
     def rows(name):
         return torch.tensor(np.stack([np.asarray(getattr(s, name), np.float64)
@@ -157,6 +185,14 @@ def _batch_operands(setups, dt, device, linop: str) -> Operands:
         norm_c=scalars([s.norm_c for s in setups]),
         obj_scale=scalars([s.obj_scale * s.rhs_scale for s in setups]),
     )
+
+
+def operator_kind(M) -> str:
+    """The JAX driver's m_kind of a batch operator: "shared",
+    "ell_batched" or "dense_batched"."""
+    if not M.batched:
+        return "shared"
+    return "ell_batched" if isinstance(M, EllOp) else "dense_batched"
 
 
 def _stack_states(layout, opts, setups, device) -> State:

@@ -143,3 +143,36 @@ def assert_states_close(got: dict, want: dict, rtol=1e-9, atol=1e-11,
             np.testing.assert_array_equal(g, w, err_msg=name)
         else:
             np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=name)
+
+
+# A small SDPA-sparse instance (a 2x2 block and a 2-entry diagonal block,
+# two constraints; leading comments, braces and commas as SDPLIB writes
+# them):
+# max 2 X11 + X12 + X22 + x_a + x_b s.t. X11 + x_a = 1, X12 + X22 + x_b = 2,
+# optimum 4 (the reader negates F0: objective -4).
+SDPA_TEXT = """\
+"a small instance for the parser tests
+* a comment line
+2
+2
+{2, -2}
+{1.0, 2.0}
+0 1 1 1 2.0
+0 1 1 2 0.5
+0 1 2 2 1.0
+0 2 1 1 1.0
+0 2 2 2 1.0
+1 1 1 1 1.0
+1 2 1 1 1.0
+2 1 1 2 0.5
+2 1 2 2 1.0
+2 2 2 2 1.0
+"""
+
+
+def write_sdpa(directory) -> str:
+    """Write SDPA_TEXT as ``small.dat-s`` in ``directory``; its path."""
+    path = f"{directory}/small.dat-s"
+    with open(path, "w") as f:
+        f.write(SDPA_TEXT)
+    return path

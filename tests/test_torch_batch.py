@@ -171,15 +171,13 @@ def _scaled_rows():
 
 
 @pytest.mark.parametrize("case, item", [
-    ("mesh", "B14"), ("per_instance_operators", "A11"), ("polar", "A11"), ("tp_shards", "A12"),
+    ("mesh", "B14"), ("polar", "A11"), ("tp_shards", "A12"),
     ("equilibration", "A6"), ("soc", "A7")])
 def test_out_of_slice_raises(case, item):
     """Every mode outside the slice raises, naming its ROADMAP item."""
     problems, kw = _problems(tx, B=2), {}
     if case == "mesh":
         kw["mesh"] = object()
-    elif case == "per_instance_operators":
-        problems = [problems[0], _scaled_rows()]
     elif case == "polar":
         kw["options"] = tx.Options(projection="polar")
     elif case == "tp_shards":
@@ -194,6 +192,23 @@ def test_out_of_slice_raises(case, item):
         problems = [opt.build_problem()] * 2
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tx.solve_batch(problems, device="cpu", **kw)
+
+
+def test_per_instance_operators_solve():
+    """Instances with different constraint matrices, which raised "A11"
+    before they were ported, solve: the scaled rows share the max-cut's
+    pattern ("ell_batched"), and both instances reach status 1 at the
+    single solves' objectives."""
+    problems = [_problems(tx, B=1)[0], _scaled_rows()]
+    setups = [preprocess(p) for p in problems]
+    o = tbatch._batch_operands(setups, torch.float64, tp.DEV, "auto")
+    assert tbatch.operator_kind(o.M) == "ell_batched"
+    opts = tx.Options(hybrid_precision=False)
+    res = tx.solve_batch(problems, opts, device="cpu")
+    for r, p in zip(res, problems):
+        single = tx.solve(p, opts, device="cpu")
+        assert r.status == single.status == 1
+        assert _rel(r.objval, single.objval) <= 1e-4
 
 
 def test_solve_batch_requires_device(monkeypatch):

@@ -67,3 +67,23 @@ def test_projection_is_psd_and_idempotent():
     P2 = tcones.psd_projection_block(P, torch.zeros(30, dtype=F64),
                                      opts=opts).block
     torch.testing.assert_close(P2, P, rtol=0, atol=1e-12)
+
+
+def test_eigh_nonconvergence_gives_nan(monkeypatch):
+    """Where LAPACK's (or cuSOLVER's) eigh does not converge, torch raises
+    and jnp.linalg.eigh returns NaN; the port's ``_eigh`` returns NaN
+    eigenpairs of the input's shape, so the caller's finite guard sends
+    it to its fallback (MIMO n = 100's k x k Ritz matrix met this)."""
+    from proxsdp_tpu_torch.ops import cones as tcones
+
+    def fails(A):
+        raise torch.linalg.LinAlgError("linalg.eigh: The algorithm failed "
+                                       "to converge")
+
+    A = torch.eye(4, dtype=torch.float64)
+    w, V = tcones._eigh(A)
+    assert torch.equal(w, torch.ones(4, dtype=torch.float64))
+    monkeypatch.setattr(torch.linalg, "eigh", fails)
+    w, V = tcones._eigh(A)
+    assert w.shape == (4,) and V.shape == (4, 4)
+    assert torch.isnan(w).all() and torch.isnan(V).all()

@@ -654,7 +654,10 @@ def test_solve_batch_on_card_matches_cpu(cuda):
         assert abs(g.iter - w.iter) <= max(2, 0.02 * w.iter)
         assert abs(g.objval - w.objval) <= 1e-6 * (1 + abs(w.objval))
     for name in kernels.BATCH_KERNELS:
-        assert counts[name] > 0 or name == "batched_subspace", name
+        # K12 runs in the subspace mode, K16 only on per-instance dense
+        # operators (test_solve_batch_per_instance_on_card_matches_cpu)
+        assert counts[name] > 0 or name in ("batched_subspace",
+                                            "batched_gemv"), name
 
 
 # K12 against its plain version: f64 sums in other orders and Jacobi for
@@ -1140,3 +1143,150 @@ def test_linesearch_loop_rejects_bad_input(cuda):
     args[3] = st["b"].float()
     with pytest.raises(TypeError):
         kernels.linesearch_loop(M, *args, 10)
+
+
+# ---- per-instance operators in the batch: K16, K1b' and K15b'
+
+
+def _randsdp_setups(B, side, m):
+    from proxsdp_tpu_torch.models.randsdp import randsdp_problem
+
+    return [preprocess(randsdp_problem(s, side, m, varbounds=False)[0])
+            for s in range(B)]
+
+
+def _scaled_maxcut_setups(B, side):
+    import chip_smoke
+
+    return [preprocess(p) for p in chip_smoke.k3_problems(
+        tx.Optimizer, random_graph_weights, B, side)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B, R, n", [(64, 20, 820), (3, 37, 1000), (5, 1, 7)])
+def test_batched_gemv_matches_plain(cuda, dtype, B, R, n):
+    """K16 in both directions (phase K1's shape and ragged ones) against
+    its plain versions (cuBLAS batched products: RTOL); M' y equals the
+    rows summed in order, K15b''s dense order, bit for bit; one launch
+    each."""
+    rng = np.random.default_rng(B + R + n)
+    M = torch.tensor(rng.standard_normal((B, R, n)), dtype=dtype, device=cuda)
+    x = torch.tensor(rng.standard_normal((B, n)), dtype=dtype, device=cuda)
+    y = torch.tensor(rng.standard_normal((B, R)), dtype=dtype, device=cuda)
+    kernels.reset_launch_counts()
+    got, got_t = kernels.batched_gemv(M, x), kernels.batched_gemv_t(M, y)
+    torch.cuda.synchronize()
+    counts = kernels.kernel_launches()
+    assert counts["batched_gemv"] == counts["batched_gemv_t"] == 1
+    assert got.shape == (B, R) and got_t.shape == (B, n)
+    _close((got,), (kernels.batched_gemv_plain(M, x),), dtype)
+    _close((got_t,), (kernels.batched_gemv_t_plain(M, y),), dtype)
+    acc = torch.zeros(B, n, dtype=dtype, device=cuda)
+    for r in range(R):
+        acc = acc + M[:, r, :] * y[:, r:r + 1]
+    assert torch.equal(got_t, acc)
+    with pytest.raises(ValueError):
+        kernels.batched_gemv(M, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ell_spmv_batch_per_instance_matches_plain(cuda, dtype):
+    """K1b' over the stacked per-instance ELL values of a scaled max-cut
+    sweep (phase K3's operator), both directions, bit for bit its plain
+    version; each launch also counts as a per-instance launch.  With one
+    instance's values repeated B times it equals the shared product."""
+    from proxsdp_tpu_torch.parallel.batch import _batch_operands
+
+    B = 64
+    o = _batch_operands(_scaled_maxcut_setups(B, 40), dtype, cuda, "auto")
+    E = o.M
+    assert E.batched
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((B, E.shape[1])), dtype=dtype,
+                     device=cuda)
+    y = torch.tensor(rng.standard_normal((B, E.shape[0])), dtype=dtype,
+                     device=cuda)
+    kernels.reset_launch_counts()
+    got = (E.matvec_batch(x), E.rmatvec_batch(y))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[f"ell_spmv_batch_{kernels._SUFFIX[dtype]}"] \
+        == kernels.per_instance_launches[
+            f"ell_spmv_batch_{kernels._SUFFIX[dtype]}"] == 2
+    want = (kernels.ell_spmv_batch_plain(E.row_cols, E.row_vals, x),
+            kernels.ell_spmv_batch_plain(E.col_rows, E.col_vals, y))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    same = kernels.ell_spmv_batch(E.row_cols,
+                                  E.row_vals[:1].expand_as(E.row_vals)
+                                  .contiguous(), x)
+    assert torch.equal(same, kernels.ell_spmv_batch(E.row_cols, E.row_vals[0],
+                                                    x))
+
+
+@pytest.mark.parametrize("form", ["ell", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_linesearch_loop_batch_per_instance_matches_sequence(cuda, dtype,
+                                                             form):
+    """K15b' over per-instance operators -- the scaled max-cut's stacked
+    ELL values (B = 64, side 40), randsdp's stacked dense matrices (B = 16,
+    side 10) -- against the batched K2 -> M' product (K1b', K16's M' y) ->
+    sq_dist sequence: bit for bit in f64, within K2's f32 bound in f32; a
+    third of the instances inactive."""
+    from proxsdp_tpu_torch.parallel.batch import _batch_operands, operator_kind
+
+    setups = (_scaled_maxcut_setups(64, 40) if form == "ell"
+              else _randsdp_setups(16, 10, 5))
+    B = len(setups)
+    o = _batch_operands(setups, dtype, cuda, "auto")
+    assert operator_kind(o.M) == ("ell_batched" if form == "ell"
+                                  else "dense_batched")
+    rng = np.random.default_rng(11)
+    p, m = setups[0].layout.p, setups[0].layout.m
+    st = _ls_state(rng, o.M, p, m, 2.0, False, dtype, cuda, B=B)
+    Mty_old = o.M.rmatvec_batch(st["y_old"])
+    active = torch.tensor(rng.random(B) > 1 / 3, device=cuda)
+    args = (st["y"], st["Mx"], st["Mx_old"], o.b, o.h,
+            st["y_old"], st["Mty"], Mty_old, st["tau"], st["tau_old"],
+            st["theta"], st["beta"], active, p, m, 0.9999, 0.75, 5000)
+    kernels.reset_launch_counts()
+    got = kernels.linesearch_loop_batch(o.M, *args)
+    torch.cuda.synchronize()
+    sfx = kernels._SUFFIX[dtype]
+    assert kernels.per_instance_launches[f"linesearch_loop_batch_{sfx}"] == 1
+    assert sum(kernels.launch_counts.values()) == 1
+    want = kernels.linesearch_loop_batch_plain(o.M, *args)
+    _equal_or_close(got, want, dtype)
+    trials = got[4].cpu()
+    assert int(trials[~active.cpu()].abs().sum()) == 0
+    assert int(trials[active.cpu()].max()) > 1
+
+
+def test_solve_batch_per_instance_on_card_matches_cpu(cuda):
+    """solve_batch of per-instance sweeps on the card against the CPU
+    plain run, f64 program: randsdp (dense_batched, K16 and K15b') and the
+    scaled max-cut (ell_batched, K1b' and K15b'): the same statuses,
+    iterations within 2 %, objectives to 1e-6."""
+    from proxsdp_tpu_torch.models.randsdp import randsdp_problem
+    from proxsdp_tpu_torch.parallel.batch import solve_batch
+    import chip_smoke
+
+    opts = tx.Options(tol_gap=1e-4, tol_feasibility=1e-4,
+                      hybrid_precision=False)
+    for problems, kind in (
+            ([randsdp_problem(s, 10, 5, varbounds=False)[0] for s in range(8)],
+             "dense"),
+            (chip_smoke.k3_problems(tx.Optimizer, random_graph_weights, 16, 16),
+             "ell")):
+        kernels.reset_launch_counts()
+        got = solve_batch(problems, opts, projection="eigh")
+        counts = dict(kernels.launch_counts)
+        per = dict(kernels.per_instance_launches)
+        want = solve_batch(problems, opts, projection="eigh", device="cpu")
+        for g, w in zip(got, want):
+            assert g.status == w.status == 1
+            assert abs(g.iter - w.iter) <= max(2, 0.02 * w.iter)
+            assert abs(g.objval - w.objval) <= 1e-6 * (1 + abs(w.objval))
+        assert per["linesearch_loop_batch_f64"] > 0
+        if kind == "dense":
+            assert counts["batched_gemv_f64"] > 0
+        else:
+            assert per["ell_spmv_batch_f64"] > 0

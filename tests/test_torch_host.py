@@ -180,3 +180,144 @@ def test_solve_requires_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tx.solve(tp.build_problem(tx, "readme"))
+
+
+# ---- the host copies of the API slice: models, the SDPA reader, ingest
+
+
+def _problem_arrays(problem) -> dict:
+    return {"c": problem.c, "A": _dense(problem.A), "b": problem.b,
+            "G": _dense(problem.G), "h": problem.h,
+            "sdp_vars": [np.asarray(v) for v in problem.sdp_vars],
+            "soc_vars": [np.asarray(v) for v in problem.soc_vars]}
+
+
+def _assert_problems_equal(pj, pt):
+    aj, at = _problem_arrays(pj), _problem_arrays(pt)
+    for key in aj:
+        if isinstance(aj[key], list):
+            assert len(aj[key]) == len(at[key]) and all(
+                np.array_equal(x, y) for x, y in zip(aj[key], at[key])), key
+        else:
+            assert np.array_equal(aj[key], at[key]), key
+    assert (pj.objective_sense, pj.objective_constant) == (
+        pt.objective_sense, pt.objective_constant)
+
+
+def test_mimo_copy_equal():
+    """models/mimo.py: the data (s, H, y, L) and the problem, index matrix
+    and signal of MIMO n = 5."""
+    from proxsdp_tpu.models import mimo as jm
+    from proxsdp_tpu_torch.models import mimo as tm
+
+    for dj, dt in zip(jm.mimo_data(3, 50, 5), tm.mimo_data(3, 50, 5)):
+        assert np.array_equal(dj, dt)
+    pj, Xj, sj = jm.mimo_problem(0, 5)
+    pt, Xt, st = tm.mimo_problem(0, 5)
+    _assert_problems_equal(pj, pt)
+    assert np.array_equal(Xj, Xt) and np.array_equal(sj, st)
+    X = np.eye(6)
+    for a, b in zip(jm.mimo_eval(sj, X), tm.mimo_eval(st, X)):
+        assert np.array_equal(a, b)
+
+
+def test_sensorloc_copy_equal():
+    """models/sensorloc.py: the data and the problem of n = 10 (the 10 %
+    sensor-pair sampling included)."""
+    from proxsdp_tpu.models import sensorloc as js
+    from proxsdp_tpu_torch.models import sensorloc as ts
+
+    dj, dt = js.sensorloc_data(1, 10), ts.sensorloc_data(1, 10)
+    assert dj[0] == dt[0] and np.array_equal(dj[1], dt[1])
+    for a, b in zip(dj[2:], dt[2:]):
+        assert a.keys() == b.keys()
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    pj, Xj, xj = js.sensorloc_problem(0, 10)
+    pt, Xt, xt = ts.sensorloc_problem(0, 10)
+    _assert_problems_equal(pj, pt)
+    assert np.array_equal(Xj, Xt) and np.array_equal(xj, xt)
+
+
+def test_sdplib_copy_equal(tmp_path, monkeypatch):
+    """models/sdplib.py on a written .dat-s file: sdplib_data through the
+    port's native parser and through its Python one equal the JAX
+    package's Python parser (the JAX package's native build is left alone:
+    it writes into that package, non-atomically), and the problems of both
+    embeddings are equal."""
+    from proxsdp_tpu.models import sdplib as jsd
+    from proxsdp_tpu_torch.models import sdplib as tsd
+
+    monkeypatch.setattr(jsd, "_try_native", lambda path: None)
+    path = tp.write_sdpa(tmp_path)
+    want = jsd.sdplib_data(path)
+    for got in (tsd.sdplib_data(path), tsd._parse_python(path),
+                tsd._try_native(path)):
+        assert got is not None and len(got) == len(want) == 4
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert jsd.sdplib_blocks(path) == tsd.sdplib_blocks(path) == [2, -2]
+    for split in (True, False):
+        (pj, Xj), (pt, Xt) = (jsd.sdplib_problem(path, split_blocks=split),
+                              tsd.sdplib_problem(path, split_blocks=split))
+        _assert_problems_equal(pj, pt)
+        assert np.array_equal(Xj, Xt)
+
+
+def test_sdpa_parser_builds_atomically(tmp_path, monkeypatch):
+    """utils/native.py builds its library into the checkout's build/
+    directory (here a temporary one), under a temporary name in that
+    directory moved into place by os.replace, and never into the package
+    (the JAX package's copy writes _native.so in place, non-atomically)."""
+    import os
+
+    from proxsdp_tpu_torch.utils import native
+
+    assert native.BUILD_DIR.parts[-2:] == ("build", "proxsdp_tpu_torch")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    moves = []
+    real_replace = os.replace
+
+    def replace(src, dst):
+        moves.append((str(src), str(dst)))
+        assert os.path.getsize(src) > 0  # written in full before the move
+        real_replace(src, dst)
+
+    monkeypatch.setattr(native.os, "replace", replace)
+    path = native.library_path()
+    assert path.parent == tmp_path / "build" and not path.exists()
+    n, m, entries, c = native.parse_sdpa(tp.write_sdpa(tmp_path))
+    assert (n, m, entries.shape) == (4, 2, (10, 4))
+    assert path.exists() and len(moves) == 1
+    src, dst = moves[0]
+    assert dst == str(path) and os.path.dirname(src) == str(path.parent)
+    assert sorted(os.listdir(path.parent)) == [path.name]  # no temporary left
+    package = native.SOURCE.parent
+    assert not any(f.endswith(".so") for f in os.listdir(package))
+
+
+@pytest.mark.parametrize("dims", [dict(z=1, l=2), dict(z=1, l=1, q=(2,), s=(2,)),
+                                  dict(q=(3,), s=(3,))],
+                         ids=["lp", "all_cones", "soc_psd"])
+def test_cone_program_to_conic_equal(dims):
+    """ingest.cone_program_to_conic: the lowered problem's A, b, c, G, h and
+    cone layout, and the recovered (x, y, s) of one Result, equal the JAX
+    package's."""
+    from proxsdp_tpu.ingest import ConeDims as JD, cone_program_to_conic as jc
+    from proxsdp_tpu_torch.ingest import (ConeDims as TD,
+                                          cone_program_to_conic as tc)
+
+    rows = JD(**dims).total_rows
+    assert rows == TD(**dims).total_rows
+    rng = np.random.default_rng(0)
+    n = 3
+    c, A, b = rng.standard_normal(n), rng.standard_normal((rows, n)), \
+        rng.standard_normal(rows)
+    (pj, rec_j), (pt, rec_t) = jc(c, A, b, JD(**dims)), tc(c, A, b, TD(**dims))
+    _assert_problems_equal(pj, pt)
+    assert dataclasses.asdict(j_pre(pj).layout) == dataclasses.asdict(
+        t_pre(pt).layout)
+    res = tx.Result(primal=rng.standard_normal(len(pt.c)),
+                    dual_eq=rng.standard_normal(len(pt.b)),
+                    dual_in=rng.standard_normal(len(pt.h)))
+    for a, w in zip(rec_t(res), rec_j(res)):
+        assert np.array_equal(a, w)

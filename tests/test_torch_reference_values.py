@@ -814,3 +814,133 @@ def test_phase_j_reference_values():
         g = got[tag]
         assert g["farkas"] == pytest.approx(want.pop("farkas"), rel=1e-9)
         assert {k: g[k] for k in want} == want, (tag, g)
+
+
+# chip_smoke.py's phase K references: the JAX package on one thread --
+# solve_batch of instances 0-7 of K1 (randsdp) and K3 (the scaled max-cut)
+# at Options(tol_gap=1e-4, tol_feasibility=1e-4), projection "eigh"; K1's
+# optimum (its f64 program at 1e-7); the MIMO n = 100 solves (the default
+# options to K2_MIMO_MAX_ITER, the f64 program) and sensor localisation
+# n = 100 at chunk_iters=256
+K_CHILD = r"""
+import json, sys
+import numpy as np
+import proxsdp_tpu as jx
+from proxsdp_tpu.parallel.batch import solve_batch
+from proxsdp_tpu.models import mimo, sensorloc
+from proxsdp_tpu.models.maxcut import random_graph_weights
+from proxsdp_tpu.models.randsdp import randsdp_problem
+import chip_smoke as cs
+
+what = sys.argv[1]
+out = {}
+if what == "batch":
+    k1 = [randsdp_problem(s, cs.K1_SIDE, cs.K1_ROWS, varbounds=False)[0]
+          for s in range(8)]
+    k3 = cs.k3_problems(jx.Optimizer, random_graph_weights, 8, cs.K3_SIDE)
+    for tag, probs, kw in (("K1", k1, {}), ("K3", k3, {}),
+                           ("K1_exact", k1, dict(tol_gap=1e-7,
+                                                 tol_feasibility=1e-7,
+                                                 hybrid_precision=False)),
+                           ("K1_f64", k1, dict(hybrid_precision=False))):
+        kw = {"tol_gap": 1e-4, "tol_feasibility": 1e-4, **kw}
+        res = solve_batch(probs, jx.Options(**kw), projection="eigh")
+        out[tag] = dict(status=[r.status for r in res],
+                        obj=[r.objval for r in res], iter=[r.iter for r in res])
+elif what == "f64":
+    k1 = [randsdp_problem(s, cs.K1_SIDE, cs.K1_ROWS, varbounds=False)[0]
+          for s in range(8)]
+    res = solve_batch(k1, jx.Options(tol_gap=1e-4, tol_feasibility=1e-4,
+                                     hybrid_precision=False,
+                                     max_iter=cs.K1_F64_ITERS),
+                      projection="eigh")
+    out = dict(obj=[r.objval for r in res],
+               xnorm=[float(np.linalg.norm(r.primal)) for r in res])
+else:
+    p, X, s = mimo.mimo_problem(0, cs.K2_MIMO_N)
+    for tag, kw in (("mimo", {}), ("mimo64", dict(hybrid_precision=False))):
+        r = jx.solve(p, jx.Options(chunk_iters=256,
+                                   max_iter=cs.K2_MIMO_MAX_ITER, **kw))
+        out[tag] = dict(status=r.status, obj=r.objval, iter=r.iter, gap=r.gap,
+                        decode=float(mimo.mimo_eval(s, r.primal[X])[1]))
+    p, X, xt = sensorloc.sensorloc_problem(0, cs.K2_SL_N)
+    r = jx.solve(p, jx.Options(chunk_iters=256))
+    Xm = r.primal[X]
+    out["sl"] = dict(status=r.status, iter=r.iter, pos_err=float(np.sqrt(
+        np.mean(np.sum((Xm[:2, 2:] - xt) ** 2, axis=0)))))
+print(json.dumps(out))
+"""
+
+
+def _k_child(what):
+    proc = subprocess.run([sys.executable, "-c", K_CHILD, what], cwd=ROOT,
+                          env={**os.environ, **ONE_THREAD},
+                          capture_output=True, text=True, timeout=1800)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_phase_k_problems_match_jax():
+    """Phase K3's programs are the same arrays through both packages (the
+    JAX runs pin them, the card solves the port's)."""
+    import chip_smoke as cs
+    import proxsdp_tpu as jx
+    import proxsdp_tpu_torch as tx
+    from proxsdp_tpu.models import maxcut as jm
+    from proxsdp_tpu_torch.models import maxcut as tm
+
+    pj = cs.k3_problems(jx.Optimizer, jm.random_graph_weights, 3, 12)
+    pt = cs.k3_problems(tx.Optimizer, tm.random_graph_weights, 3, 12)
+    for a, b in zip(pj, pt):
+        for name in ("c", "b", "h"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        assert (abs(a.A - b.A)).max() == 0 and a.A.shape == b.A.shape
+    assert (abs(pj[0].A - pj[1].A)).max() > 0  # values per instance
+    assert (pj[0].A != 0).nnz == (pj[1].A != 0).nnz
+
+
+@pytest.mark.slow
+def test_phase_k_reference_values():
+    """chip_smoke.py's K1 (the hybrid batch, the optimum, the f64 program
+    at K1_F64_ITERS), K3 and K2 references re-derived (~6 minutes), and
+    the port's f64 program repeating the JAX package's on K1's instances
+    0-7 to the end (iterations equal, objectives to 1e-9): the scatter of
+    K1's hybrid answers about the optimum (C19) is the problem's, not a
+    parting of the two programs."""
+    import chip_smoke as cs
+    import proxsdp_tpu_torch as tx
+    from proxsdp_tpu_torch.models.randsdp import randsdp_problem
+
+    got = {**_k_child("batch"), **_k_child("single")}
+    for tag, obj, iters in (("K1", "K1_REF_OBJ", "K1_REF_ITERS"),
+                            ("K3", "K3_REF_OBJ", "K3_REF_ITERS"),
+                            ("K1_exact", "K1_EXACT_OBJ", None)):
+        assert got[tag]["status"] == [1] * 8
+        np.testing.assert_allclose(got[tag]["obj"], _smoke_constant(obj),
+                                   rtol=1e-9)
+        if iters:
+            assert got[tag]["iter"] == _smoke_constant(iters)
+    f64 = _k_child("f64")
+    for key in ("obj", "xnorm"):
+        np.testing.assert_allclose(f64[key], cs.K1_F64_REF[key], rtol=1e-9)
+    for tag, name in (("mimo", "K2_MIMO_REF"), ("mimo64", "K2_MIMO64_REF")):
+        want = _smoke_constant(name)
+        obj, gap = want.pop("obj"), want.pop("gap")
+        if tag == "mimo64":
+            assert got[tag]["obj"] == pytest.approx(obj, rel=1e-9)
+            assert got[tag]["gap"] == pytest.approx(gap, rel=1e-6)
+        # the default run stops at the iteration limit, where the result is
+        # the best-iterate snapshot, taken at most every 2 s of wall time:
+        # its objective moves with the host's speed (printed, not held)
+        assert {k: got[tag][k] for k in want} == want, (tag, got[tag])
+    want = _smoke_constant("K2_SL_REF")
+    assert got["sl"]["pos_err"] == pytest.approx(want.pop("pos_err"), rel=1e-6)
+    assert {k: got["sl"][k] for k in want} == want
+    res = tx.solve_batch(
+        [randsdp_problem(s, cs.K1_SIDE, cs.K1_ROWS, varbounds=False)[0]
+         for s in range(8)],
+        tx.Options(tol_gap=1e-4, tol_feasibility=1e-4, hybrid_precision=False),
+        projection="eigh", device="cpu")
+    assert [r.iter for r in res] == got["K1_f64"]["iter"]
+    for r, want in zip(res, got["K1_f64"]["obj"]):
+        assert r.status == 1 and abs(r.objval - want) <= 1e-9 * (1 + abs(want))

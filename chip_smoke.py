@@ -129,6 +129,21 @@
    (the batched GEMV, both directions) at K1's (64, 20, 820) stack, K1b'
    (a value stride) at K3's stacked ELL values bit for bit, K15b' over
    K3's per-instance ELL and K1's per-instance dense M'.
+13. phase L: solve_batch past one block's shared memory.  L1, 16 max-cut
+   instances of side 250 (mcp250's) in the eigh mode (K9L in both
+   programs): statuses, feasibility and PSD, objectives within 2e-4 (1 +
+   |obj|) of the JAX batch's, then their f64 program on instances 0-3 for
+   300 iterations against the JAX package's (1e-6); L3, the same
+   instances under Options(projection="polar") (K5b, K6b), against the
+   JAX batch; L2, 40 instances of side 500 (mcp500's) in the "auto"
+   subspace mode (K12L), against the JAX run lined up for C11 and C12
+   within L2_OBJ_RTOL / L2_OBJ_MEAN_RTOL, its reseeds and programs printed
+   beside the JAX run's.
+
+   Phase B also holds phase L's kernels to their plain versions: K9L at
+   sides 119, 169, 250 and 500 in f64 and f32, K12L (and K12 at L2's f32
+   k = 24) at side 500, B = 40, k = 24-256 in f32, the mixed mode and
+   f64, K5b and K6b at (16, 250, 250) in f32 and f64.
 
     python3 chip_smoke.py --phase-h
 
@@ -140,6 +155,10 @@ to H1's bound for that arm.
     python3 chip_smoke.py --phase-k
 
 builds the kernels and runs phase K's phase-B rows and phase K alone.
+
+    python3 chip_smoke.py --phase-l
+
+builds the kernels and runs phase L's phase-B rows and phase L alone.
 
 Each phase prints its wall time.  Any failed phase exits non-zero.  The
 last line is a JSON object with the device; the line before it lists the
@@ -1075,16 +1094,20 @@ def check_solution(res, Xidx, ref_obj, diag_tol, label):
 
 def check_entry(torch, kernels, out, name, sfx, source, replaces, call, plain,
                 inputs, outputs, flops, library=None, compare_fn=None,
-                tol=None, label="", note=""):
+                tol=None, label="", note="", wrapper=None):
     """Run one entry point on the card and its plain version on the same
     inputs, compare, time both (and the library call), and append the
     kernels-line row to ``out``; launches are filled in later.  The bound's
-    bytes are those of ``inputs`` and ``outputs``, each once."""
+    bytes are those of ``inputs`` and ``outputs``, each once.  ``wrapper``
+    names the wrapper that routes to the entry point, where it is not
+    ``name`` (K9L and K12L are routes of batched_psd_eigh and
+    batched_subspace)."""
     entry = f"{name}_{sfx}"
     row_name = f"{entry} ({label})" if label else entry
+    fn = wrapper or name
     kernels.reset_launch_counts()
     SHAPES.reset()
-    got = call(getattr(kernels, name))
+    got = call(getattr(kernels, fn))
     torch.cuda.synchronize()
     check(kernels.launch_counts[entry] >= 1,
           f"{entry}: the wrapper launched no kernel")
@@ -1096,7 +1119,7 @@ def check_entry(torch, kernels, out, name, sfx, source, replaces, call, plain,
     if tol is None:
         tol = RTOL["f64" if all(w.dtype != torch.float32 for w in want)
                    else "f32"]
-    ms = median_ms(torch, lambda: call(getattr(kernels, name)))
+    ms = median_ms(torch, lambda: call(getattr(kernels, fn)))
     plain_ms = median_ms(torch, lambda: call(plain))
     lib_ms = median_ms(torch, library) if library else None
     t_bytes = nbytes(list(inputs) + list(outputs)) / PEAK_BYTES * 1e3
@@ -1638,12 +1661,15 @@ def theta_err(torch, got, want, side, scale):
                for a, b in zip(thetas(got), thetas(want))) / scale
 
 
-def subspace_compare(torch, v, V, side, tol, theta=None):
+def subspace_compare(torch, v, V, side, tol, theta=None,
+                     theta_tol=SUB_THETA_RTOL, vec_tol=None, sep=1e-3):
     """K12's outputs (blocks, min_eig, rank, warm, bad, stats) against the
     plain version's: the guard flags equal (instance 1 alone), the guarded
     instance's basis back unchanged; blocks, min eigenvalue and the Ritz
     stats to ``tol`` of the largest entry; ranks and positive counts
-    equal; the bases up to column sign where the Ritz value is simple.
+    equal; the bases up to column sign where the Ritz value is simple
+    (``sep`` of the scale from its neighbours) to ``vec_tol`` (default
+    ``tol``).
     With a dict ``theta`` (the mixed mode) also the Ritz values to
     SUB_THETA_RTOL (``theta_err``, recorded there under "kernel").
     Returns (max abs error of the blocks, relative)."""
@@ -1671,16 +1697,22 @@ def subspace_compare(torch, v, V, side, tol, theta=None):
         inf = th.new_full((th.shape[0], 1), float("inf"))
         d = torch.diff(th, dim=1).abs()
         simple = torch.minimum(torch.cat([d, inf], 1), torch.cat([inf, d], 1)) \
-            > 1e-3 * scale
+            > sep * scale
         dots = torch.sum(warm.double() * W, dim=1).abs()
         sel = simple & ok[:, None]
-        check(not bool(sel.any()) or float((1 - dots[sel]).abs().max())
-              <= max(tol, 1e-8), "batched_subspace: Ritz vectors differ")
+        apart = float((1 - dots[sel]).abs().max()) if bool(sel.any()) else 0.0
+        vtol = max(tol, 1e-8) if vec_tol is None else vec_tol
+        check(apart <= vtol, f"batched_subspace: Ritz vectors differ: "
+              f"1 - |cos| up to {apart:.3e} (> {vtol:.0e})")
         if theta is not None:
             theta["kernel"] = theta_err(torch, got, want, side, scale)
-            check(theta["kernel"] <= SUB_THETA_RTOL,
+            theta["exact"] = (theta_exact_err(torch, got, v, side, scale),
+                              theta_exact_err(torch, want, v, side, scale))
+            check(theta["kernel"] <= theta_tol,
                   f"batched_subspace (mixed): Ritz values {theta['kernel']:.3e}"
-                  f" of the scale from the plain version's (> {SUB_THETA_RTOL})")
+                  f" of the scale from the plain version's (> {theta_tol}); "
+                  f"from the exact eigenvalues: kernel {theta['exact'][0]:.3e}"
+                  f", plain {theta['exact'][1]:.3e}")
         return err, err / scale
 
     return fn
@@ -3212,6 +3244,480 @@ def phase_j(torch, kernels, smi, bproblems):
           "J3: linesearch_loop_batch (K15b) launched no kernel")
     return entries
 
+# ---------------------------------------------------------------------------
+# Phase L: solve_batch past one block's shared memory (K9L, K12L) and the
+# batched polar projection (K5b, K6b)
+# ---------------------------------------------------------------------------
+
+L_SIDE = 250  # SDPLIB mcp250's side
+L_SIZE = 16
+L_OBJ_RTOL = 2e-4
+L_F64_SIZE = 4
+L_F64_ITERS = 300
+L_F64_RTOL = 1e-6
+L2_SIDE = 500  # SDPLIB mcp500's side
+L2_SIZE = 40  # B > 32: the "auto" mode takes the subspace step
+# L2's objectives against the JAX run's, each and on average, relative to
+# 1 + |obj|: at side 500 the hybrid subspace mode's answers scatter ~4e-3
+# between runs that differ only in the subspace step's rounding -- the
+# port with K12 / K12L against the port with the plain version (cuBLAS,
+# cuSOLVER) on the card: up to 3.40e-3, mean 1.12e-3; each against the
+# JAX run up to 3.94e-3, mean 1.45e-3 (`--phase-l2-scatter`, PERF.md) --
+# where phase G's sides 40 and 100 scatter ~1e-3 (G_OBJ_RTOL); the bounds
+# sit ~1.5x above those readings, as phase G's do
+L2_OBJ_RTOL = 6e-3
+L2_OBJ_MEAN_RTOL = 2e-3
+# the JAX package's solve_batch of the L instances on one CPU thread
+# (tests/test_torch_reference_values.py::L_CHILD re-derives them, slow):
+# L1, projection "eigh" under Options(tol_gap=1e-4, tol_feasibility=1e-4);
+# L3, the same with Options(projection="polar"); L1's f64 program on
+# instances 0-3 for L_F64_ITERS iterations; L2, projection "auto" at side
+# 500, lined up with the port for C11 and C12 (its reseeds and programs)
+L1_REF_OBJ = [1250.5705977860448, 1250.6867370153282, 1236.9364245486324,
+    1244.909933316663, 1265.2657589221892, 1235.7032585367538,
+    1254.1132416205385, 1255.9986235637741, 1252.8908344849456,
+    1241.7469219869886, 1256.4342077862304, 1268.5049404856024,
+    1244.1563574518123, 1279.7413688245765, 1238.2900940223496,
+    1223.3301748272377]
+L1_REF_ITERS = [599, 547, 578, 538, 595, 605, 591, 556, 574, 555, 594, 579, 610, 603,
+    616, 584]
+L3_REF_OBJ = [1250.5799186153952, 1250.691437740201, 1236.9250459663845,
+    1244.9159085333774, 1265.2803424899496, 1235.708337830987,
+    1254.1201161643908, 1256.005708649414, 1252.8873926109807,
+    1241.7535339474525, 1256.4455492023064, 1268.5006661980603,
+    1244.1600264967815, 1279.748029078369, 1238.2949464798214,
+    1223.3170553208845]
+L3_REF_ITERS = [599, 547, 579, 538, 595, 605, 593, 556, 575, 555, 594, 580, 611, 603,
+    616, 585]
+L1_F64_REF = {
+    "obj": [1243.7927710468, 1246.0445274725107, 1234.7806416374776, 1241.782078781181],
+    "xnorm": [61.47779406674972, 64.14378768945117, 63.18034179023062, 63.55354830112831]}
+L2_REF_OBJ = [3615.8433905879015, 3614.850894753789, 3632.513245579528,
+    3661.165076914528, 3654.09515854805, 3629.9605392232083,
+    3615.4464726926626, 3618.5831557807796, 3642.0358147590764,
+    3591.3198280845177, 3590.97961619432, 3644.552666861177,
+    3641.102896298311, 3654.853382499658, 3638.0301387152385,
+    3696.359290464876, 3632.2717256604456, 3624.0469612105494,
+    3642.5347477739383, 3628.770360731356, 3632.328910870525,
+    3568.39895574957, 3617.3835310155187, 3624.0774511269947,
+    3637.116832546995, 3653.4180235104864, 3612.6214907552876,
+    3627.4983426336025, 3644.5338022782207, 3606.2346515581357,
+    3610.1966655091337, 3624.53315554426, 3581.918823750074,
+    3627.5520854213573, 3615.9384665776292, 3588.6270218878867,
+    3634.6576251373344, 3583.789203004272, 3630.055063016431,
+    3641.405733850178]
+L2_REF_ITERS = '839/1382/1846'
+L2_REF_RESEEDS = [
+    ('float32', 128, 128, 16, 40, 83), ('float32', 128, 128, 96, 40, 83),
+    ('float32', 703, 1152, 96, 40, 13), ('float32', 703, 1152, 24, 40, 13),
+    ('float32', 703, 1620, 24, 5, 13), ('float64', 703, 1620, 24, 40, 13),
+    ('float64', 839, 1727, 24, 2, 13)]
+L2_REF_PROGRAMS = [('float32', 16), ('float32', 96), ('float32', 24),
+                   ('float64', 24)]
+# K9L's f32 rows: K9L works an f32 input in f64 and rounds its outputs
+# (its f32 Jacobi lay 1.3e-4 to 9.9e-4 of the scale from cuSOLVER at sides
+# 169-500 and moved phase L1's answers: ROADMAP C22), its plain version is
+# the f32 eigh (cuSOLVER on the card; LAPACK's, as the JAX package's, on
+# the CPU), so the rows measure the f32 eigh's own distance from an f64
+# one, relative to the largest entry: on two input draws 2.75e-4 / 3.09e-4
+# at side 169, 5.12e-4 / 5.68e-4 at 250 and 1.69e-3 / 1.71e-3 at 500
+# (`tools/phase_l_diagnostics.py rows 12 13`, PERF.md), up to 3.4e-6 a
+# unit of side; the bound is twice that, times the side
+EIGH_RTOL_F32_L = 7e-6
+# K12L at side 500 against its plain version, relative to the largest
+# entry: f64 as K12's rows; f32 and the mixed mode's f32 basis sum 500-term
+# products and rotate up to 128 columns, and the readings grow with k to
+# 1.44e-4 (f32, k = 128): twice the largest reading of two draws (PERF.md)
+SUB_RTOL_L = {"f64": 1e-10, "f32": 3e-4, "f64_f32": 3e-4}
+# past k = 128 (buckets 192 and 256) the f32 readings grow on, to 2.90e-4
+# (k = 192) and 5.01e-4 (256): twice the largest reading of two draws.
+# There the plain version's f32 k x k eigh (cuSOLVER's) is itself the far
+# one: K12 with its Jacobi worked in f64 (exact for its f32 Rayleigh
+# matrix) read 4.3e-4 to 7.6e-4 of the scale from it on theta (PR 10,
+# PERF.md), so it misorders Ritz pairs closer than ~1.5e-3 of the scale
+# (a mixed row's Ritz vector read 1 - |cos| = 0.129 against it, the same
+# with either Jacobi).  So the bases are held only where a Ritz value
+# lies 1e-2 of the scale from its neighbours, where 1 - |cos| <= (7.6e-4 /
+# 1e-2)^2 / 2 = 2.9e-3 bounds an error of that size: the mixed mode's to
+# 3e-2 (readings to 1.32e-2 with the 1e-3 separation), the f32 mode's to
+# its 1e-3
+SUB_WIDE_K = 128
+SUB_RTOL_L_WIDE = {"f64": 1e-10, "f32": 1e-3, "f64_f32": 3e-4}
+SUB_SEP_L_WIDE = 1e-2
+SUB_VEC_RTOL_L_WIDE = 3e-2
+# the mixed mode's f64 Ritz values at side 500 against the plain
+# version's, relative to the largest entry: at side 500 both f32 k x k
+# eigensolvers (Jacobi, cuSOLVER) leave them 1e-8 to 3.7e-6 of the scale
+# from the exact eigenvalues (K12 at sides 40-100: 3e-8, SUB_THETA_RTOL),
+# so the bound is set above the readings of two draws (PERF.md)
+SUB_THETA_RTOL_L = 1e-5
+
+
+def theta_exact_err(torch, out, v, side, scale):
+    """The largest distance, relative to ``scale``, between a K12 output's
+    positive Ritz values (recovered as in ``theta_err``, sorted) and the k
+    largest eigenvalues of X (f64, torch.linalg.eigvalsh, clamped at 0),
+    over the instances the guard passed."""
+    from proxsdp_tpu_torch import kernels
+
+    blk, _, _, warm, bad, _ = out
+    k = warm.shape[2]
+    W = warm.double()
+    Xp = kernels.tri_to_square_plain(blk.double(), side)
+    th = torch.einsum("bik,bij,bjk->bk", W, Xp, W) / torch.sum(W * W, 1) ** 2
+    X = kernels.tri_to_square_plain(torch.nan_to_num(v).double(), side)
+    top = torch.linalg.eigvalsh(X)[:, -k:].clamp_min(0.0)
+    ok = ~bad
+    return float((th.sort(dim=1).values[ok] - top[ok]).abs().max()) / scale
+# phase L's K9L sides: the first past each of K9's caps, L1's, L2's
+L_EIGH_SIDES = (119, 169, 250, 500)
+L_EIGH_B = 16
+# K12L at side 500: buckets 24-256 and L2's path (f32 k = 96, the mixed
+# f64 polish at k = 24)
+L_SUB_KS = (24, 32, 48, 64, 96, 128, 192, 256)
+
+
+def _l_maxcut(side, B):
+    from proxsdp_tpu_torch.models.maxcut import maxcut_problem, random_graph_weights
+
+    return [maxcut_problem(random_graph_weights(s, side)) for s in range(B)]
+
+
+def large_kernel_checks(torch, kernels, rng, dev):
+    """Phase B rows of phase L's kernels: K9L (batched_psd_eigh past K9's
+    shared memory) at L_EIGH_SIDES in f64 and, past side 168, f32; K12L
+    (batched_subspace on a device-memory working set) at side 500, B = 40,
+    k in L_SUB_KS in f32, the mixed mode and f64 (K12 where the shape fits
+    one block: L2's f32 k = 24); K5b and K6b (the polar projection's batched entry points)
+    at L1's (16, 250, 250) in f32 and f64.  Each against its plain
+    version, timed beside it and the library call."""
+    rows = []
+    for sfx, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        for s in L_EIGH_SIDES:
+            if s <= kernels.EIGH_MAX_SIDE[dt]:
+                continue
+            X = eigh_inputs(torch, rng, s, dt, dev, L_EIGH_B)
+            nb = X.shape[0]
+            outs = (torch.empty_like(X), torch.empty(nb, s, dtype=dt, device=dev),
+                    torch.empty(nb, dtype=torch.int32, device=dev),
+                    torch.empty(nb, s, dtype=dt, device=dev))
+            tol = EIGH_RTOL_F32_L * s if sfx == "f32" else EIGH_RTOL[sfx]
+
+            def library(Xf=torch.nan_to_num(X)):
+                w, V = torch.linalg.eigh(Xf)
+                return torch.matmul(V * w.clamp_min(0)[:, None, :], V.mT)
+
+            check_entry(
+                torch, kernels, rows, "batched_psd_eigh_large", sfx,
+                "batched_eigh_large.cu", "proxsdp_tpu/ops/cones.py:622",
+                lambda f, X=X: f(X, TOL_PSD), kernels.batched_psd_eigh_plain,
+                (X,), outs, nb * 10.5 * s ** 3, library=library,
+                compare_fn=eigh_compare(torch, X, tol), tol=tol,
+                label=f"L: side {s}", wrapper="batched_psd_eigh")
+            if s == L_SIDE:  # L1's shape: device time under the profiler
+                LAUNCH_US.append((
+                    f"batched_psd_eigh_large_{sfx} (L: side {s})",
+                    lambda X=X: kernels.batched_psd_eigh(X, TOL_PSD),
+                    "batched_psd_eigh_large_kernel"))
+    B, side = L2_SIZE, L2_SIDE
+    tl = side * (side + 1) // 2
+    # subspace_inputs' matrices, made once (a QR of B side x side draws),
+    # with a basis for each k: random, or spanning the top k eigenvectors
+    # (rotated at random) for the mixed mode
+    Qx, _ = np.linalg.qr(rng.standard_normal((B, side, side)))
+    w = rng.standard_normal((B, side))
+    w[:, :6] = 5.0 + 3.0 * rng.random((B, 6))
+    Xl = (Qx * w[:, None, :]) @ Qx.transpose(0, 2, 1)
+    Xl[2] = 0.0
+    v64 = kernels.square_to_tri_plain(torch.tensor(Xl), side)
+    v64[1, 3] = float("nan")
+    order = np.argsort(-w, axis=1)
+    for sfx in ("f32", "f64_f32", "f64"):
+        dt = torch.float32 if sfx == "f32" else torch.float64
+        mixed = sfx == "f64_f32"
+        v = v64.to(dt).to(dev)
+        for k in L_SUB_KS:
+            # K12 where the shape fits one block (L2's f32 k = 24), else K12L
+            k12 = (k <= kernels.SUBSPACE_MAX_K and kernels.subspace_smem_bytes(
+                side, k, dt, mixed) <= kernels.SUBSPACE_SMEM_BYTES)
+            if mixed:
+                Vn = np.take_along_axis(Qx, order[:, None, :k], axis=2) \
+                    @ np.linalg.qr(rng.standard_normal((B, k, k)))[0]
+            else:
+                Vn = np.linalg.qr(rng.standard_normal((B, side, k)))[0]
+            V = torch.tensor(Vn, dtype=dt, device=dev)
+            theta = {} if mixed else None
+            wide = k > SUB_WIDE_K and sfx != "f64"
+            rtol = SUB_RTOL_L_WIDE if wide else SUB_RTOL_L
+            vec = dict(sep=SUB_SEP_L_WIDE) if wide else {}
+            if wide and mixed:
+                vec["vec_tol"] = SUB_VEC_RTOL_L_WIDE
+            Xs = torch.nan_to_num(kernels.tri_to_square_plain(v, side))
+
+            def library(Xs=Xs, V=V):
+                Q = torch.linalg.qr(torch.bmm(Xs, V)).Q
+                th, U = torch.linalg.eigh(torch.bmm(Q.mT, torch.bmm(Xs, Q)))
+                W = torch.bmm(Q, U)
+                return torch.bmm(W * th.clamp_min(0)[:, None, :], W.mT)
+
+            outs = (torch.empty(B, tl, dtype=dt, device=dev),
+                    torch.empty_like(V), torch.empty(B, 5, dtype=dt, device=dev))
+            flops = B * (6 * side * side * k + 14 * side * k * k + 10 * k ** 3)
+            check_entry(
+                torch, kernels, rows,
+                "batched_subspace" if k12 else "batched_subspace_large", sfx,
+                "batched_subspace.cu", "proxsdp_tpu/ops/cones.py:427",
+                lambda f, v=v, V=V, m=mixed: f(v, V, side, TOL_PSD, m),
+                kernels.batched_subspace_plain, (v, V), outs, flops,
+                library=library,
+                compare_fn=subspace_compare(torch, v, V, side,
+                                            rtol[sfx], theta,
+                                            SUB_THETA_RTOL_L, **vec),
+                tol=rtol[sfx], label=f"L: B = {B}, side {side}, k = {k}",
+                wrapper="batched_subspace")
+            if (sfx, k) in (("f32", 96), ("f64_f32", 24)):  # L2's K12L shapes
+                LAUNCH_US.append((
+                    f"batched_subspace_large_{sfx} (L: k = {k})",
+                    lambda v=v, V=V, m=mixed, sd=side: kernels.batched_subspace(
+                        v, V, sd, TOL_PSD, m),
+                    "batched_subspace_kernel"))
+            if mixed:
+                print(f"kernel batched_subspace{'' if k12 else '_large'}"
+                      f"_f64_f32 (L: k = {k}) "
+                      f"Ritz values on converged bases {theta['kernel']:.3e} "
+                      f"of the scale from the plain version's (tol "
+                      f"{SUB_THETA_RTOL_L:.0e}); from the exact eigenvalues: "
+                      f"kernel {theta['exact'][0]:.3e}, plain "
+                      f"{theta['exact'][1]:.3e}")
+    from proxsdp_tpu_torch.ops.cones import POLAR_QB, POLAR_QC, polar_psd_batch
+
+    B, side = L_SIZE, L_SIDE
+    for sfx, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        X = eigh_inputs(torch, rng, side, dt, dev, B)
+        Xf = torch.nan_to_num(X)
+        Y = kernels.fro_scale_batch_plain(Xf)
+        A2 = torch.matmul(Y, Y)
+        out3 = torch.empty_like(X)
+        flag = (torch.empty(B, dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev))
+        for name, call, plain, ins, outs, flops, lib in (
+                # QB A + QC (A @ A), the quintic step's middle product
+                ("ns_gemm_batch", lambda f: f(A2, A2, A2, POLAR_QB, POLAR_QC),
+                 kernels.ns_gemm_batch_plain, (A2,), (out3,),
+                 2 * B * side ** 3, lambda: torch.bmm(A2, A2)),
+                ("fro_scale_batch", lambda f: f(Xf),
+                 kernels.fro_scale_batch_plain, (Xf,), (out3,),
+                 3 * B * side * side, None),
+                ("sym_batch", lambda f: f(Y), kernels.sym_batch_plain, (Y,),
+                 (out3,), 2 * B * side * side, None),
+                ("sym_guard_batch", lambda f: f(A2, Y, X),
+                 kernels.sym_guard_batch_plain, (A2, Y, X), (out3, *flag),
+                 2 * B * side * side, None)):
+            check_entry(torch, kernels, rows, name, sfx,
+                        "ns_gemm.cu" if name == "ns_gemm_batch"
+                        else "polar_sym.cu", "proxsdp_tpu/ops/cones.py:62",
+                        call, plain, ins, outs, flops, library=lib,
+                        label=f"L: B = {B}, side {side}")
+        LAUNCH_US.append((
+            f"ns_gemm_batch_{sfx} (L: B = {B}, side {side})",
+            lambda A2=A2: kernels.ns_gemm_batch(A2, A2, A2, POLAR_QB,
+                                                POLAR_QC),
+            "gemm_axpby_kernel"))
+        # the whole projection: 30 products of 2 s^3 flops an instance
+        ms = median_ms(torch, lambda: polar_psd_batch(X, aggressive=7, polish=4))
+        bound = 30 * 2 * B * side ** 3 / PEAK_FLOPS[sfx] * 1e3
+        print(f"polar_psd_batch {sfx} (L: B = {B}, side {side}): {ms:.4f} ms "
+              f"a projection, bound {bound * 1e3:.3f} us (30 products)")
+    return rows
+
+
+# the polar engine's answers are PSD to its schedule's inexactness: the
+# default (7, 4) Newton-Schulz sign projects eigenvalues below ~9e-5
+# ||X||_F only approximately (cones.py:74-78), so L3's lambda_min(X) is
+# held to -1e-4 ||X||_F, the eigh and subspace answers to phase D's -1e-6
+L_POLAR_PSD_TOL = 1e-4
+
+
+def _l_checks(tag, res, setups, Xidx, ref_obj, rtol, mean_rtol=None,
+              psd_tol=1e-6):
+    """Statuses, max|diag(X) - 1| against each instance's bound,
+    lambda_min(X) >= -psd_tol ||X||_F, the objectives against ``ref_obj``
+    (each to ``rtol``, on average to ``mean_rtol``) relative to 1 +
+    |obj|."""
+    status = np.array([r.status for r in res])
+    X = np.stack([r.primal[Xidx] for r in res])
+    diag_err = np.abs(np.diagonal(X, axis1=1, axis2=2) - 1.0).max(axis=1)
+    diag_tol = np.array([1e-4 * (1.0 + s.norm_b) * s.rhs_scale for s in setups])
+    lam_min = np.linalg.eigvalsh(X)[:, 0]
+    fro = np.linalg.norm(X, axis=(1, 2))
+    ref = np.array(ref_obj)
+    dev = np.abs(np.array([r.objval for r in res]) - ref) / (1.0 + np.abs(ref))
+    print(f"phase {tag} checks: statuses "
+          f"{dict(zip(*np.unique(status, return_counts=True)))}; max|diag(X)-1|"
+          f" worst {diag_err.max():.3e} (its bound "
+          f"{diag_tol[diag_err.argmax()]:.3e}), min lambda_min(X)/||X||_F "
+          f"{float((lam_min / fro).min()):.3e}; objectives vs the JAX batch: "
+          f"max |diff|/(1+|ref|) {dev.max():.3e} (bound {rtol:.1e}), mean "
+          f"{dev.mean():.3e}" + (f" (bound {mean_rtol:.0e})" if mean_rtol else ""))
+    check((status == 1).all(), f"{tag}: not every instance reached status 1")
+    check((diag_err <= diag_tol).all(), f"{tag}: max|diag(X)-1| above the "
+          f"bound for {int((diag_err > diag_tol).sum())} instances")
+    check((lam_min >= -psd_tol * fro).all(), f"{tag}: lambda_min(X) < "
+          f"-{psd_tol} ||X||_F for {int((lam_min < -psd_tol * fro).sum())} "
+          "instances")
+    check((dev <= rtol).all(), f"{tag}: objectives of instances "
+          f"{np.nonzero(dev > rtol)[0].tolist()} differ from the JAX batch's "
+          f"by more than {rtol} (1 + |obj|)")
+    check(mean_rtol is None or dev.mean() <= mean_rtol,
+          f"{tag}: mean objective deviation {dev.mean():.3e} > {mean_rtol}")
+
+
+# the kernels whose launches phase L prints
+L_KERNELS = ("batched_psd_eigh_large", "batched_subspace_large",
+             "ns_gemm_batch", "fro_scale_batch", "sym_batch", "sym_guard_batch",
+             "batched_psd_eigh", "batched_subspace")
+
+
+def _l_run(torch, kernels, tag, smi, probs, opts, **kw):
+    """One counted solve_batch: the launch counts set to 0 just before it
+    and read just after; prints seconds, instances/s, steps and each L
+    kernel's launches.  Returns (results, entries, shapes, stats)."""
+    from proxsdp_tpu_torch import solve_batch
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+
+    stats = tbatch.BatchStats()
+    kernels.reset_launch_counts()
+    SHAPES.reset()
+    t0 = time.perf_counter()
+    res = solve_batch(probs, opts, stats=stats, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entries = dict(kernels.launch_counts)
+    shapes = collections.Counter(SHAPES.counts)
+    iters = np.array([r.iter for r in res])
+    print(f"phase {tag} (solve_batch, B = {len(res)}) on {smi}: {wall:.3f} s, "
+          f"{len(res) / wall:.3f} instances/s; f32 race {stats.race_iters} "
+          f"iterations ({stats.race_seconds:.3f} s), final phase "
+          f"{stats.final_seconds:.3f} s, program steps {stats.steps}; "
+          f"iterations min/median/max {iters.min()}/{int(np.median(iters))}/"
+          f"{iters.max()}; launches " + json.dumps(
+              {e: n for e, n in entries.items()
+               if n and e.rsplit("_f", 1)[0] in L_KERNELS}))
+    return res, entries, shapes, stats
+
+
+def phase_l(torch, kernels, smi):
+    """L1: 16 side-250 max-cut instances, projection "eigh" (K9L in the
+    f32 race and the f64 phase), against the JAX batch; its f64 program on
+    instances 0-3 for L_F64_ITERS iterations against the JAX package's.
+    L2: 40 side-500 instances, projection "auto" (the subspace mode: K12L
+    past one block's shared memory), against the JAX run lined up for C11
+    and C12, its reseeds and programs printed beside the JAX run's.  L3:
+    L1's instances under Options(projection="polar") (K5b, K6b).  Returns
+    {tag: (entries, shapes)} of the counted runs."""
+    from proxsdp_tpu_torch import Options, solve_batch
+    from proxsdp_tpu_torch.problem import preprocess
+
+    out = {}
+    base = Options(tol_gap=1e-4, tol_feasibility=1e-4)
+    l1 = _l_maxcut(L_SIDE, L_SIZE)
+    probs, Xidx = [p for p, _ in l1], l1[0][1]
+    setups = [preprocess(p) for p in probs]
+    t = time.perf_counter()
+    res, entries, shapes, _ = _l_run(torch, kernels, "L1", smi, probs, base,
+                                     projection="eigh")
+    print(f"phase L1 iterations {[r.iter for r in res]} (JAX {L1_REF_ITERS})")
+    _l_checks("L1", res, setups, Xidx, L1_REF_OBJ, L_OBJ_RTOL)
+    for sfx in ("f32", "f64"):
+        check(entries[f"batched_psd_eigh_large_{sfx}"] > 0,
+              f"L1: K9L launched no {sfx} kernel")
+    out["L1"] = (entries, shapes)
+    # the f64 program against the JAX package's iterate
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_batch(probs[:L_F64_SIZE], base.replace(
+        hybrid_precision=False, max_iter=L_F64_ITERS), projection="eigh")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d_obj = np.abs(np.array([r.objval for r in res])
+                   / np.array(L1_F64_REF["obj"]) - 1.0)
+    d_x = np.abs(np.array([np.linalg.norm(r.primal) for r in res])
+                 / np.array(L1_F64_REF["xnorm"]) - 1.0)
+    print(f"phase L1 f64 (instances 0-{L_F64_SIZE - 1}, hybrid_precision="
+          f"False, {L_F64_ITERS} iterations) on {smi}: {wall:.2f} s; objective"
+          f" vs the JAX f64 program: max relative {d_obj.max():.3e}, ||x|| "
+          f"{d_x.max():.3e} (bound {L_F64_RTOL:.0e}); K9L f64 launches "
+          f"{kernels.launch_counts['batched_psd_eigh_large_f64']}")
+    check(all(r.status == 3 and r.iter == L_F64_ITERS for r in res),
+          "L1 f64: not at the iteration limit")
+    check(max(d_obj.max(), d_x.max()) <= L_F64_RTOL,
+          "L1 f64: the f64 program parts from the JAX package's")
+    check(kernels.launch_counts["batched_psd_eigh_large_f64"] > 0,
+          "L1 f64: K9L launched no f64 kernel")
+    print(f"phase L1: {time.perf_counter() - t:.1f} s")
+
+    # ---- L3: the polar engine on L1's instances
+    t = time.perf_counter()
+    res, entries, shapes, _ = _l_run(torch, kernels, "L3", smi, probs,
+                                     base.replace(projection="polar"),
+                                     projection="eigh")
+    print(f"phase L3 iterations {[r.iter for r in res]} (JAX {L3_REF_ITERS})")
+    _l_checks("L3", res, setups, Xidx, L3_REF_OBJ, L_OBJ_RTOL,
+              psd_tol=L_POLAR_PSD_TOL)
+    for name in ("ns_gemm_batch", "fro_scale_batch", "sym_batch",
+                 "sym_guard_batch"):
+        for sfx in ("f32", "f64"):
+            check(entries[f"{name}_{sfx}"] > 0,
+                  f"L3: {name}_{sfx} launched no kernel")
+    check(entries["batched_psd_eigh_large_f32"] == 0
+          and entries["batched_psd_eigh_large_f64"] == 0,
+          "L3: the eigh ran under the polar engine")
+    out["L3"] = (entries, shapes)
+    print(f"phase L3: {time.perf_counter() - t:.1f} s")
+
+    # ---- L2: the subspace mode at side 500
+    t = time.perf_counter()
+    l2 = _l_maxcut(L2_SIDE, L2_SIZE)
+    probs2, Xidx2 = [p for p, _ in l2], l2[0][1]
+    res, entries, shapes, stats = _l_run(torch, kernels, "L2", smi, probs2,
+                                         base)
+    it2 = [r.iter for r in res]
+    print(f"phase L2 iterations {min(it2)}/{int(np.median(it2))}/{max(it2)} "
+          f"(JAX {L2_REF_ITERS})")
+    print(f"phase L2 reseeds (dtype, min iter, max iter, k, masked, r_max): "
+          f"{stats.reseeds}; JAX: {L2_REF_RESEEDS}")
+    programs = [(d, k) for d, _, k in stats.programs]
+    print(f"phase L2 programs (dtype, k): {programs}; JAX: {L2_REF_PROGRAMS}")
+    if [tuple(r) for r in stats.reseeds] != L2_REF_RESEEDS \
+            or programs != L2_REF_PROGRAMS:
+        print("phase L2 FINDING: the reseed or program sequence differs from "
+              "the JAX run's (C14)")
+    check(sum(entries[f"batched_subspace_large_{sfx}"]
+              for sfx in ("f32", "f64", "f64_f32")) > 0,
+          "L2: K12L launched no kernel")
+    _l_checks("L2", res, [preprocess(p) for p in probs2], Xidx2, L2_REF_OBJ,
+              L2_OBJ_RTOL, L2_OBJ_MEAN_RTOL)
+    out["L2"] = (entries, shapes)
+    print(f"phase L2: {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def phase_l_rows(rows, runs):
+    """Each phase-L row's launches: K9L's at its shape in L1, K12L's and
+    K12's at their shape in L2, K5b's and K6b's their entry point's in L3;
+    (rows for the kernels line, rows left off it: not launched at their
+    shape)."""
+    k9l = [r for r in rows if r["name"].startswith("batched_psd_eigh_large")]
+    k12l = [r for r in rows if r["name"].startswith("batched_subspace")]
+    polar = [r for r in rows if r not in k9l and r not in k12l]
+    kept, left = [], []
+    for group, tag in ((k9l, "L1"), (k12l, "L2"), (polar, "L3")):
+        entries, shapes = runs[tag]
+        a, b = assign_launches(group, shapes, entries)
+        kept += a
+        left += b
+    return kept, left
+
 
 def k_setups(torch):
     """Phase K's sweeps: (K1 problems, K1 randsdp data, K3 problems, the
@@ -3566,6 +4072,25 @@ def main() -> int:
         print(f"phase K: {time.perf_counter() - t_phase:.1f} s")
         return 0
 
+    if "--phase-l" in sys.argv[1:]:
+        # phase L's kernel rows and phase L alone
+        t_phase = time.perf_counter()
+        lrows = large_kernel_checks(torch, kernels, np.random.default_rng(12),
+                                    torch.device("cuda"))
+        print(f"phase L rows: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        kept, left = phase_l_rows(lrows, phase_l(torch, kernels, smi))
+        print(f"phase L: {time.perf_counter() - t_phase:.1f} s")
+        for label, fn, pattern in LAUNCH_US:
+            us = device_us(torch, fn, pattern, calls=10)
+            print(f"kernel {label}: device "
+                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print("phase L rows left off the line (not launched at their shape "
+              "in L): " + ", ".join(row["name"] for row in left))
+        print(json.dumps({"kernels": [
+            {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
+        return 0
+
     if "--phase-h" in sys.argv[1:]:
         # phase H alone, then the equilibrated arm's path at several caps
         t_phase = time.perf_counter()
@@ -3651,6 +4176,10 @@ def main() -> int:
     k1, k1_data, k3, k_xidx = k_setups(torch)
     krows, koff = k_kernel_checks(torch, kernels, np.random.default_rng(10),
                                   torch.device("cuda"), k1, k3)
+    t_l = time.perf_counter()
+    lrows = large_kernel_checks(torch, kernels, np.random.default_rng(12),
+                                torch.device("cuda"))
+    print(f"phase B: phase L's rows {time.perf_counter() - t_l:.1f} s")
     print(f"phase B: {time.perf_counter() - t_phase:.1f} s (above side 1024 "
           f"{t_g - t_b:.1f} s, phase G's shapes {t_hi - t_g:.1f} s, phases H "
           f"and I's {time.perf_counter() - t_hi:.1f} s)")
@@ -3847,6 +4376,20 @@ def main() -> int:
           "inside K15b' (and the fixed step): "
           + ", ".join(row["name"] for row in koff))
 
+    # ---- 11. phase L: solve_batch past one block's shared memory (K9L at
+    # side 250, K12L at side 500) and the batched polar projection
+    t_phase = time.perf_counter()
+    runs_l = phase_l(torch, kernels, smi)
+    print(f"phase L: {time.perf_counter() - t_phase:.1f} s")
+    l_kept, l_left = phase_l_rows(lrows, runs_l)
+    for row in l_kept:
+        check(row["launches"] > 0, f"{row['name']} launched no kernel in L")
+    rows += l_kept
+    print("kernels line: phase L's rows take the launches of their entry "
+          "point (K9L, K12L: at their shape) in L1, L2 or L3; checked against "
+          "the plain version but not launched at their shape there: "
+          + ", ".join(row["name"] for row in l_left))
+
     for label, fn, pattern in LAUNCH_US:
         us = device_us(torch, fn, pattern, calls=10)
         print(f"kernel {label}: device "
@@ -3858,7 +4401,7 @@ def main() -> int:
                - {n.replace("_f64", "").replace("_f32", "") for n in names})
     check(not missing, f"kernels line: no row of {sorted(missing)}")
 
-    print(f"phases A-K: {time.perf_counter() - t_start:.1f} s")
+    print(f"phases A-L: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))

@@ -26,7 +26,12 @@ kernels.
 | ritz_accept        | ops/cones.py:443-489 the Ritz acceptance test    |
 | lanczos_krylov     | ops/lanczos.py:56-95 the Lanczos recurrence      |
 | batched_psd_eigh   | ops/cones.py:622-675, 204-211 batched eigh proj. |
+|   (_large: K9L)    |   the same past one block's shared memory        |
 | batched_subspace   | ops/cones.py:427-510 accept-always subspace step |
+|   (_large: K12L)   |   the same on a device-memory working set        |
+| ns_gemm_batch      | ops/cones.py:84-95 polar_psd's products, vmapped |
+| fro_scale_batch,   | ops/cones.py:85-86, 94, 96-109 vmapped: scaling, |
+| sym(_guard)_batch  |   S and the guard of each instance               |
 | tri_to_square      | ops/tri.py:39-44 (batched)                       |
 | square_to_tri      | ops/tri.py:47-52 (batched)                       |
 | batched_gemv(_t)   | ops/linop.py:44-48 DenseOp products, vmapped     |
@@ -79,7 +84,10 @@ SOLVE_KERNELS = ("ell_spmv", "linesearch_loop", "residuals",
                  "soc_projection", "coo_spmv")
 BATCH_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch", "residuals_batch",
                  "primal_update_batch", "batched_psd_eigh", "tri_to_square",
-                 "square_to_tri", "batched_subspace", "batched_gemv")
+                 "square_to_tri", "batched_subspace", "batched_gemv",
+                 "batched_psd_eigh_large", "batched_subspace_large",
+                 "ns_gemm_batch", "fro_scale_batch", "sym_batch",
+                 "sym_guard_batch")
 TRIAL_KERNELS = ("ls_dual_update", "sq_dist", "ls_dual_update_batch",
                  "sq_dist_batch", "batched_gemv_t")
 KERNELS = SOLVE_KERNELS + BATCH_KERNELS + TRIAL_KERNELS
@@ -115,12 +123,19 @@ _ARGTYPES = {
     "batched_subspace": [_P, _I] + [_P] * 7 + [_I] * 3 + [_D] * 4 + [_P],
     "batched_gemv": [_P] * 3 + [_I] * 3 + [_P],
     "batched_gemv_t": [_P] * 3 + [_I] * 3 + [_P],
+    "batched_psd_eigh_large": [_P] * 8 + [_I, _I, _D, _P],
+    "batched_subspace_large": [_P, _I] + [_P] * 8 + [_I] * 4 + [_D] * 4 + [_P],
+    "ns_gemm_batch": [_P, _I, _I] * 3 + [_P] + [_I] * 4 + [_D, _D, _P],
+    "fro_scale_batch": [_P] * 3 + [_I, _I, _P],
+    "sym_batch": [_P, _P, _I, _I, _P],
+    "sym_guard_batch": [_P] * 7 + [_I, _I, _P],
 }
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # entry points of mixed type pairs: (input, output) dtype suffixes
 _MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",),
-          "batched_subspace": ("f64_f32",)}
+          "batched_subspace": ("f64_f32",),
+          "batched_subspace_large": ("f64_f32",)}
 
 
 def _suffixes(name: str) -> tuple[str, ...]:
@@ -835,6 +850,131 @@ def sym_guard(P, S, X):
     return Xp, rank, bad
 
 
+# ------------------------- K5b, K6b: the polar projection of a batch
+
+
+def _check_stack(name: str, t: torch.Tensor, what: str) -> None:
+    """3-d with contiguous rows (a stride per instance and per row)."""
+    if t.dim() != 3 or (t.shape[2] > 1 and t.stride(2) != 1):
+        raise ValueError(f"{name}: {what} must be 3-d with contiguous rows")
+
+
+def _instance_stride(t: torch.Tensor) -> int:
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1] * t.shape[2]
+
+
+def ns_gemm_batch_plain(A, B, C=None, alpha: float = 0.0, beta: float = 1.0):
+    prod = beta * torch.matmul(A, B)
+    return prod if C is None else alpha * C + prod
+
+
+def ns_gemm_batch(A, B, C=None, alpha: float = 0.0, beta: float = 1.0):
+    """``ns_gemm`` of each instance of a batch, one launch: out[z] = alpha *
+    C[z] + beta * (A[z] @ B[z]) for (nb, M, K) A, (nb, K, N) B, (nb, M, N)
+    C (or None), a new contiguous (nb, M, N) tensor; each instance rounded
+    as ``ns_gemm`` rounds it."""
+    name = "ns_gemm_batch"
+    mats = (A, B) if C is None else (A, B, C)
+    for t, what in zip(mats, ("A", "B", "C")):
+        _check_stack(name, t, what)
+    nb, M, K = A.shape
+    N = B.shape[2]
+    if (B.shape[:2] != (nb, K)
+            or (C is not None and C.shape != (nb, M, N))):
+        raise ValueError(f"{name}: shapes {tuple(A.shape)} @ {tuple(B.shape)}"
+                         f" + {None if C is None else tuple(C.shape)}")
+    if _on_cpu(name, *mats, strided=True):
+        return ns_gemm_batch_plain(A, B, C, alpha, beta)
+    out = torch.empty((nb, M, N), dtype=A.dtype, device=A.device)
+    if out.numel() == 0:
+        return out
+    _launch(name, A.dtype, A.device,
+            _ptr(A), A.stride(1) if M > 1 else K, _instance_stride(A),
+            _ptr(B), B.stride(1) if K > 1 else N, _instance_stride(B),
+            None if C is None else _ptr(C),
+            0 if C is None else (C.stride(1) if M > 1 else N),
+            0 if C is None else _instance_stride(C),
+            _ptr(out), M, N, K, nb, float(alpha), float(beta))
+    return out
+
+
+def fro_scale_batch_plain(X):
+    s = torch.sqrt(torch.sum(X * X, dim=(1, 2))) + 1e-30
+    return X / s[:, None, None]
+
+
+def fro_scale_batch(X):
+    """Y[z] = X[z] / (||X[z]||_F + 1e-30) for each (s, s) instance of X, in
+    X's type (polar_psd's scaling, vmapped)."""
+    name = "fro_scale_batch"
+    if X.dim() != 3:
+        raise ValueError(f"{name}: X must be (B, s, s)")
+    if _on_cpu(name, X):
+        return fro_scale_batch_plain(X)
+    nb, n = X.shape[0], X.shape[1] * X.shape[2]
+    Y = torch.empty_like(X)
+    if nb == 0:
+        return Y
+    partials = torch.empty(nb * _reduce_grid(n), dtype=X.dtype,
+                           device=X.device)
+    _launch(name, X.dtype, X.device, _ptr(X), _ptr(partials), _ptr(Y), n, nb)
+    return Y
+
+
+def sym_batch_plain(Y):
+    return 0.5 * (Y + Y.transpose(1, 2))
+
+
+def sym_batch(Y):
+    """S[z] = 0.5 * (Y[z] + Y[z]^T) for (B, s, s) Y."""
+    name = "sym_batch"
+    if Y.dim() != 3 or Y.shape[1] != Y.shape[2]:
+        raise ValueError(f"{name}: Y must be (B, s, s)")
+    if _on_cpu(name, Y):
+        return sym_batch_plain(Y)
+    S = torch.empty_like(Y)
+    if Y.shape[0]:
+        _launch(name, Y.dtype, Y.device, _ptr(Y), _ptr(S), Y.shape[1],
+                Y.shape[0])
+    return S
+
+
+def sym_guard_batch_plain(P, S, X):
+    side = X.shape[1]
+    Xp = 0.5 * (P + P.transpose(1, 2))
+    bad = ~torch.all(torch.isfinite(Xp).flatten(1), dim=1)
+    tr = torch.diagonal(S, dim1=1, dim2=2).sum(-1)
+    rank = torch.clamp(torch.round(0.5 * (side + tr)), 0, side)
+    return (torch.where(bad[:, None, None], X, Xp),
+            torch.where(bad, side, rank).to(torch.int32), bad)
+
+
+def sym_guard_batch(P, S, X):
+    """``sym_guard`` of each instance: (Xp (B, s, s), rank (B,) int32, bad
+    (B,) bool); an instance whose Xp has a non-finite value gets X and
+    rank = s, the others clip(round((s + tr S) / 2), 0, s)."""
+    name = "sym_guard_batch"
+    if X.dim() != 3 or X.shape[1] != X.shape[2]:
+        raise ValueError(f"{name}: X must be (B, s, s)")
+    for t, what in ((P, "P"), (S, "S")):
+        if t.shape != X.shape:
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, "
+                             f"want {tuple(X.shape)}")
+    if _on_cpu(name, P, S, X):
+        return sym_guard_batch_plain(P, S, X)
+    nb, side = X.shape[0], X.shape[1]
+    nt = -(-side // 32)
+    flags = torch.empty(max(nb, 1) * nt * nt, dtype=torch.int32,
+                        device=X.device)
+    Xp = torch.empty_like(X)
+    rank = torch.empty(nb, dtype=torch.int32, device=X.device)
+    bad = torch.empty(nb, dtype=torch.bool, device=X.device)
+    if nb:
+        _launch(name, X.dtype, X.device, _ptr(P), _ptr(S), _ptr(X), _ptr(Xp),
+                _ptr(flags), _ptr(rank), _ptr(bad), side, nb)
+    return Xp, rank, bad
+
+
 # -------------------------------------------------------- K7 CholeskyQR
 
 # the jitter of _cholqr2, keyed on the compute dtype (cones.py:249-256)
@@ -1309,9 +1449,23 @@ def batched_gemv_t(M: torch.Tensor, Y: torch.Tensor):
 
 # ------------------------------------- K9 batched Jacobi PSD projection
 
-# batched_eigh.cu: A and V of one instance (2 n^2 words, n the side padded
-# to even) in one block's 227 KB of shared memory
+# batched_eigh.cu (K9): A and V of one instance (2 n^2 words, n the side
+# padded to even) in one block's 227 KB of shared memory.  Above these
+# sides batched_eigh_large.cu (K9L) keeps them in device memory.
 EIGH_MAX_SIDE = {torch.float64: 118, torch.float32: 168}
+
+
+def _workspace(name: str, nbytes: int, dtype, device) -> torch.Tensor:
+    """A kernel's scratch of ``nbytes`` (rounded up to its dtype) on
+    ``device``; raises KernelError naming the kernel and the size where
+    device memory cannot hold it."""
+    size = torch.finfo(dtype).bits // 8 if dtype.is_floating_point else 1
+    try:
+        return torch.empty(-(-nbytes // size), dtype=dtype, device=device)
+    except torch.OutOfMemoryError as e:
+        raise KernelError(
+            f"{name}: its working set of {nbytes} bytes does not fit in the "
+            f"device memory of {device}") from e
 
 
 def _eigh_rows(X):
@@ -1337,25 +1491,34 @@ def batched_psd_eigh(X, tol_psd: float):
     """(Xp, w, rank, warm) of B symmetric (s, s) matrices X = V diag(w) V^T,
     w ascending: Xp = V diag(max(w, 0)) V^T, rank = #{w > tol_psd} (int32),
     warm = V[:, :, -1]; NaN (rank 0) for an instance with a non-finite
-    entry.  On the card s <= 118 in f64, 168 in f32 (one CTA's shared
-    memory)."""
+    entry.  On the card K9 (the working set in one CTA's shared memory)
+    to ``EIGH_MAX_SIDE`` (118 in f64, 168 in f32), K9L above: the same
+    Jacobi in f64 (an f32 input too, its outputs rounded to f32), up to 16
+    CTAs a matrix in cooperative launches, on a device-memory workspace of
+    4 n^2 doubles an instance -- A, V and their second copies --, n the
+    side rounded up to even."""
     name = "batched_psd_eigh"
     if X.dim() != 3 or X.shape[1] != X.shape[2]:
         raise ValueError(f"{name}: X must be (B, s, s)")
     if _on_cpu(name, X):
         return batched_psd_eigh_plain(X, tol_psd)
     B, s, _ = X.shape
-    if s > EIGH_MAX_SIDE[X.dtype]:
-        raise NotImplementedError(
-            f"{name}: side {s} > {EIGH_MAX_SIDE[X.dtype]} in {X.dtype} (the "
-            "batched projection of larger blocks is not ported yet: ROADMAP "
-            "B11, K9 above 118 / 168)")
     Xp = torch.empty_like(X)
     w = torch.empty((B, s), dtype=X.dtype, device=X.device)
     rank = torch.empty(B, dtype=torch.int32, device=X.device)
     warm = torch.empty((B, s), dtype=X.dtype, device=X.device)
-    _launch(name, X.dtype, X.device, _ptr(X), _ptr(Xp), _ptr(w), _ptr(rank),
-            _ptr(warm), B, s, float(tol_psd))
+    if s <= EIGH_MAX_SIDE[X.dtype]:
+        _launch(name, X.dtype, X.device, _ptr(X), _ptr(Xp), _ptr(w),
+                _ptr(rank), _ptr(warm), B, s, float(tol_psd))
+        return Xp, w, rank, warm
+    n = s + (s & 1)
+    large = "batched_psd_eigh_large"
+    ws = _workspace(large, B * 4 * n * n * 8, torch.float64, X.device)
+    parts = torch.empty(B * 256, dtype=torch.float64, device=X.device)
+    flags = torch.empty(B, dtype=torch.int32, device=X.device)
+    _launch(large, X.dtype, X.device, _ptr(X), _ptr(Xp), _ptr(w), _ptr(rank),
+            _ptr(warm), _ptr(ws), _ptr(parts), _ptr(flags), B, s,
+            float(tol_psd))
     return Xp, w, rank, warm
 
 
@@ -1438,7 +1601,8 @@ def square_to_tri(X, side: int):
 
 # ------------------------------ K12 batched accept-always subspace step
 
-SUBSPACE_MAX_K = 64  # the k x k Jacobi of batched_subspace.cu
+SUBSPACE_MAX_K = 64  # K12's k; K12L takes k to SUBSPACE_LARGE_MAX_K
+SUBSPACE_LARGE_MAX_K = 256  # the largest subspace bucket (solver._sub_bucket)
 # batched_subspace.cu: one block's dynamic shared memory, less its static
 # reduction buffer and flags
 SUBSPACE_SMEM_BYTES = 232448 - 256 * 8 - 64
@@ -1454,6 +1618,22 @@ def subspace_smem_bytes(side: int, k: int, dtype, mixed: bool) -> int:
     n = k + (k & 1)
     return (2 * side * k * t + 2 * k * t + 2 * side * k * c + 2 * n * n * c
             + 2 * (n // 2) * c + n * c + n * 4)
+
+
+def subspace_large_bytes(side: int, k: int, dtype, mixed: bool) -> tuple:
+    """(bytes of one K12L instance's workspace, whether its k x k regions
+    are in it): batched_subspace.cu's smem_layout split in two -- the
+    panels (W, XW, theta, max(theta, 0) in the blocks' type, Y/Q and Z in
+    the basis type) always in device memory, the k x k matrices, Jacobi's
+    scratch and the permutation in shared memory where they fit; rounded
+    up to 256 bytes."""
+    t = torch.finfo(dtype).bits // 8
+    c = 4 if mixed else t
+    n = k + (k & 1)
+    panels = 2 * side * k * t + 2 * k * t + 2 * side * k * c
+    small = 2 * n * n * c + 2 * (n // 2) * c + n * c + n * 4
+    small_global = small > SUBSPACE_SMEM_BYTES
+    return -(-(panels + small * small_global) // 256) * 256, small_global
 
 
 def _cholqr_batch_plain(Y, eps: float):
@@ -1530,8 +1710,11 @@ def batched_subspace(v, warm, side: int, tol_psd: float, mixed: bool = False):
     triangles (rows with unit column stride), warm (B, side, k) bases of
     v's dtype; ``mixed`` (f64 only) builds the basis in f32.  Returns
     (blocks (B, tri_len), min_eig (B,), rank (B,) int32, warm (B, side, k),
-    bad (B,) bool, stats (B, 3)).  On the card k <= 64 and one instance's
-    working set within a block's shared memory."""
+    bad (B,) bool, stats (B, 3)).  On the card K12 (one instance's working
+    set in a block's shared memory, ``subspace_smem_bytes``) where that
+    fits and k <= 64, else K12L (the same step, the same bits, its s x k
+    panels in a device-memory workspace, ``subspace_large_bytes``) for k up
+    to 256."""
     name = "batched_subspace"
     tl = side * (side + 1) // 2
     if v.dim() != 2 or v.shape[1] < tl or v.stride(1) != 1:
@@ -1546,13 +1729,11 @@ def batched_subspace(v, warm, side: int, tol_psd: float, mixed: bool = False):
     if not warm.is_contiguous():
         raise ValueError(f"{name}: non-contiguous warm")
     k = warm.shape[2]
-    need = subspace_smem_bytes(side, k, v.dtype, mixed)
-    if k > SUBSPACE_MAX_K or need > SUBSPACE_SMEM_BYTES:
-        raise NotImplementedError(
-            f"{name}: side {side}, k = {k} in {v.dtype}{' (mixed)' if mixed else ''}"
-            f" needs {need} bytes of one block's shared memory (at most "
-            f"{SUBSPACE_SMEM_BYTES}) or k > {SUBSPACE_MAX_K}: ROADMAP K12 for "
-            "large sides: multi-CTA")
+    if k > SUBSPACE_LARGE_MAX_K:
+        raise ValueError(f"{name}: k = {k} > {SUBSPACE_LARGE_MAX_K}, the "
+                         "largest subspace bucket")
+    large = (k > SUBSPACE_MAX_K or subspace_smem_bytes(side, k, v.dtype, mixed)
+             > SUBSPACE_SMEM_BYTES)
     dev, dt = v.device, v.dtype
     out = torch.empty((B, tl), dtype=dt, device=dev)
     me = torch.empty(B, dtype=dt, device=dev)
@@ -1561,9 +1742,16 @@ def batched_subspace(v, warm, side: int, tol_psd: float, mixed: bool = False):
     bad = torch.empty(B, dtype=torch.bool, device=dev)
     stats = torch.empty((B, 3), dtype=dt, device=dev)
     eps = CHOLQR_EPS[torch.float32 if mixed else dt]
-    _launch(name, "f64_f32" if mixed else dt, dev, _ptr(v),
-            v.stride(0) if B > 1 else v.shape[1], _ptr(warm), _ptr(out),
-            _ptr(me), _ptr(rank), _ptr(warm_out), _ptr(bad), _ptr(stats), B,
-            side, k, float(tol_psd), float(eps), float(1.0 / np.sqrt(2.0)),
+    head = (_ptr(v), v.stride(0) if B > 1 else v.shape[1], _ptr(warm),
+            _ptr(out), _ptr(me), _ptr(rank), _ptr(warm_out), _ptr(bad),
+            _ptr(stats))
+    tail = (B, side, k, float(tol_psd), float(eps), float(1.0 / np.sqrt(2.0)),
             float(np.sqrt(2.0)))
+    sfx = "f64_f32" if mixed else dt
+    if not large:
+        _launch(name, sfx, dev, *head, *tail)
+    else:
+        stride, _ = subspace_large_bytes(side, k, dt, mixed)
+        ws = _workspace(name + "_large", B * stride, torch.uint8, dev)
+        _launch(name + "_large", sfx, dev, *head, _ptr(ws), stride, *tail)
     return out, me, rank, warm_out, bad, stats

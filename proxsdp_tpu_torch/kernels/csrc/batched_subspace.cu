@@ -39,9 +39,19 @@
 // XW) and the k x k matrices live in dynamic shared memory.  The k x k
 // eigh is jacobi.cuh's (K9's).  No tensor cores: IEEE arithmetic in the
 // instance's own types, fused multiply-adds in fixed order, so a run
-// repeats bit for bit.  A working set above one block's 227 KB (f64 with
-// k = 48 above side ~120, k = 64 from side 130) is refused: the wrapper
-// raises (ROADMAP "K12 for large sides: multi-CTA").
+// repeats bit for bit.
+//
+// K12L (the "_large" entry points) is the same step on a second layout,
+// for a working set above one block's 227 KB (f64 with k = 48 above side
+// ~120, f32 with k = 32 above side ~440) or k above 64, up to 256 (the
+// largest subspace bucket): the four s x k panels and theta go to a
+// per-instance workspace in device memory (2.6 MB an instance at s = 500,
+// k = 128 in f64: B = 16 of them stay in the 50 MB L2), the k x k
+// matrices and Jacobi's scratch stay in shared memory where they fit (f32
+// to k = 128, f64 to k = 112), else join the panels.  Every access goes through the same code, so the two layouts
+// give the same bits.  One CTA per instance as in K12; at side 500 the
+// X products (~2 s^2 k flops each, three of them) dominate, each thread
+// reading X's row from L2 and a panel column from L1.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -157,11 +167,15 @@ __device__ void cholqr_pass(C* Y, C* G, int s, int k, C eps, int* s_bad) {
 }
 
 struct Layout {
-  size_t p3, p4, th, lam, p1, p2, g, u, cs, sn, ws, perm, total;
+  // the panels: byte offsets from the panel base, their size
+  size_t p3, p4, th, lam, p1, p2, panels;
+  // the k x k matrices and Jacobi's scratch: offsets from the small base
+  size_t g, u, cs, sn, ws, perm, small;
 };
 
-// byte offsets of the shared-memory regions: the T arrays first, then the
-// C arrays, then the ints (each region stays aligned to its type)
+// byte offsets of the regions: the T arrays first, then the C arrays,
+// then the ints (each region stays aligned to its type).  K12 puts the
+// small regions right after the panels in shared memory.
 template <typename T, typename C>
 __host__ __device__ Layout smem_layout(int s, int k) {
   const size_t sk = static_cast<size_t>(s) * k;
@@ -173,13 +187,14 @@ __host__ __device__ Layout smem_layout(int s, int k) {
   L.lam = L.th + k * sizeof(T);
   L.p1 = L.lam + k * sizeof(T);
   L.p2 = L.p1 + sk * sizeof(C);
-  L.g = L.p2 + sk * sizeof(C);
+  L.panels = L.p2 + sk * sizeof(C);
+  L.g = 0;
   L.u = L.g + n * n * sizeof(C);
   L.cs = L.u + n * n * sizeof(C);
   L.sn = L.cs + (n / 2) * sizeof(C);
   L.ws = L.sn + (n / 2) * sizeof(C);
   L.perm = L.ws + n * sizeof(C);
-  L.total = L.perm + n * sizeof(int);
+  L.small = L.perm + n * sizeof(int);
   return L;
 }
 
@@ -193,23 +208,28 @@ __global__ void __launch_bounds__(kThreads)
                             uint8_t* __restrict__ bad_out,
                             T* __restrict__ stats_out, int s, int k,
                             double tol_psd, double eps, double inv_sqrt2_d,
-                            double sqrt2_d) {
+                            double sqrt2_d, unsigned char* gws,
+                            int64_t gws_stride, int small_global) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double red[kThreads];
   __shared__ int s_flag;
   const Layout L = smem_layout<T, C>(s, k);
-  T* W = reinterpret_cast<T*>(smem + L.p3);    // V as C first, then W
-  T* XW = reinterpret_cast<T*>(smem + L.p4);
-  T* th = reinterpret_cast<T*>(smem + L.th);   // theta
-  T* lam = reinterpret_cast<T*>(smem + L.lam); // max(theta, 0)
-  C* Q = reinterpret_cast<C*>(smem + L.p1);    // Y, then Q
-  C* Z = reinterpret_cast<C*>(smem + L.p2);
-  C* G = reinterpret_cast<C*>(smem + L.g);     // Gram, then Bm / Jacobi A
-  C* U = reinterpret_cast<C*>(smem + L.u);     // Q^T Z, then rotations
-  C* cs = reinterpret_cast<C*>(smem + L.cs);
-  C* sn = reinterpret_cast<C*>(smem + L.sn);
-  C* ws = reinterpret_cast<C*>(smem + L.ws);
-  int* perm = reinterpret_cast<int*>(smem + L.perm);
+  // K12: everything in shared memory; K12L: the panels (and, with
+  // small_global, the k x k regions after them) in the workspace
+  unsigned char* pb = gws ? gws + blockIdx.x * gws_stride : smem;
+  unsigned char* sb = gws && !small_global ? smem : pb + L.panels;
+  T* W = reinterpret_cast<T*>(pb + L.p3);    // V as C first, then W
+  T* XW = reinterpret_cast<T*>(pb + L.p4);
+  T* th = reinterpret_cast<T*>(pb + L.th);   // theta
+  T* lam = reinterpret_cast<T*>(pb + L.lam); // max(theta, 0)
+  C* Q = reinterpret_cast<C*>(pb + L.p1);    // Y, then Q
+  C* Z = reinterpret_cast<C*>(pb + L.p2);
+  C* G = reinterpret_cast<C*>(sb + L.g);     // Gram, then Bm / Jacobi A
+  C* U = reinterpret_cast<C*>(sb + L.u);     // Q^T Z, then rotations
+  C* cs = reinterpret_cast<C*>(sb + L.cs);
+  C* sn = reinterpret_cast<C*>(sb + L.sn);
+  C* ws = reinterpret_cast<C*>(sb + L.ws);
+  int* perm = reinterpret_cast<int*>(sb + L.perm);
 
   const int t = threadIdx.x;
   const int64_t b = blockIdx.x;
@@ -368,13 +388,28 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename C>
 int launch(const void* v, int64_t vstride, const void* warm_in, void* out,
            void* me, void* rank, void* warm_out, void* bad, void* stats,
-           int64_t B, int64_t s, int64_t k, double tol_psd, double eps,
-           double inv_sqrt2, double sqrt2, void* stream) {
-  if (s < 2 || k < 1 || k > 64 || k > s)
+           void* gws, int64_t gws_stride, int64_t B, int64_t s, int64_t k,
+           double tol_psd, double eps, double inv_sqrt2, double sqrt2,
+           void* stream) {
+  const bool large = gws != nullptr;
+  if (s < 2 || k < 1 || k > (large ? 256 : 64) || k > s)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes =
-      smem_layout<T, C>(static_cast<int>(s), static_cast<int>(k)).total;
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L =
+      smem_layout<T, C>(static_cast<int>(s), static_cast<int>(k));
+  size_t bytes = L.panels + L.small;
+  int small_global = 0;
+  if (large) {
+    // the caller's stride must hold the panels, and the k x k regions
+    // where they exceed shared memory (kernels.subspace_large_bytes)
+    small_global = L.small > kMaxSmem;
+    bytes = small_global ? 0 : L.small;
+    if (gws_stride % 256 != 0 ||
+        static_cast<size_t>(gws_stride) <
+            L.panels + (small_global ? L.small : 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (bytes > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (B == 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaFuncSetAttribute(
       batched_subspace_kernel<T, C>,
@@ -386,7 +421,8 @@ int launch(const void* v, int64_t vstride, const void* warm_in, void* out,
       static_cast<T*>(out), static_cast<T*>(me), static_cast<int32_t*>(rank),
       static_cast<T*>(warm_out), static_cast<uint8_t*>(bad),
       static_cast<T*>(stats), static_cast<int>(s), static_cast<int>(k),
-      tol_psd, eps, inv_sqrt2, sqrt2);
+      tol_psd, eps, inv_sqrt2, sqrt2, static_cast<unsigned char*>(gws),
+      gws_stride, small_global);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,19 +431,32 @@ int launch(const void* v, int64_t vstride, const void* warm_in, void* out,
 // v: B rows of vstride values, the packed triangle (s (s + 1) / 2) first;
 // warm_in, warm_out: (B, s, k); out: (B, s (s + 1) / 2); me: (B,); rank:
 // (B,) int32; bad: (B,) bool bytes; stats: (B, 3).  eps is the basis
-// type's CholeskyQR jitter; inv_sqrt2 and sqrt2 are K10's scales.
-#define PROXSDP_SUBSPACE_ENTRY(NAME, T, C)                                     \
-  extern "C" int NAME(const void* v, int64_t vstride, const void* warm_in,    \
-                      void* out, void* me, void* rank, void* warm_out,        \
-                      void* bad, void* stats, int64_t B, int64_t s, int64_t k, \
-                      double tol_psd, double eps, double inv_sqrt2,           \
-                      double sqrt2, void* stream) {                           \
+// type's CholeskyQR jitter; inv_sqrt2 and sqrt2 are K10's scales.  The
+// _large entries (K12L) take the workspace gws, B blocks of gws_stride
+// bytes (kernels.subspace_large_bytes), k <= 256.
+#define PROXSDP_SUBSPACE_ENTRY(SFX, T, C)                                      \
+  extern "C" int proxsdp_batched_subspace_##SFX(                              \
+      const void* v, int64_t vstride, const void* warm_in, void* out,         \
+      void* me, void* rank, void* warm_out, void* bad, void* stats,           \
+      int64_t B, int64_t s, int64_t k, double tol_psd, double eps,            \
+      double inv_sqrt2, double sqrt2, void* stream) {                         \
     return launch<T, C>(v, vstride, warm_in, out, me, rank, warm_out, bad,    \
-                        stats, B, s, k, tol_psd, eps, inv_sqrt2, sqrt2,       \
-                        stream);                                              \
+                        stats, nullptr, 0, B, s, k, tol_psd, eps, inv_sqrt2,  \
+                        sqrt2, stream);                                       \
+  }                                                                           \
+  extern "C" int proxsdp_batched_subspace_large_##SFX(                        \
+      const void* v, int64_t vstride, const void* warm_in, void* out,         \
+      void* me, void* rank, void* warm_out, void* bad, void* stats,           \
+      void* gws, int64_t gws_stride, int64_t B, int64_t s, int64_t k,         \
+      double tol_psd, double eps, double inv_sqrt2, double sqrt2,             \
+      void* stream) {                                                         \
+    if (gws == nullptr) return static_cast<int>(cudaErrorInvalidValue);      \
+    return launch<T, C>(v, vstride, warm_in, out, me, rank, warm_out, bad,    \
+                        stats, gws, gws_stride, B, s, k, tol_psd, eps,        \
+                        inv_sqrt2, sqrt2, stream);                            \
   }
 
-PROXSDP_SUBSPACE_ENTRY(proxsdp_batched_subspace_f64, double, double)
-PROXSDP_SUBSPACE_ENTRY(proxsdp_batched_subspace_f32, float, float)
+PROXSDP_SUBSPACE_ENTRY(f64, double, double)
+PROXSDP_SUBSPACE_ENTRY(f32, float, float)
 // the mixed mode: f64 blocks, bases and Ritz values, an f32 basis build
-PROXSDP_SUBSPACE_ENTRY(proxsdp_batched_subspace_f64_f32, double, float)
+PROXSDP_SUBSPACE_ENTRY(f64_f32, double, float)

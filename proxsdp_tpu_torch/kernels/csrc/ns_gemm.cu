@@ -25,6 +25,13 @@
 // memory 32 deep along K.  At side 250 that is 64 blocks on 132 SMs, so
 // the card is under-filled; wgmma does not apply (no IEEE f32), and a
 // persistent split-K or register-blocked version is later work.
+//
+// K5b (the _batch entry points) replaces the same products of the batch
+// driver's vmapped polar_psd (cones.py:62-109 under
+// proxsdp_tpu/parallel/batch.py:141): one launch a product for the whole
+// batch, grid z over the instances, each operand at its own instance
+// stride; every instance's product is rounded as K5 rounds it.  At side
+// 250, B = 16 that is 1024 blocks, ~8 a SM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,9 +52,16 @@ __global__ void gemm_axpby_kernel(const T* __restrict__ A, int64_t lda,
                                   const T* __restrict__ B, int64_t ldb,
                                   const T* __restrict__ C, int64_t ldc,
                                   T* __restrict__ out, int64_t M, int64_t N,
-                                  int64_t K, T alpha, T beta) {
+                                  int64_t K, T alpha, T beta, int64_t sa,
+                                  int64_t sb, int64_t sc) {
   __shared__ T As[kTile][kTile + 1];  // As[row][k]
   __shared__ T Bs[kTile][kTile + 1];  // Bs[k][col]
+  // instance blockIdx.z of a batch (K5b; z = 0 for K5)
+  const int64_t z = blockIdx.z;
+  A += z * sa;
+  B += z * sb;
+  if (C) C += z * sc;
+  out += z * M * N;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kDim + tx;
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kTile;
@@ -87,16 +101,19 @@ __global__ void gemm_axpby_kernel(const T* __restrict__ A, int64_t lda,
 }
 
 template <typename T>
-int launch(const void* A, int64_t lda, const void* B, int64_t ldb,
-           const void* C, int64_t ldc, void* out, int64_t M, int64_t N,
-           int64_t K, double alpha, double beta, void* stream) {
+int launch(const void* A, int64_t lda, int64_t sa, const void* B, int64_t ldb,
+           int64_t sb, const void* C, int64_t ldc, int64_t sc, void* out,
+           int64_t M, int64_t N, int64_t K, int64_t nb, double alpha,
+           double beta, void* stream) {
+  if (nb < 1 || nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((N + kTile - 1) / kTile),
-                  static_cast<unsigned>((M + kTile - 1) / kTile));
+                  static_cast<unsigned>((M + kTile - 1) / kTile),
+                  static_cast<unsigned>(nb));
   gemm_axpby_kernel<T><<<grid, dim3(kDim, kDim), 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), lda, static_cast<const T*>(B), ldb,
       static_cast<const T*>(C), ldc, static_cast<T*>(out), M, N, K,
-      static_cast<T>(alpha), static_cast<T>(beta));
+      static_cast<T>(alpha), static_cast<T>(beta), sa, sb, sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -107,14 +124,40 @@ extern "C" int proxsdp_ns_gemm_f32(const void* A, int64_t lda, const void* B,
                                    int64_t ldb, const void* C, int64_t ldc,
                                    void* out, int64_t M, int64_t N, int64_t K,
                                    double alpha, double beta, void* stream) {
-  return launch<float>(A, lda, B, ldb, C, ldc, out, M, N, K, alpha, beta,
-                       stream);
+  return launch<float>(A, lda, 0, B, ldb, 0, C, ldc, 0, out, M, N, K, 1,
+                       alpha, beta, stream);
 }
 
 extern "C" int proxsdp_ns_gemm_f64(const void* A, int64_t lda, const void* B,
                                    int64_t ldb, const void* C, int64_t ldc,
                                    void* out, int64_t M, int64_t N, int64_t K,
                                    double alpha, double beta, void* stream) {
-  return launch<double>(A, lda, B, ldb, C, ldc, out, M, N, K, alpha, beta,
-                        stream);
+  return launch<double>(A, lda, 0, B, ldb, 0, C, ldc, 0, out, M, N, K, 1,
+                        alpha, beta, stream);
+}
+
+// K5b: nb instances, operand z at A + z * sa, B + z * sb, C + z * sc (sc
+// ignored for a null C); out contiguous (nb, M, N).
+extern "C" int proxsdp_ns_gemm_batch_f32(const void* A, int64_t lda,
+                                         int64_t sa, const void* B,
+                                         int64_t ldb, int64_t sb,
+                                         const void* C, int64_t ldc,
+                                         int64_t sc, void* out, int64_t M,
+                                         int64_t N, int64_t K, int64_t nb,
+                                         double alpha, double beta,
+                                         void* stream) {
+  return launch<float>(A, lda, sa, B, ldb, sb, C, ldc, sc, out, M, N, K, nb,
+                       alpha, beta, stream);
+}
+
+extern "C" int proxsdp_ns_gemm_batch_f64(const void* A, int64_t lda,
+                                         int64_t sa, const void* B,
+                                         int64_t ldb, int64_t sb,
+                                         const void* C, int64_t ldc,
+                                         int64_t sc, void* out, int64_t M,
+                                         int64_t N, int64_t K, int64_t nb,
+                                         double alpha, double beta,
+                                         void* stream) {
+  return launch<double>(A, lda, sa, B, ldb, sb, C, ldc, sc, out, M, N, K, nb,
+                        alpha, beta, stream);
 }

@@ -24,6 +24,13 @@
 // the row and the mirrored read are both coalesced.  The guard is a
 // per-tile flag pass plus one small pass that folds the flags, writes the
 // rank and, only if a value was not finite, copies X over Xp.
+//
+// K6b (the _batch entry points) runs the same passes on B instances at
+// once for the batch driver's vmapped polar_psd (cones.py:62-109 under
+// proxsdp_tpu/parallel/batch.py:141): the instance is grid y (the
+// reductions, the guard) or z (the tiled passes), each instance's sum,
+// scale, guard and rank its own, reduced in the same order as one K6
+// call on that instance alone.
 #include "reduce.cuh"
 
 namespace {
@@ -37,6 +44,9 @@ constexpr int kRows = 8;  // blockDim = (kTile, kRows)
 template <typename In, typename Ct>
 __global__ void sumsq_kernel(const In* __restrict__ x, Ct* __restrict__ partials,
                              int64_t n) {
+  // instance blockIdx.y of a batch (K6b; 0 for K6)
+  x += blockIdx.y * n;
+  partials += static_cast<int64_t>(blockIdx.y) * gridDim.x;
   Ct acc[1] = {Ct(0)};
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -56,6 +66,11 @@ __global__ void scale_kernel(const In* __restrict__ x,
                              Ct* __restrict__ y, Ct* __restrict__ xc,
                              int64_t n) {
   __shared__ Ct s_scale;
+  const int64_t z = blockIdx.y;
+  x += z * n;
+  partials += z * nparts;
+  y += z * n;
+  if (xc) xc += z * n;
   Ct acc[1] = {Ct(0)};
   for (int i = threadIdx.x; i < nparts; i += kThreads) acc[0] += partials[i];
   proxsdp::block_reduce<Ct, 1, 0u>(acc);
@@ -76,6 +91,8 @@ template <typename T>
 __global__ void sym_kernel(const T* __restrict__ y, T* __restrict__ s,
                            int64_t side) {
   __shared__ T tile[kTile][kTile + 1];
+  y += blockIdx.z * side * side;
+  s += blockIdx.z * side * side;
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kTile;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int tx = threadIdx.x;
@@ -100,6 +117,9 @@ __global__ void sym_flag_kernel(const Ct* __restrict__ p, Out* __restrict__ xp,
                                 int* __restrict__ flags, int64_t side) {
   __shared__ Ct tile[kTile][kTile + 1];
   __shared__ int s_bad;
+  p += blockIdx.z * side * side;
+  xp += blockIdx.z * side * side;
+  flags += static_cast<int64_t>(blockIdx.z) * gridDim.x * gridDim.y;
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * kTile;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int tx = threadIdx.x;
@@ -134,6 +154,13 @@ __global__ void guard_kernel(const int* __restrict__ flags, int nflags,
                              unsigned char* __restrict__ bad_out,
                              int64_t side) {
   __shared__ int s_bad;
+  const int64_t z = blockIdx.y;
+  flags += z * nflags;
+  s += z * side * side;
+  x += z * side * side;
+  xp += z * side * side;
+  rank += z;
+  bad_out += z;
   if (threadIdx.x == 0) s_bad = 0;
   __syncthreads();
   int any = 0;
@@ -161,27 +188,32 @@ __global__ void guard_kernel(const int* __restrict__ flags, int nflags,
     xp[i] = x[i];
 }
 
-dim3 tile_grid(int64_t side) {
+dim3 tile_grid(int64_t side, int64_t nb = 1) {
   const unsigned nt = static_cast<unsigned>((side + kTile - 1) / kTile);
-  return dim3(nt, nt);
+  return dim3(nt, nt, static_cast<unsigned>(nb));
 }
 
+// nb instances of n values each (nb = 1: K6)
 template <typename In, typename Ct>
 int launch_fro_scale(const void* x, void* partials, void* y, void* xc,
-                     int64_t n, void* stream) {
+                     int64_t n, void* stream, int64_t nb = 1) {
+  if (nb < 1 || nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = proxsdp::reduce_grid(n);
-  sumsq_kernel<In, Ct><<<grid, kThreads, 0, st>>>(
+  const dim3 g2(grid, static_cast<unsigned>(nb));
+  sumsq_kernel<In, Ct><<<g2, kThreads, 0, st>>>(
       static_cast<const In*>(x), static_cast<Ct*>(partials), n);
-  scale_kernel<In, Ct><<<grid, kThreads, 0, st>>>(
+  scale_kernel<In, Ct><<<g2, kThreads, 0, st>>>(
       static_cast<const In*>(x), static_cast<const Ct*>(partials), grid,
       static_cast<Ct*>(y), static_cast<Ct*>(xc), n);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_sym(const void* y, void* s, int64_t side, void* stream) {
-  sym_kernel<T><<<tile_grid(side), dim3(kTile, kRows), 0,
+int launch_sym(const void* y, void* s, int64_t side, void* stream,
+               int64_t nb = 1) {
+  if (nb < 1 || nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  sym_kernel<T><<<tile_grid(side, nb), dim3(kTile, kRows), 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(s), side);
   return static_cast<int>(cudaGetLastError());
@@ -190,13 +222,15 @@ int launch_sym(const void* y, void* s, int64_t side, void* stream) {
 template <typename Ct, typename Out>
 int launch_sym_guard(const void* p, const void* s, const void* x, void* xp,
                      void* flags, void* rank, void* bad, int64_t side,
-                     void* stream) {
+                     void* stream, int64_t nb = 1) {
+  if (nb < 1 || nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 g = tile_grid(side);
+  const dim3 g = tile_grid(side, nb);
   sym_flag_kernel<Ct, Out><<<g, dim3(kTile, kRows), 0, st>>>(
       static_cast<const Ct*>(p), static_cast<Out*>(xp),
       static_cast<int*>(flags), side);
-  guard_kernel<Ct, Out><<<proxsdp::reduce_grid(side * side), kThreads, 0, st>>>(
+  const dim3 gg(proxsdp::reduce_grid(side * side), static_cast<unsigned>(nb));
+  guard_kernel<Ct, Out><<<gg, kThreads, 0, st>>>(
       static_cast<const int*>(flags), static_cast<int>(g.x * g.y),
       static_cast<const Ct*>(s), static_cast<const Out*>(x),
       static_cast<Out*>(xp), static_cast<int*>(rank),
@@ -254,3 +288,28 @@ extern "C" int proxsdp_sym_guard_f32_f64(const void* p, const void* s,
   return launch_sym_guard<float, double>(p, s, x, xp, flags, rank, bad, side,
                                          stream);
 }
+
+// K6b: nb instances.  fro_scale_batch: x, y (nb, n), partials nb *
+// reduce_grid(n) values, compute type = input type; sym_batch: (nb, side,
+// side); sym_guard_batch: p, s, x, xp (nb, side, side), flags nb *
+// ceil(side/32)^2 ints, rank (nb,) int32, bad (nb,) bytes.
+#define PROXSDP_POLAR_BATCH_ENTRY(SFX, T)                                     \
+  extern "C" int proxsdp_fro_scale_batch_##SFX(                              \
+      const void* x, void* partials, void* y, int64_t n, int64_t nb,         \
+      void* stream) {                                                        \
+    return launch_fro_scale<T, T>(x, partials, y, nullptr, n, stream, nb);   \
+  }                                                                          \
+  extern "C" int proxsdp_sym_batch_##SFX(const void* y, void* s,             \
+                                         int64_t side, int64_t nb,           \
+                                         void* stream) {                     \
+    return launch_sym<T>(y, s, side, stream, nb);                            \
+  }                                                                          \
+  extern "C" int proxsdp_sym_guard_batch_##SFX(                              \
+      const void* p, const void* s, const void* x, void* xp, void* flags,    \
+      void* rank, void* bad, int64_t side, int64_t nb, void* stream) {       \
+    return launch_sym_guard<T, T>(p, s, x, xp, flags, rank, bad, side,       \
+                                  stream, nb);                               \
+  }
+
+PROXSDP_POLAR_BATCH_ENTRY(f32, float)
+PROXSDP_POLAR_BATCH_ENTRY(f64, double)

@@ -31,12 +31,18 @@
   projection of B same-side blocks, packed scaled triangles (the batch
   driver's layout: kernel K10 on both sides of the eigh) or square; on the
   card the eigendecomposition, reconstruction and rank are kernel K9, on
-  the CPU ``torch.linalg.eigh``.
+  the CPU ``torch.linalg.eigh``; on the card K9 to side 118 (f64) / 168
+  (f32), K9L above;
+* ``polar_psd_batch``: ``polar_psd`` vmapped (the batch driver's
+  ``projection="polar"``, parallel/batch.py:141 over cones.py:62-109),
+  on the batched entry points of K5 and K6 (K5b, K6b): one launch a
+  product for the whole batch, each instance's own scale, rank and guard.
 
 The batch driver's accept-always subspace step (cones.py:427-510 with its
 ``subspace_accept_always`` branch 497-510, vmapped by
-parallel/batch.py:141) is kernel K12, ``kernels.batched_subspace``, which
-``parallel/batch.py`` calls directly.
+parallel/batch.py:141) is kernel K12 (K12L past one block's shared
+memory), ``kernels.batched_subspace``, which ``parallel/batch.py`` calls
+directly.
 
 The SOC projection (cones.py:43-56) is kernel K13,
 ``kernels.soc_projection``, which ``solver._primal_step`` calls on all
@@ -95,6 +101,24 @@ def polar_psd(X, *, aggressive: int, polish: int):
     S, Xc, P = _newton_schulz(X, X.dtype, aggressive=aggressive,
                               polish=polish)
     Xp, rank, _ = kernels.sym_guard(P, S, Xc)
+    return Xp, rank
+
+
+def polar_psd_batch(X, *, aggressive: int, polish: int):
+    """``polar_psd`` of each (s, s) instance of X (B, s, s), computed in X's
+    type: (Xp (B, s, s), rank (B,) int32); an instance whose Xp has a
+    non-finite value passes its X through with rank = s."""
+    Y = kernels.fro_scale_batch(X)
+    for _ in range(aggressive):
+        A = kernels.ns_gemm_batch(Y, Y)
+        B = kernels.ns_gemm_batch(A, A, A, POLAR_QB, POLAR_QC)
+        Y = kernels.ns_gemm_batch(Y, B, Y, POLAR_QA, 1.0)
+    for _ in range(polish):
+        A = kernels.ns_gemm_batch(Y, Y)
+        Y = kernels.ns_gemm_batch(Y, A, Y, 1.5, -0.5)
+    S = kernels.sym_batch(Y)
+    P = kernels.ns_gemm_batch(S, X, X, 0.5, 0.5)
+    Xp, rank, _ = kernels.sym_guard_batch(P, S, X)
     return Xp, rank
 
 

@@ -11,12 +11,28 @@ Here the instance axis is written out:
   the subspace mode, (B, side, k) bases);
 * ``_primal_step``, ``_linesearch`` and ``_dual_step`` are the batched
   forms, beside the single-instance ones: the update is K4's batched entry
-  point (no symmetrisation in the packed-triangle layout), the projection
-  either ``ops.cones.psd_projection_small_batch`` (K10 to the square, the
-  batched Jacobi projection K9, K10 back) or, in the subspace mode,
-  ``kernels.batched_subspace`` (the accept-always Rayleigh-Ritz step K12,
-  one launch for the batch), the products K1's
-  batched entry point, the linesearch's trials one launch of K15b;
+  point (no symmetrisation in the packed-triangle layout), the products
+  K1's batched entry point, the linesearch's trials one launch of K15b;
+* the projection is one of the JAX batch's three engines, at any side
+  (``ops.cones.projection_kind``, the gating of cones.py:124-540 for one
+  block):
+
+  - the dense eigh (``ops.cones.psd_projection_small_batch``: K10 to the
+    square, the batched Jacobi projection, K10 back), the batch's default
+    (batch.py:60-66 forces it).  The Jacobi is K9 where one instance's
+    matrix and rotations fit in a block's shared memory (side <= 118 in
+    f64, 168 in f32) and K9L above (the same rotations, the working set in
+    device memory);
+  - in the subspace mode, ``kernels.batched_subspace``, the accept-always
+    Rayleigh-Ritz step (cones.py:427-510): K12 where one instance's
+    working set fits in a block's shared memory and k <= 64, else K12L
+    (its panels in device memory, k up to the largest bucket);
+  - under ``Options(projection="polar")`` at sides >= ``polar_min_side``
+    with the subspace step off, the Newton-Schulz polar projection
+    (cones.py:62-109, 526-540; ``ops.cones.polar_psd_batch``: K10, the
+    batched entry points of K5 and K6, K10 back).  It reports min_eig 0,
+    keeps the warm vector and counts as no fallback; an instance whose
+    result is not finite passes its X through with rank = side;
 * the operator is one shared by every instance or, where the instances'
   [A; G] differ, one per instance (``_batch_operands``): stacked ELL
   values over shared index tables (K1's and K15b's value stride) or a
@@ -44,8 +60,15 @@ An instance that ends with status 5 or 6 under ``certificate_search``
 goes through the single-instance ``solve``, warm-started from its batch
 iterate, for its ray search.
 
+``equilibration``, ``equilibration_force`` and ``block_equilibration``
+are accepted and have no effect, as in the JAX batch driver: its
+``preprocess`` call does not equilibrate and its operands carry no row
+unscale (batch.py:257-269, 311-318).
+
 Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``mesh=`` (multi-GPU, B14).
+``mesh=`` (multi-GPU, B14), ``tp_shards`` (A12), ``checkpoint_path``
+(A10), ``linop="coo"`` (B2b), SOC blocks and problems without exactly
+one PSD block (A7).
 """
 
 from __future__ import annotations
@@ -59,7 +82,8 @@ import scipy.sparse as sp
 import torch
 
 from .. import convert, kernels
-from ..ops.cones import psd_projection_small_batch
+from ..ops.cones import (polar_psd_batch, projection_kind,
+                         psd_projection_small_batch)
 from ..ops.linop import DenseOp, EllOp, build_linop
 from ..ops.tri import tri_len
 from ..options import Options
@@ -96,15 +120,8 @@ def _check_batch(opts: Options, layout: ConeLayout) -> None:
         _unsupported("tp_shards", "A12")
     if opts.checkpoint_path:
         _unsupported("checkpoint_path", "A10")
-    if opts.equilibration or opts.equilibration_force:
-        _unsupported("equilibration", "A6")
-    if opts.block_equilibration is True:
-        _unsupported("block_equilibration=True", "A6")
     if opts.linop == "coo":
-        _unsupported("linop='coo'", "B2'")
-    if opts.projection == "polar":
-        _unsupported("projection='polar' in the batch driver",
-                     "A11 (the batched polar projection)")
+        _unsupported("linop='coo'", "B2b")
     if layout.soc_lens:
         _unsupported("SOC blocks in a batch", "A7 / B3'")
     if len(layout.sdp_sides) != 1:
@@ -301,11 +318,15 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
     u = kernels.primal_update_batch(s.x, s.Mty, o.c, s.primal_step)
     n = u.shape[1]
     v = u if n == tl else u[:, :tl].contiguous()
-    if _subspace_on(side, opts):
+    # the single block's rule (cones.py:124-540; use_lanczos is off here):
+    # the subspace step, else polar, else the dense eigh
+    assert not _subspace_on(side, opts) or s.warm[0].dim() == 3, \
+        "the subspace mode needs (B, side, k) bases"
+    kind = projection_kind(side, opts, s.warm[0].dim() == 3)
+    if kind == "subspace":
         # the driver turns the subspace mode on only with
         # subspace_accept_always (batch.py:340-345); the mixed mode is an
         # f64 program's subspace_mixed (cones.py:435)
-        assert s.warm[0].dim() == 3, "the subspace mode needs (B, side, k) bases"
         blocks, me, cur, warm, bad, stats = kernels.batched_subspace(
             v, s.warm[0], side, opts.tol_psd,
             bool(opts.subspace_mixed) and v.dtype == torch.float64)
@@ -313,6 +334,16 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
         fallbacks = s.proj_fallbacks + bad.to(s.proj_fallbacks.dtype)
         sub_stats = stats
         sub_worst = torch.maximum(s.sub_worst, stats[:, 0])
+    elif kind == "polar":
+        # min_eig 0 (the full path's semantics), the warm vectors kept, no
+        # fallback counted (cones.py:526-540)
+        Xp, cur = polar_psd_batch(kernels.tri_to_square(v, side),
+                                  aggressive=opts.polar_aggressive,
+                                  polish=opts.polar_polish)
+        blocks = kernels.square_to_tri(Xp, side)
+        me, warm = v.new_zeros(v.shape[0]), s.warm[0]
+        fallbacks = s.proj_fallbacks
+        sub_stats, sub_worst = s.sub_stats, s.sub_worst
     else:
         blocks, me, cur, warm = psd_projection_small_batch(v, side, opts=opts)
         # the dense eigh ran for every block of side > 1 (used_full); the

@@ -171,19 +171,21 @@ def _scaled_rows():
 
 
 @pytest.mark.parametrize("case, item", [
-    ("mesh", "B14"), ("polar", "A11"), ("tp_shards", "A12"),
-    ("equilibration", "A6"), ("soc", "A7")])
+    ("mesh", "B14"), ("checkpoint", "A10"), ("tp_shards", "A12"),
+    ("coo", "B2b"), ("soc", "A7")])
 def test_out_of_slice_raises(case, item):
-    """Every mode outside the slice raises, naming its ROADMAP item."""
+    """Every mode outside the slice raises, naming its ROADMAP item.  (The
+    polar projection and the equilibration options, which raised A11 and
+    A6, run since they were ported: tests/test_torch_batch_large.py.)"""
     problems, kw = _problems(tx, B=2), {}
     if case == "mesh":
         kw["mesh"] = object()
-    elif case == "polar":
-        kw["options"] = tx.Options(projection="polar")
+    elif case == "checkpoint":
+        kw["options"] = tx.Options(checkpoint_path="unused.ckpts")
     elif case == "tp_shards":
         kw["options"] = tx.Options(tp_shards=2)
-    elif case == "equilibration":
-        kw["options"] = tx.Options(equilibration=True)
+    elif case == "coo":
+        kw["options"] = tx.Options(linop="coo")
     elif case == "soc":
         opt = tx.Optimizer()
         s = opt.add_soc_var(3)

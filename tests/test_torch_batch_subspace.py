@@ -448,7 +448,8 @@ def test_subspace_init_basis_matches_jax():
 def test_subspace_smem_limit(side, k, dtype, mixed, fits):
     """K12's working set against one block's shared memory: every bucket
     the driver reaches below side 120 fits, k = 64 in f64 (side >= 130)
-    does not (the wrapper raises there: ROADMAP K12 for large sides)."""
+    does not (the wrapper runs K12L there:
+    tests/test_torch_batch_large.py::test_subspace_route_and_workspace)."""
     need = kernels.subspace_smem_bytes(side, k, dtype, mixed)
     assert (need <= kernels.SUBSPACE_SMEM_BYTES) == fits
 

@@ -568,10 +568,16 @@ def test_batched_psd_eigh_wide_sides(cuda, dtype, side):
 
 
 def test_batched_psd_eigh_limits(cuda):
-    for dtype, side in ((torch.float64, 119), (torch.float32, 169)):
+    """K9 to side 118 (f64) / 168 (f32), K9L from the next side."""
+    for dtype, side in ((torch.float64, 118), (torch.float64, 119),
+                        (torch.float32, 168), (torch.float32, 169)):
         X = torch.zeros(2, side, side, dtype=dtype, device=cuda)
-        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
-            kernels.batched_psd_eigh(X, 1e-7)
+        kernels.reset_launch_counts()
+        kernels.batched_psd_eigh(X, 1e-7)
+        torch.cuda.synchronize()
+        large = side > kernels.EIGH_MAX_SIDE[dtype]
+        assert kernels.kernel_launches()["batched_psd_eigh_large"] == large
+        assert kernels.kernel_launches()["batched_psd_eigh"] == (not large)
     X = torch.zeros(2, 65, 65, dtype=torch.float64, device=cuda)
     # the zero matrix: projection 0, rank 0, a unit warm vector
     Xp, w, rank, warm = kernels.batched_psd_eigh(X[:, :16, :16].contiguous(),
@@ -655,9 +661,13 @@ def test_solve_batch_on_card_matches_cpu(cuda):
         assert abs(g.objval - w.objval) <= 1e-6 * (1 + abs(w.objval))
     for name in kernels.BATCH_KERNELS:
         # K12 runs in the subspace mode, K16 only on per-instance dense
-        # operators (test_solve_batch_per_instance_on_card_matches_cpu)
-        assert counts[name] > 0 or name in ("batched_subspace",
-                                            "batched_gemv"), name
+        # operators (test_solve_batch_per_instance_on_card_matches_cpu),
+        # K9L and K12L past one block's shared memory, K5b and K6b under
+        # projection="polar" (test_solve_batch_large_on_card_matches_cpu)
+        assert counts[name] > 0 or name in (
+            "batched_subspace", "batched_gemv", "batched_psd_eigh_large",
+            "batched_subspace_large", "ns_gemm_batch", "fro_scale_batch",
+            "sym_batch", "sym_guard_batch"), name
 
 
 # K12 against its plain version: f64 sums in other orders and Jacobi for
@@ -679,10 +689,10 @@ def _subspace_inputs(rng, B, side, k, dtype, device):
     return v.to(dtype).to(device), torch.tensor(V, dtype=dtype, device=device)
 
 
-def _check_subspace(got, want, v, V, side, mode):
+def _check_subspace(got, want, v, V, side, mode, tols=None):
     blk, me, rank, warm, bad, stats = got
     pblk, pme, prank, pwarm, pbad, pstats = want
-    tol = SUB_TOL[mode]
+    tol = (tols or SUB_TOL)[mode]
     scale = float(v[torch.isfinite(v)].abs().max())
     assert torch.equal(bad, pbad)
     assert bad.tolist()[:3] == [False, True, False]
@@ -752,12 +762,15 @@ def _theta_err(got, want, side, scale):
                for a, b in zip(_thetas(got, side), _thetas(want, side))) / scale
 
 
-@pytest.mark.parametrize("side, k", [(40, 16), (100, 16), (100, 24)])
+@pytest.mark.parametrize("side, k", [(40, 16), (100, 16), (100, 24),
+                                     (500, 24), (500, 96)])
 def test_batched_subspace_mixed_rayleigh_quotients(cuda, side, k):
     """The mixed mode's f64 Rayleigh quotients: on bases that span the top
     eigenvectors K12's Ritz values, min_eig and stats' min theta agree with
     the plain version's to SUB_THETA_TOL of the largest entry, and the f32
-    mode on the same inputs (Ritz values and XW in f32) fails that bound."""
+    mode on the same inputs (Ritz values and XW in f32) fails that bound.
+    At side 500 (K12L) the bound is SUB_THETA_TOL_LARGE, and the control
+    is not run (the f32 mode's error there is of the bound's order)."""
     rng = np.random.default_rng(side + k)
     v, V = _subspace_inputs(rng, 8, side, k, torch.float64, cuda)
     _, Q = torch.linalg.eigh(kernels.tri_to_square_plain(
@@ -767,18 +780,151 @@ def test_batched_subspace_mixed_rayleigh_quotients(cuda, side, k):
     V = (Q.flip(-1)[:, :, :k] @ R).contiguous()
     got = kernels.batched_subspace(v, V, side, 1e-7, True)
     want = kernels.batched_subspace_plain(v, V, side, 1e-7, True)
-    ctl = kernels.batched_subspace_plain(v.float(), V.float(), side, 1e-7, False)
     scale = float(v[torch.isfinite(v)].abs().max())
     assert torch.equal(got[4], want[4])
-    assert _theta_err(got, want, side, scale) <= SUB_THETA_TOL
+    err = _theta_err(got, want, side, scale)
+    print(f"mixed side {side} k = {k}: Ritz values {err:.3e} of the scale "
+          "from the plain version's")
+    if side > 130:
+        assert err <= SUB_THETA_TOL_LARGE
+        return
+    assert err <= SUB_THETA_TOL
+    ctl = kernels.batched_subspace_plain(v.float(), V.float(), side, 1e-7, False)
     assert _theta_err(ctl, want, side, scale) > SUB_THETA_TOL
 
 
 def test_batched_subspace_limits(cuda):
-    v = torch.zeros(2, 130 * 131 // 2, dtype=torch.float64, device=cuda)
-    V = torch.zeros(2, 130, 64, dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="K12 for large sides"):
-        kernels.batched_subspace(v, V, 130, 1e-7)
+    """A working set past one block's shared memory (k = 48 in f64 at
+    side 130) or k > 64 runs K12L; k above the largest bucket raises."""
+    for side, k, large in ((118, 48, False), (130, 48, True),
+                           (200, 96, True)):
+        v = torch.zeros(2, side * (side + 1) // 2, dtype=torch.float64,
+                        device=cuda)
+        V = torch.zeros(2, side, k, dtype=torch.float64, device=cuda)
+        kernels.reset_launch_counts()
+        kernels.batched_subspace(v, V, side, 1e-7)
+        torch.cuda.synchronize()
+        assert kernels.kernel_launches()["batched_subspace_large"] == large
+    V = torch.zeros(2, 300, 257, dtype=torch.float64, device=cuda)
+    v = torch.zeros(2, 300 * 301 // 2, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="largest subspace bucket"):
+        kernels.batched_subspace(v, V, 300, 1e-7)
+
+
+# K12L at side 500 (chip_smoke.py's SUB_RTOL_L, SUB_THETA_RTOL_L): f32
+# sums of 500 terms, and the f32 k x k eigensolvers' Ritz vectors; K9L's
+# f32 rows against the f32 eigh, per unit of side (chip_smoke.py's
+# EIGH_RTOL_F32_L)
+EIGH_RTOL_F32_L = 7e-6
+SUB_TOL_LARGE = {"f64": 1e-10, "f32": 3e-4, "mixed": 3e-4}
+# past k = 128 (chip_smoke.py's SUB_RTOL_L_WIDE): f32 readings to 5.0e-4
+SUB_TOL_WIDE = {"f64": 1e-10, "f32": 1e-3, "mixed": 3e-4}
+SUB_THETA_TOL_LARGE = 1e-5
+
+
+@pytest.mark.parametrize("dtype, side", [
+    (torch.float64, 119), (torch.float64, 169), (torch.float64, 250),
+    (torch.float64, 500), (torch.float32, 169), (torch.float32, 250),
+    (torch.float32, 500)])
+def test_batched_psd_eigh_large_matches_plain(cuda, dtype, side):
+    """K9L (past K9's shared memory) against its plain version: in f64 to
+    EIGH_RTOL at every side; an f32 input, which K9L works in f64 and
+    rounds, against the f32 eigh to EIGH_RTOL_F32_L times the side (the
+    f32 eigh's own distance: chip_smoke.py); ranks, NaN instance and warm
+    vectors as K9's."""
+    rng = np.random.default_rng(side)
+    X = _eigh_batch(rng, 6, side, dtype, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.batched_psd_eigh(X, 1e-7)
+    torch.cuda.synchronize()
+    assert kernels.kernel_launches()["batched_psd_eigh_large"] == 1
+    want = kernels.batched_psd_eigh_plain(X, 1e-7)
+    f = torch.isfinite(X).all(dim=(1, 2))
+    print(f"K9L {dtype} side {side}: projection "
+          f"{float((got[0][f] - want[0][f]).abs().max() / X[f].abs().max()):.3e}"
+          f", eigenvalues "
+          f"{float((got[1][f] - want[1][f]).abs().max() / X[f].abs().max()):.3e}"
+          " of the scale")
+    _check_eigh(got, want, X, 1e-7, rtol=EIGH_RTOL_F32_L * side
+                if dtype == torch.float32 else None)
+
+
+def test_batched_psd_eigh_large_many_matrices(cuda):
+    """K9L on more matrices than the card keeps resident at two CTAs a
+    matrix: one CTA a matrix, the batch in several cooperative launches,
+    against the plain version to EIGH_RTOL."""
+    X = _eigh_batch(np.random.default_rng(600), 600, 120, torch.float64, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.batched_psd_eigh(X, 1e-7)
+    torch.cuda.synchronize()
+    assert kernels.kernel_launches()["batched_psd_eigh_large"] == 1
+    _check_eigh(got, kernels.batched_psd_eigh_plain(X, 1e-7), X, 1e-7)
+
+
+@pytest.mark.parametrize("mode", ["f64", "mixed", "f32"])
+@pytest.mark.parametrize("side, k", [(130, 64), (500, 24), (500, 32),
+                                     (500, 96), (500, 128), (500, 192),
+                                     (500, 256)])
+def test_batched_subspace_large_matches_plain(cuda, mode, side, k):
+    """K12L against its plain version in each mode (K12's checks), where
+    the working set passes one block's shared memory or k > 64 (side 500,
+    k = 24 in f32 is K12's: checked for the route)."""
+    dtype = torch.float32 if mode == "f32" else torch.float64
+    v, V = _subspace_inputs(np.random.default_rng(side + k), 6, side, k,
+                            dtype, cuda)
+    kernels.reset_launch_counts()
+    got = kernels.batched_subspace(v, V, side, 1e-7, mode == "mixed")
+    torch.cuda.synchronize()
+    fits = kernels.subspace_smem_bytes(side, k, dtype, mode == "mixed") \
+        <= kernels.SUBSPACE_SMEM_BYTES and k <= kernels.SUBSPACE_MAX_K
+    assert kernels.kernel_launches()["batched_subspace_large"] == (not fits)
+    want = kernels.batched_subspace_plain(v, V, side, 1e-7, mode == "mixed")
+    _check_subspace(got, want, v, V, side, mode,
+                    SUB_TOL if side <= 130 else
+                    SUB_TOL_LARGE if k <= 128 else SUB_TOL_WIDE)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B, side", [(16, 250), (3, 100), (2, 33)])
+def test_batched_polar_kernels_match_plain(cuda, dtype, B, side):
+    """K5b and K6b against their plain versions (K5's and K6's
+    tolerances), one launch each; polar_psd_batch against its plain run,
+    a non-finite instance passed through with rank = side."""
+    from proxsdp_tpu_torch.ops.cones import polar_psd_batch
+
+    rng = np.random.default_rng(side)
+    sfx = "f64" if dtype == torch.float64 else "f32"
+    X = _eigh_batch(rng, B, side, dtype, cuda)
+    Xf = torch.nan_to_num(X)
+    C = Xf.flip(2).contiguous()
+    for name, args in (("ns_gemm_batch", (Xf, C, Xf, 0.5, -1.5)),
+                       ("ns_gemm_batch", (Xf, C)),
+                       ("fro_scale_batch", (Xf,)),
+                       ("sym_batch", (C,)),
+                       ("sym_guard_batch", (C, kernels.sym_batch(C), X))):
+        kernels.reset_launch_counts()
+        got = getattr(kernels, name)(*args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts[f"{name}_{sfx}"] == 1
+        want = getattr(kernels, name + "_plain")(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        _close([g for g in got if g.is_floating_point()],
+               [w for w in want if w.is_floating_point()], dtype)
+        for g, w in zip(got, want):
+            if not g.is_floating_point():
+                assert torch.equal(g, w), name
+    kernels.reset_launch_counts()
+    Xp, rank = polar_psd_batch(X, aggressive=7, polish=4)
+    torch.cuda.synchronize()
+    assert kernels.kernel_launches()["ns_gemm_batch"] == 30
+    on_cpu = polar_psd_batch(X.cpu(), aggressive=7, polish=4)
+    if B > 1:
+        assert int(rank[1]) == side
+        assert torch.equal(Xp[1].nan_to_num(7.0), X[1].nan_to_num(7.0))
+    ok = torch.isfinite(X).all(dim=(1, 2)).cpu()
+    err = (Xp.cpu()[ok] - on_cpu[0][ok]).abs().max() / X.cpu()[ok].abs().max()
+    assert float(err) <= (1e-11 if dtype == torch.float64 else 2e-4)
 
 
 def test_solve_batch_subspace_on_card_matches_cpu(cuda):
@@ -1290,3 +1436,30 @@ def test_solve_batch_per_instance_on_card_matches_cpu(cuda):
             assert counts["batched_gemv_f64"] > 0
         else:
             assert per["ell_spmv_batch_f64"] > 0
+
+
+@pytest.mark.parametrize("case", ["eigh", "polar"])
+def test_solve_batch_large_on_card_matches_cpu(cuda, case):
+    """solve_batch's f64 program at side 130 (B = 3) on the card -- the
+    eigh mode on K9L, or Options(projection="polar") on K5b and K6b --
+    against the same program on the CPU: statuses and iterations equal,
+    objectives within 1e-8 relative."""
+    from proxsdp_tpu_torch.parallel.batch import solve_batch
+
+    problems = [maxcut_problem(random_graph_weights(s, 130))[0]
+                for s in range(3)]
+    opts = tx.Options(tol_gap=1e-4, tol_feasibility=1e-4,
+                      hybrid_precision=False, projection=case)
+    kernels.reset_launch_counts()
+    got = solve_batch(problems, opts, projection="eigh")
+    counts = kernels.kernel_launches()
+    want = solve_batch(problems, opts, projection="eigh", device="cpu")
+    for g, w in zip(got, want):
+        assert g.status == w.status == 1
+        assert g.iter == w.iter
+        assert abs(g.objval - w.objval) <= 1e-8 * (1 + abs(w.objval))
+    if case == "eigh":
+        assert counts["batched_psd_eigh_large"] > 0
+    else:
+        assert counts["ns_gemm_batch"] > 0 and counts["sym_guard_batch"] > 0
+        assert counts["batched_psd_eigh_large"] == 0

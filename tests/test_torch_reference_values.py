@@ -944,3 +944,184 @@ def test_phase_k_reference_values():
     assert [r.iter for r in res] == got["K1_f64"]["iter"]
     for r, want in zip(res, got["K1_f64"]["obj"]):
         assert r.status == 1 and abs(r.objval - want) <= 1e-9 * (1 + abs(want))
+
+
+# chip_smoke.py's phase L: the JAX package's solve_batch of L's max-cut
+# instances -- "eigh": projection "eigh" (L1); "polar": the same under
+# Options(projection="polar") (L3); "f64": the f64 program of the first
+# instances for a number of iterations; "sub": projection "auto" (the
+# subspace mode), lined up with the port as G_CHILD is (C11, C12), its
+# reseeds and programs logged
+L_CHILD = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+import proxsdp_tpu as jx
+from proxsdp_tpu.parallel import batch as jb
+from proxsdp_tpu.models.maxcut import maxcut_problem, random_graph_weights
+from proxsdp_tpu_torch import kernels
+what, B, side = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+probs = [maxcut_problem(random_graph_weights(s, side))[0] for s in range(B)]
+opts = dict(tol_gap=1e-4, tol_feasibility=1e-4)
+out = {}
+if what == "f64":
+    res = jb.solve_batch(probs, jx.Options(hybrid_precision=False,
+                                           max_iter=int(sys.argv[4]), **opts),
+                         projection="eigh")
+    out = dict(obj=[r.objval for r in res],
+               xnorm=[float(np.linalg.norm(r.primal)) for r in res])
+elif what == "port_sub":
+    import proxsdp_tpu_torch as tx
+    from proxsdp_tpu_torch.parallel import batch as tb
+    from proxsdp_tpu_torch.models.maxcut import maxcut_problem as tmaxcut
+    tprobs = [tmaxcut(random_graph_weights(s, side))[0] for s in range(B)]
+    stats = tb.BatchStats()
+    res = tx.solve_batch(tprobs, tx.Options(**opts), device="cpu",
+                         stats=stats)
+    it = np.array([r.iter for r in res])
+    out = dict(obj=[r.objval for r in res], status=[r.status for r in res],
+               iters=f"{it.min()}/{int(np.median(it))}/{it.max()}",
+               reseeds=[list(r) for r in stats.reseeds],
+               programs=[[d, k] for d, _, k in stats.programs])
+elif what in ("eigh", "polar"):
+    kw = dict(projection="polar") if what == "polar" else {}
+    res = jb.solve_batch(probs, jx.Options(**opts, **kw), projection="eigh")
+    out = dict(status=[r.status for r in res], obj=[r.objval for r in res],
+               iter=[r.iter for r in res])
+else:
+    reseeds, programs, patched = [], [], []
+    reseed, runner = jb._reseed_batch, jb._cached_batch_runner
+    def logged_reseed(states, layout, k, mask, c_np, opts):
+        it = np.asarray(states.iter)
+        out, r = reseed(states, layout, k, mask, c_np, opts)
+        reseeds.append([str(np.asarray(states.x).dtype), int(it.min()),
+                        int(it.max()), int(k), int(np.sum(mask)), int(r)])
+        return out, r
+    def fetch_latest(ss):
+        i = (ss.iter - 1) % ss.buf_gap.shape[1]
+        take = jax.vmap(lambda buf, j: buf[j])
+        ft = ss.buf_gap.dtype
+        return jnp.stack([ss.iter.astype(ft), ss.status.astype(ft),
+                          take(ss.buf_gap, i), take(ss.buf_feas, i),
+                          take(ss.buf_prim_obj, i), take(ss.buf_dual_obj, i),
+                          ss.sub_worst.astype(ft)], axis=-1)
+    def logged_runner(layout, opts, m_kind="shared"):
+        programs.append([opts.dtype, int(opts.subspace_rank)])
+        run, _ = runner(layout, opts, m_kind)
+        def run_patched(states, ops):
+            if not patched and states.warm[0].ndim == 3:
+                patched.append(True)
+                V = torch.tensor(np.asarray(states.warm[0]))
+                states = run(states,
+                             ops._replace(chunk_end=jnp.asarray(1, jnp.int32)))
+                eps = kernels.CHOLQR_EPS[V.dtype]
+                Q = kernels._cholqr_batch_plain(
+                    kernels._cholqr_batch_plain(V, eps), eps)
+                states = states._replace(warm=(jnp.asarray(Q.flip(-1).numpy()),))
+            return run(states, ops)
+        return run_patched, jax.jit(fetch_latest)
+    jb._reseed_batch, jb._cached_batch_runner = logged_reseed, logged_runner
+    res = jb.solve_batch(probs, jx.Options(**opts))
+    jb._reseed_batch, jb._cached_batch_runner = reseed, runner
+    it = np.array([r.iter for r in res])
+    out = dict(obj=[r.objval for r in res], status=[r.status for r in res],
+               iters=f"{it.min()}/{int(np.median(it))}/{it.max()}",
+               reseeds=reseeds, programs=programs)
+print(json.dumps(out))
+"""
+
+
+def _l_child(*args, timeout=1800, env=ONE_THREAD):
+    proc = subprocess.run([sys.executable, "-c", L_CHILD, *map(str, args)],
+                          cwd=ROOT, env={**os.environ, **env},
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _l_constants() -> dict:
+    return _module_constants(SMOKE, ("L_", "L1_", "L2_", "L3_"))
+
+
+def test_phase_l_constants_are_consistent():
+    """chip_smoke.py's phase L constants hang together: one objective and
+    iteration count per instance, the polar answers within 2e-4 (1 + |obj|)
+    of the eigh ones (the same optima), the side-500 run's reseeds start
+    at iteration 128 on bucket 16 with every instance, and its programs
+    start with the f32 subspace program at 16 and pass one block's shared
+    memory (an f32 bucket of 32 or more) before the f64 phase."""
+    k = _l_constants()
+    B = k["L_SIZE"]
+    for name in ("L1_REF_OBJ", "L1_REF_ITERS", "L3_REF_OBJ", "L3_REF_ITERS"):
+        assert len(k[name]) == B, name
+    for a, b in zip(k["L1_REF_OBJ"], k["L3_REF_OBJ"]):
+        assert abs(a - b) <= 2e-4 * (1 + abs(a))
+    assert len(k["L2_REF_OBJ"]) == k["L2_SIZE"] > 32
+    res, prg = k["L2_REF_RESEEDS"], k["L2_REF_PROGRAMS"]
+    assert res[0][:5] == ("float32", 128, 128, 16, k["L2_SIZE"])
+    assert prg[0] == ("float32", 16) and prg[-1][0] == "float64"
+    assert any(d == "float32" and kk >= 32 for d, kk in prg)
+    assert len(k["L1_F64_REF"]["obj"]) == k["L_F64_SIZE"]
+
+
+@pytest.mark.slow
+def test_phase_l_reference_values():
+    """chip_smoke.py's phase L constants re-derived by the JAX package on
+    one CPU thread (~17 minutes; L2 at side 500 ~15 of them): L1's and
+    L3's statuses, objectives (1e-9 relative) and iterations, L1's f64
+    program, L2's objectives, iterations, reseeds and programs."""
+    k = _l_constants()
+    side, B = k["L_SIDE"], k["L_SIZE"]
+    for what, obj, iters in (("eigh", "L1_REF_OBJ", "L1_REF_ITERS"),
+                             ("polar", "L3_REF_OBJ", "L3_REF_ITERS")):
+        got = _l_child(what, B, side)
+        assert got["status"] == [1] * B
+        np.testing.assert_allclose(got["obj"], k[obj], rtol=1e-9)
+        assert got["iter"] == k[iters]
+    got = _l_child("f64", k["L_F64_SIZE"], side, k["L_F64_ITERS"])
+    for key in ("obj", "xnorm"):
+        np.testing.assert_allclose(got[key], k["L1_F64_REF"][key], rtol=1e-9)
+    got = _l_child("sub", k["L2_SIZE"], k["L2_SIDE"], timeout=3600)
+    assert got["status"] == [1] * k["L2_SIZE"]
+    np.testing.assert_allclose(got["obj"], k["L2_REF_OBJ"], rtol=1e-9)
+    assert got["iters"] == k["L2_REF_ITERS"]
+    assert [tuple(r) for r in got["reseeds"]] == k["L2_REF_RESEEDS"]
+    assert [tuple(p) for p in got["programs"]] == k["L2_REF_PROGRAMS"]
+
+
+# L2's runs that differ from the reference run in rounding alone: the JAX
+# package with XLA's code generation stopped at AVX (no FMA contraction,
+# C17), and the port's plain path on the CPU (torch's matmul and LAPACK's
+# eigh where XLA's are)
+L2_WITNESSES = {
+    "jax_no_fma": ("sub", {**ONE_THREAD, "XLA_FLAGS": (
+        "--xla_cpu_multi_thread_eigen=false --xla_cpu_max_isa=AVX")}),
+    "port_cpu": ("port_sub", ONE_THREAD),
+}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("witness", sorted(L2_WITNESSES))
+def test_phase_l2_rounding_scatter(witness):
+    """Phase L2's objective bounds (L2_OBJ_RTOL each, L2_OBJ_MEAN_RTOL on
+    average, relative to 1 + |obj|) hold between the JAX reference run and
+    a run that differs from it in rounding only (on one thread: ~17
+    minutes the JAX run, ~56 the port's plain path).  Prints the
+    deviations and the reseed and program sequences beside the
+    reference's (C14)."""
+    k = _l_constants()
+    what, env = L2_WITNESSES[witness]
+    got = _l_child(what, k["L2_SIZE"], k["L2_SIDE"], timeout=7200, env=env)
+    ref = np.array(k["L2_REF_OBJ"])
+    dev = np.abs(np.array(got["obj"]) - ref) / (1 + np.abs(ref))
+    print(f"{witness}: objectives vs L2_REF_OBJ max {dev.max():.3e} "
+          f"(instance {int(dev.argmax())}), mean {dev.mean():.3e}; "
+          f"iterations {got['iters']} (reference {k['L2_REF_ITERS']}); "
+          f"reseeds {got['reseeds']}; programs {got['programs']}")
+    assert got["status"] == [1] * k["L2_SIZE"]
+    assert dev.max() <= k["L2_OBJ_RTOL"]
+    assert dev.mean() <= k["L2_OBJ_MEAN_RTOL"]

@@ -111,7 +111,7 @@
    at the shapes of phases A, C, D, G, H, I and J; K2 and sq_dist
    themselves are checked but on no path.
 12. phase K: per-instance operators in solve_batch and the API.  K1,
-   solve_batch of randsdp_problem(s, 40, 20, varbounds=False) for s < 64
+   solve_batch of randsdp_problem(s, 40, 20, varbounds=False) for s < 8
    ("dense_batched") at Options(tol_gap=1e-4, tol_feasibility=1e-4),
    projection "eigh": every status 1, feasibility within the solver's
    bound, PSD, randsdp's relative violation and the objectives beside
@@ -126,7 +126,7 @@
    one solve_cone_program and one solve_sdp against known answers.
 
    Phase B also holds phase K's kernels to their plain versions: K16
-   (the batched GEMV, both directions) at K1's (64, 20, 820) stack, K1b'
+   (the batched GEMV, both directions) at K1's (8, 20, 820) stack, K1b'
    (a value stride) at K3's stacked ELL values bit for bit, K15b' over
    K3's per-instance ELL and K1's per-instance dense M'.
 13. phase L: solve_batch past one block's shared memory.  L1, 16 max-cut
@@ -143,7 +143,25 @@
    Phase B also holds phase L's kernels to their plain versions: K9L at
    sides 119, 169, 250 and 500 in f64 and f32, K12L (and K12 at L2's f32
    k = 24) at side 500, B = 40, k = 24-256 in f32, the mixed mode and
-   f64, K5b and K6b at (16, 250, 250) in f32 and f64.
+   f64, K5b and K6b at (16, 250, 250) in f32 and f64 (the side-500 K9L
+   and the k = 192, 256 K12L rows checked but not timed).
+14. phase M: solve_batch over any cone layout, a sweep of phase I's
+   program (conic_sweep_instance: one shared COO operator, each
+   instance's b and c).  M1, 16 instances in the eigh mode (K9 on all
+   512 side-19 blocks in one launch, K9L on the side-200 ones, K13b,
+   K14b, K15b's COO form): statuses, feasibility, every PSD block PSD,
+   every SOC block within tol_soc, objectives within 2e-4 (1 + |obj|) of
+   the JAX batch's; a profiled window of its f32 program; its f64
+   program on instances 0-3 for 300 iterations against the JAX package's
+   (1e-6).  M2, the same in the subspace mode (K12 on the side-200 block
+   beside K9) against the JAX run lined up for C11 and C12 within phase
+   G's bounds, its reseeds and programs printed beside the JAX run's.
+
+   Phase B also holds phase M's kernels to their plain versions and K13b
+   and K14b bit for bit to K13 and K14 on each row: K14b and K15b's COO
+   form at M's shape and, off the path, at theta's operator (B = 7), K13b
+   at M's blocks and at B = 7 instances of 4096 blocks of lengths 2-257,
+   K9 at (512, 19, 19), K9L at (16, 200, 200), K12 at (16, 200, 16).
 
     python3 chip_smoke.py --phase-h
 
@@ -160,6 +178,10 @@ builds the kernels and runs phase K's phase-B rows and phase K alone.
 
 builds the kernels and runs phase L's phase-B rows and phase L alone.
 
+    python3 chip_smoke.py --phase-m
+
+builds the kernels and runs phase M's phase-B rows and phase M alone.
+
 Each phase prints its wall time.  Any failed phase exits non-zero.  The
 last line is a JSON object with the device; the line before it lists the
 kernels.  A side-2000 row's launches are those of its entry point at its
@@ -171,6 +193,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import re
@@ -616,7 +639,7 @@ I_REF_LP_NORM = 0.2538993817603355
 # in another order than the plain version's (2e-5 of the output's scale);
 # K3's f32 program and K8's Ritz sums in the mixed polish are f64 slots.
 RTOL = {"f64": 1e-12, "f32": 2e-5}
-REPS = 50
+REPS = 20  # timed calls a row, within the script's time limit
 SLOW_MS = 20.0
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and the fastest
 # IEEE rate per type (f32 on the CUDA cores, f64 on the FP64 tensor cores)
@@ -646,6 +669,21 @@ def build_theta(pkg, edges, n: int = THETA_N):
     return opt.build_problem(), X
 
 
+def conic_indices(sides, soc_lens, n_lp: int):
+    """Where ``conic_program_data``'s variables lie: (each PSD block's
+    diagonal variables, each SOC block's head, the LP coordinates, the
+    number of variables)."""
+    diags, pos = [], 0
+    for side in sides:
+        j = np.repeat(np.arange(side), np.arange(1, side + 1))
+        i = np.concatenate([np.arange(k + 1) for k in range(side)])
+        diags.append(pos + np.nonzero(i == j)[0])
+        pos += side * (side + 1) // 2
+    soc_off = pos + np.concatenate([[0], np.cumsum(soc_lens)[:-1]])
+    pos += sum(soc_lens)
+    return diags, soc_off.astype(int), np.arange(pos, pos + n_lp), pos + n_lp
+
+
 def conic_program_data(seed: int = I_SEED, sides=I_PSD_SIDES,
                        soc_lens=I_SOC_LENS, n_lp: int = I_LP,
                        rows: int = I_ROWS, density: float = I_DENSITY) -> dict:
@@ -666,22 +704,11 @@ def conic_program_data(seed: int = I_SEED, sides=I_PSD_SIDES,
     with |v| = 0.5, 0 on the LP coordinates), so the dual is strictly
     feasible and the optimum finite."""
     rng = np.random.default_rng(seed)
-    anchors = []  # one row's variables per block
-    pos = 0
-    for side in sides:
-        j = np.repeat(np.arange(side), np.arange(1, side + 1))
-        i = np.concatenate([np.arange(k + 1) for k in range(side)])
-        anchors.append(pos + np.nonzero(i == j)[0])
-        pos += side * (side + 1) // 2
-    soc_off = pos + np.concatenate([[0], np.cumsum(soc_lens)[:-1]])
-    anchors += [np.array([off]) for off in soc_off]
-    pos += sum(soc_lens)
-    lp = np.arange(pos, pos + n_lp)
-    anchors.append(lp)
-    N = pos + n_lp
+    diags, soc_off, lp, N = conic_indices(sides, soc_lens, n_lp)
+    anchors = diags + [np.array([off]) for off in soc_off] + [lp]
     x0 = np.zeros(N)
     s0 = np.zeros(N)
-    for d in anchors[: len(sides)]:
+    for d in diags:
         x0[d] = 1.0
         s0[d] = 1.0
     for off, ln in zip(soc_off, soc_lens):
@@ -705,6 +732,42 @@ def conic_program_data(seed: int = I_SEED, sides=I_PSD_SIDES,
     c[lp] += z0  # G = -I on the LP coordinates: -G^T z0 = z0
     return {"sides": tuple(sides), "soc_lens": tuple(soc_lens), "n_lp": n_lp,
             "cols": cols, "vals": vals, "b": b, "c": c}
+
+
+def conic_sweep_instance(data: dict, s: int) -> dict:
+    """Instance s of a sweep over ``conic_program_data``'s program: its
+    rows (cols, vals) kept, b and c drawn anew by phase I's construction
+    from numpy.random.default_rng(s) -- b = A x0 for an x0 interior to the
+    cone (each PSD block's diagonal 1 + U(0, 1), each SOC block (2 + U(0,
+    1), w) with |w| < 1, the LP coordinates 1 + U(0, 1)), c = s0 - A^T y0
+    - G^T z0 for a random y0, z0 > 0 and s0 interior to the dual cone
+    (each diagonal 1 + U(0, 1), each SOC block (1.5, v) with |v| = 0.5, 0
+    on the LP coordinates) -- so every instance is feasible and bounded.
+    Returns ``data`` with the instance's b and c."""
+    rng = np.random.default_rng(s)
+    sides, soc_lens, n_lp = data["sides"], data["soc_lens"], data["n_lp"]
+    cols, vals = data["cols"], data["vals"]
+    diags, soc_off, lp, N = conic_indices(sides, soc_lens, n_lp)
+    x0, s0 = np.zeros(N), np.zeros(N)
+    for d in diags:
+        x0[d] = 1.0 + rng.random(d.size)
+        s0[d] = 1.0 + rng.random(d.size)
+    for off, ln in zip(soc_off, soc_lens):
+        w, v = rng.standard_normal(ln - 1), rng.standard_normal(ln - 1)
+        x0[off] = 2.0 + rng.random()
+        x0[off + 1 : off + ln] = rng.random() * w / np.linalg.norm(w)
+        s0[off] = 1.5
+        s0[off + 1 : off + ln] = 0.5 * v / np.linalg.norm(v)
+    x0[lp] = 1.0 + rng.random(n_lp)
+    y0 = rng.standard_normal(len(cols))
+    z0 = 1.0 + rng.random(n_lp)
+    aty = np.zeros(N)
+    for cl, v, y in zip(cols, vals, y0):
+        aty[cl] += v * y
+    c = s0 - aty
+    c[lp] += z0
+    b = np.array([np.dot(v, x0[cl]) for cl, v in zip(cols, vals)])
+    return {**data, "b": b, "c": c}
 
 
 def build_conic_program(pkg, data: dict):
@@ -804,16 +867,22 @@ def farkas(res, problem) -> float:
 # phase K: per-instance operators in solve_batch and the API on the card.
 # K1 a randsdp sweep (dense A_k: "dense_batched"), K3 a max-cut sweep whose
 # diagonal rows carry per-instance weights (one pattern: "ell_batched"),
-# both at Options(tol_gap=1e-4, tol_feasibility=1e-4), projection "eigh".
-K1_SIZE, K1_SIDE, K1_ROWS = 64, 40, 20
+# projection "eigh", K3 at Options(tol_gap=1e-4, tol_feasibility=1e-4),
+# K1 at K1_TOL.  K1 sweeps instances 0-7, the JAX references' batch, at
+# 1e-3: a sweep of 64 at 1e-4 took 306 s of the script's 1200 on one host
+# (its slowest instance's ~28,000 launch-bound steps), of 8 at 1e-4 177 s
+# (24,184 steps); at 1e-3 the JAX run's slowest instance takes 6,530
+# iterations against 19,307, on the same kernels of dense_batched's path
+K1_SIZE, K1_SIDE, K1_ROWS = 8, 40, 20
+K1_TOL = 1e-3
 K3_SIZE, K3_SIDE = 64, 40
 # the JAX package's solve_batch of instances 0-7 of K1 and of K3 under the
 # same options (one CPU thread; tests/test_torch_reference_values.py
 # re-derives them, slow): statuses all 1
-K1_REF_OBJ = [261.17132528210976, 307.2981278408135, 292.07665619251867,
-              233.98145155829496, 341.98730920071716, 268.03817336382343,
-              583.0453599912692, 239.88813876941833]
-K1_REF_ITERS = [7619, 10058, 19307, 2670, 16574, 11344, 6187, 11813]
+K1_REF_OBJ = [262.739882468766, 309.2979400137903, 292.08323623793797,
+              233.78388053927137, 342.0000656487037, 272.1485725809556,
+              585.1131754311178, 244.61683071923562]
+K1_REF_ITERS = [3421, 4257, 6530, 2599, 5313, 4879, 2479, 2612]
 K3_REF_OBJ = [72.76375332712261, 69.93610649084243, 77.66198958210019,
               66.06956412877948, 66.39328895115288, 67.56914574196529,
               65.71511650481064, 66.67022793203446]
@@ -1094,14 +1163,15 @@ def check_solution(res, Xidx, ref_obj, diag_tol, label):
 
 def check_entry(torch, kernels, out, name, sfx, source, replaces, call, plain,
                 inputs, outputs, flops, library=None, compare_fn=None,
-                tol=None, label="", note="", wrapper=None):
+                tol=None, label="", note="", wrapper=None, timed=True):
     """Run one entry point on the card and its plain version on the same
     inputs, compare, time both (and the library call), and append the
     kernels-line row to ``out``; launches are filled in later.  The bound's
     bytes are those of ``inputs`` and ``outputs``, each once.  ``wrapper``
     names the wrapper that routes to the entry point, where it is not
     ``name`` (K9L and K12L are routes of batched_psd_eigh and
-    batched_subspace)."""
+    batched_subspace).  ``timed=False`` checks without timing (a row of
+    a shape no path runs, kept off the kernels line: its times None)."""
     entry = f"{name}_{sfx}"
     row_name = f"{entry} ({label})" if label else entry
     fn = wrapper or name
@@ -1119,14 +1189,16 @@ def check_entry(torch, kernels, out, name, sfx, source, replaces, call, plain,
     if tol is None:
         tol = RTOL["f64" if all(w.dtype != torch.float32 for w in want)
                    else "f32"]
-    ms = median_ms(torch, lambda: call(getattr(kernels, fn)))
-    plain_ms = median_ms(torch, lambda: call(plain))
-    lib_ms = median_ms(torch, library) if library else None
+    ms = median_ms(torch, lambda: call(getattr(kernels, fn))) if timed else None
+    plain_ms = median_ms(torch, lambda: call(plain)) if timed else None
+    lib_ms = median_ms(torch, library) if library and timed else None
     t_bytes = nbytes(list(inputs) + list(outputs)) / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS["f32" if "f32" in sfx else "f64"] * 1e3
+    times = (f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+             f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms" if timed
+             else "not timed (off every path)")
     print(f"kernel {row_name:32s} max_abs_err {err:.3e} rel {rel:.3e} "
-          f"(tol {tol:.2g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-          f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms "
+          f"(tol {tol:.2g}) {times} "
           f"bound {max(t_bytes, t_ops) * 1e3:.3f} us{note}")
     check(rel <= tol, f"{entry}: relative error {rel:.3e} > {tol}")
     out.append({
@@ -1790,10 +1862,16 @@ BATCH_DEVICE_FNS = {
     "batched_psd_eigh": "batched_psd_eigh_kernel",
     "tri_gather": "gather_scale_kernel",
     "batched_subspace": "batched_subspace_kernel",
+    "batched_psd_eigh_large": "batched_psd_eigh_large_kernel",
+    "soc_projection_batch": "soc_proj_batch_kernel",
+    "coo_spmv_batch": "seg_spmv_batch_kernel",
 }
 
 
-def profile_steps(torch, kernels, setups, opts, steps=32, sub_k=0):
+PROFILE_STEPS = 16  # a profiled window's steps
+
+
+def profile_steps(torch, kernels, setups, opts, steps=PROFILE_STEPS, sub_k=0):
     """``steps`` iterations of the batch program of ``opts`` on the setups
     (after 8 warm-up ones; the subspace program at bucket ``sub_k`` when it
     is not 0) under torch.profiler: (CUDA kernels per
@@ -1904,7 +1982,8 @@ def phase_d(torch, kernels, smi, problems, setups, brows):
         per_step, ours, busy, ms, per_launch = profile_steps(
             torch, kernels, setups, Options(dtype=dtype, hybrid_precision=False,
                                             tol_gap=1e-4, tol_feasibility=1e-4))
-        print(f"phase D profile ({label} program, 32 iterations of all "
+        print(f"phase D profile ({label} program, {PROFILE_STEPS} "
+              f"iterations of all "
               f"{B} instances): {ms:.3f} ms/iteration, CUDA kernels per "
               f"iteration {'not measured' if per_step is None else f'{per_step:.1f}'}"
               f" (the port's own {ours:.1f}), device busy "
@@ -2581,7 +2660,8 @@ def phase_g(torch, kernels, smi, label, B, side, warm_first, ref):
             torch, kernels, setups, Options(dtype=dtype, hybrid_precision=False,
                                             tol_gap=1e-4, tol_feasibility=1e-4),
             sub_k=k)
-        print(f"phase {label} profile ({name} program, 32 iterations of all "
+        print(f"phase {label} profile ({name} program, {PROFILE_STEPS} "
+              f"iterations of all "
               f"{B} instances): {ms:.3f} ms/iteration, CUDA kernels per "
               f"iteration {'not measured' if per_step is None else f'{per_step:.1f}'}"
               f" (the port's own {ours:.1f}), device busy "
@@ -2604,6 +2684,32 @@ def phase_g(torch, kernels, smi, label, B, side, warm_first, ref):
           f"{label}: objectives lie {dev.mean():.3e} (1 + |obj|) from the JAX "
           f"solve's on average (> {G_OBJ_MEAN_RTOL:.1e})")
     return entries, shapes, buckets
+
+
+def soc_blocks(rng, lens, rows=1):
+    """``rows`` rows of SOC blocks of ``lens`` laid end to end, (rows,
+    sum(lens)): the three cases of cones.py:50-55 in turn (inside the
+    cone, in its polar, outside both) and every fourth with v = 0."""
+    parts = []
+    for i, ln in enumerate(tuple(lens) * rows):
+        w = rng.standard_normal(ln - 1)
+        nv = np.linalg.norm(w)
+        head = (2.0 * nv, -1.5 * nv, 0.3 * nv, -0.7)[i % 4]
+        parts.append(np.concatenate([[head], 0 * w if i % 4 == 3 else w]))
+    return np.concatenate(parts).reshape(rows, -1)
+
+
+def soc_padded(torch, V, lens):
+    """The v parts of the SOC blocks of ``lens`` in V (..., sum(lens)),
+    zero-padded to the longest: the library call's input."""
+    width = max(lens)
+    off = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    gather = torch.tensor(off[:, None] + 1 + np.minimum(
+        np.arange(width - 1)[None, :], np.array(lens)[:, None] - 2),
+        device=V.device)
+    pad = torch.tensor(np.arange(width - 1)[None, :]
+                       < np.array(lens)[:, None] - 1, device=V.device)
+    return torch.where(pad, V[..., gather], 0.0)
 
 
 def conic_kernel_checks(torch, kernels, rng, dev):
@@ -2704,22 +2810,9 @@ def conic_kernel_checks(torch, kernels, rng, dev):
                 v[:: I_SOC_LENS[0]] *= 3.0  # heads: a mix of the cases
             else:
                 lens = tuple(2 + (37 * i) % 256 for i in range(nblk))
-                parts = []
-                for i, ln in enumerate(lens):
-                    w = rng.standard_normal(ln - 1)
-                    nv = np.linalg.norm(w)
-                    head = (2.0 * nv, -1.5 * nv, 0.3 * nv, -0.7)[i % 4]
-                    parts.append(np.concatenate([[head], 0 * w if i % 4 == 3
-                                                 else w]))
-                v = torch.tensor(np.concatenate(parts), dtype=dt, device=dev)
-            width = max(lens)
-            off = np.concatenate([[0], np.cumsum(lens)[:-1]])
-            gather = torch.tensor(off[:, None] + 1 + np.minimum(
-                np.arange(width - 1)[None, :], np.array(lens)[:, None] - 2),
-                device=dev)
-            pad = torch.tensor(np.arange(width - 1)[None, :]
-                               < np.array(lens)[:, None] - 1, device=dev)
-            Vpad = torch.where(pad, v[gather], 0.0)
+                v = torch.tensor(soc_blocks(rng, lens)[0], dtype=dt,
+                                 device=dev)
+            Vpad = soc_padded(torch, v, lens)
             check_entry(
                 torch, kernels, rows["I"] if on else off_path, "soc_projection", sfx,
                 "soc_proj.cu", "proxsdp_tpu/ops/cones.py:43",
@@ -3375,6 +3468,12 @@ L_EIGH_B = 16
 # K12L at side 500: buckets 24-256 and L2's path (f32 k = 96, the mixed
 # f64 polish at k = 24)
 L_SUB_KS = (24, 32, 48, 64, 96, 128, 192, 256)
+# rows checked but not timed, to keep the script inside its time limit
+# (phase M's cost): K9L at side 500 and K12L at k = 192 and 256, shapes no
+# path runs (L2 stays on the subspace step at k <= 96); their earlier
+# times stand in PERF.md's kernel table
+L_UNTIMED_SIDES = (500,)
+L_UNTIMED_KS = (192, 256)
 
 
 def _l_maxcut(side, B):
@@ -3413,7 +3512,8 @@ def large_kernel_checks(torch, kernels, rng, dev):
                 lambda f, X=X: f(X, TOL_PSD), kernels.batched_psd_eigh_plain,
                 (X,), outs, nb * 10.5 * s ** 3, library=library,
                 compare_fn=eigh_compare(torch, X, tol), tol=tol,
-                label=f"L: side {s}", wrapper="batched_psd_eigh")
+                label=f"L: side {s}", wrapper="batched_psd_eigh",
+                timed=s not in L_UNTIMED_SIDES)
             if s == L_SIDE:  # L1's shape: device time under the profiler
                 LAUNCH_US.append((
                     f"batched_psd_eigh_large_{sfx} (L: side {s})",
@@ -3474,7 +3574,7 @@ def large_kernel_checks(torch, kernels, rng, dev):
                                             rtol[sfx], theta,
                                             SUB_THETA_RTOL_L, **vec),
                 tol=rtol[sfx], label=f"L: B = {B}, side {side}, k = {k}",
-                wrapper="batched_subspace")
+                wrapper="batched_subspace", timed=k not in L_UNTIMED_KS)
             if (sfx, k) in (("f32", 96), ("f64_f32", 24)):  # L2's K12L shapes
                 LAUNCH_US.append((
                     f"batched_subspace_large_{sfx} (L: k = {k})",
@@ -3578,10 +3678,11 @@ L_KERNELS = ("batched_psd_eigh_large", "batched_subspace_large",
              "batched_psd_eigh", "batched_subspace")
 
 
-def _l_run(torch, kernels, tag, smi, probs, opts, **kw):
+def _l_run(torch, kernels, tag, smi, probs, opts, names=None, **kw):
     """One counted solve_batch: the launch counts set to 0 just before it
-    and read just after; prints seconds, instances/s, steps and each L
-    kernel's launches.  Returns (results, entries, shapes, stats)."""
+    and read just after; prints seconds, instances/s, steps and the
+    launches of each kernel of ``names`` (default L_KERNELS).  Returns
+    (results, entries, shapes, stats)."""
     from proxsdp_tpu_torch import solve_batch
     from proxsdp_tpu_torch.parallel import batch as tbatch
 
@@ -3602,7 +3703,7 @@ def _l_run(torch, kernels, tag, smi, probs, opts, **kw):
           f"iterations min/median/max {iters.min()}/{int(np.median(iters))}/"
           f"{iters.max()}; launches " + json.dumps(
               {e: n for e, n in entries.items()
-               if n and e.rsplit("_f", 1)[0] in L_KERNELS}))
+               if n and e.rsplit("_f", 1)[0] in (names or L_KERNELS)}))
     return res, entries, shapes, stats
 
 
@@ -3822,9 +3923,9 @@ def _optimizer_of(module, build, *args):
 
 def phase_k(torch, kernels, smi, k1, k1_data, k3, Xidx):
     """K1 (randsdp, dense_batched) and K3 (scaled max-cut, ell_batched):
-    solve_batch of 64 instances each; K2: the API on the card (MIMO and
-    sensor localisation through Optimizer.optimize, one solve_cone_program
-    and one solve_sdp).  Returns the launches by entry point and the
+    solve_batch of K1_SIZE and K3_SIZE instances; K2: the API on the card
+    (MIMO and sensor localisation through Optimizer.optimize, one
+    solve_cone_program and one solve_sdp).  Returns the launches by entry point and the
     per-instance launches of each sweep."""
     from proxsdp_tpu_torch import (ConeDims, Options, solve_batch,
                                    solve_cone_program, solve_sdp)
@@ -3834,10 +3935,10 @@ def phase_k(torch, kernels, smi, k1, k1_data, k3, Xidx):
     from proxsdp_tpu_torch.problem import preprocess
 
     out = {}
-    opts = Options(tol_gap=1e-4, tol_feasibility=1e-4)
-    for tag, probs, ref_obj, ref_iters, kind in (
-            ("K1", k1, K1_REF_OBJ, K1_REF_ITERS, "dense_batched"),
-            ("K3", k3, K3_REF_OBJ, K3_REF_ITERS, "ell_batched")):
+    for tag, probs, ref_obj, ref_iters, kind, tol in (
+            ("K1", k1, K1_REF_OBJ, K1_REF_ITERS, "dense_batched", K1_TOL),
+            ("K3", k3, K3_REF_OBJ, K3_REF_ITERS, "ell_batched", 1e-4)):
+        opts = Options(tol_gap=tol, tol_feasibility=tol)
         setups = [preprocess(p) for p in probs]
         stats = tbatch.BatchStats()
         kernels.reset_launch_counts()
@@ -3875,7 +3976,8 @@ def phase_k(torch, kernels, smi, k1, k1_data, k3, Xidx):
                      f"|<A_k, X> - b_k| / (1 + |b_k|): max {rel.max():.3e}, "
                      f"median {np.median(rel):.3e}")
         print(f"phase {tag} (solve_batch, B = {B}, {kind}, Options(tol_gap="
-              f"1e-4, tol_feasibility=1e-4), projection 'eigh') on {smi}: "
+              f"{tol:.0e}, tol_feasibility={tol:.0e}), projection 'eigh') on "
+              f"{smi}: "
               f"{wall:.3f} s, {B / wall:.2f} instances/s; f32 race "
               f"{stats.race_iters} iterations ({stats.race_seconds:.3f} s), "
               f"final phase {stats.final_seconds:.3f} s, program steps "
@@ -4024,6 +4126,380 @@ def phase_k(torch, kernels, smi, k1, k1_data, k3, Xidx):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase M: solve_batch over any cone layout -- a sweep of phase I's program
+# ---------------------------------------------------------------------------
+
+M_SIZE = 16
+M_OBJ_RTOL = 2e-4
+M_F64_SIZE = 4
+M_F64_ITERS = 300
+M_F64_RTOL = 1e-6
+M_OFF_B = 7  # the phase B rows' off-path batch
+# the kernels whose launches phase M prints
+M_KERNELS = ("batched_psd_eigh", "batched_psd_eigh_large", "batched_subspace",
+             "batched_subspace_large", "soc_projection_batch",
+             "coo_spmv_batch", "linesearch_loop_batch")
+# the JAX package's solve_batch of phase M's instances on one CPU thread
+# (tests/test_torch_reference_values.py::M_CHILD re-derives them, slow):
+# M1, projection "eigh" under Options(tol_gap=1e-4, tol_feasibility=1e-4);
+# its f64 program on instances 0-3 for M_F64_ITERS iterations; M2,
+# projection "subspace", lined up with the port for C11 and C12 on every
+# subspace block (its reseeds and programs)
+M1_REF_OBJ = [
+    514.0938333493236, 578.2716325860428, 543.6222345056243,
+    563.3704034683371, 511.34960610375447, 524.0296788592997,
+    535.7985588729339, 586.3231402652752, 501.09246153394724,
+    545.8167641500443, 494.9105753801208, 526.0631884869275,
+    538.8641995215304, 568.3689667380162, 479.1053481820511,
+    523.9744327061547]
+M1_REF_ITERS = [
+    461, 331, 411, 416, 273, 234, 326, 294, 309, 468, 389, 397, 298, 343, 308, 316]
+M1_F64_REF = {
+    "obj": [514.1285114554069, 578.327155985561, 543.6058438383927, 563.3838316370322],
+    "xnorm": [46.89867659771977, 46.358234256743366, 46.14628048339254, 45.93151310115228]}
+M2_REF_OBJ = [
+    515.3025169641796, 579.1474034116839, 543.6484921014734,
+    563.4708798281249, 511.9450928246255, 523.9292999946762,
+    536.5947530116574, 586.731429170858, 501.97233048768595,
+    546.1972265578237, 495.5230534377686, 526.8249057095946,
+    538.9811662729916, 569.2719684042686, 480.3249146141457,
+    523.9996788275798]
+M2_REF_ITERS = '215/249/363'
+M2_REF_RESEEDS = [
+    ('float32', 128, 128, 16, 16, 32),
+    ('float32', 128, 128, 48, 16, 32),
+    ('float32', 212, 356, 48, 16, 8),
+    ('float32', 212, 356, 16, 16, 8),
+    ('float64', 212, 356, 16, 16, 8)]
+M2_REF_PROGRAMS = [('float32', 16), ('float32', 48), ('float32', 16), ('float64', 16)]
+
+
+@functools.lru_cache(maxsize=1)
+def m_problems(tx):
+    """Phase M's instances: ``conic_sweep_instance`` s = 0 .. M_SIZE - 1
+    of phase I's program (one operator, each instance's b and c); (the
+    problems, (PSD index matrices, SOC indices, LP indices))."""
+    data = conic_program_data()
+    built = [build_conic_program(tx, conic_sweep_instance(data, s))
+             for s in range(M_SIZE)]
+    return [b[0] for b in built], built[0][1:]
+
+
+def _rows_exact(torch, per_row, label):
+    """A compare_fn: the batched kernel's outputs bit for bit those of
+    ``per_row()`` (the single-instance kernel on each row, on the card),
+    then the errors against the plain version."""
+    def cmp(got, want):
+        for g, r in zip(got, per_row(), strict=True):
+            check(torch.equal(g, r), f"{label}: not bit for bit the "
+                  "single-instance kernel on each row")
+        return compare(torch, got, want)
+    return cmp
+
+
+def sweep_kernel_checks(torch, kernels, rng, dev):
+    """Phase B rows of phase M's kernels, each against its plain version
+    and, for K13b and K14b, bit for bit against K13 and K14 on each row:
+    K14b (M x and M' y of the shared COO operator) and K15b's COO form at
+    M's shape (B = 16, 1000 x 28,628) and, off the path, over phase H's
+    theta operator at B = 7; K13b at M's 128 blocks of 16 (B = 16) and,
+    off the path, B = 7 instances of 4096 blocks of lengths 2-257 in all
+    three cases and with v = 0; K9 at M's grouped (512, 19, 19) stack, K9L
+    at (16, 200, 200), K12 (or K12L) at M2's first program (16, 200, 16);
+    in f64 and f32.  (rows for the kernels line, off-path rows)."""
+    import proxsdp_tpu_torch as tx
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+    from proxsdp_tpu_torch.problem import preprocess
+
+    rows, off_path = [], []
+    msetups = [preprocess(p) for p in m_problems(tx)[0]]
+    hsetups = [preprocess(build_theta(tx, theta_graph())[0])] * M_OFF_B
+    for sfx, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        for tag, setups, out in (("M", msetups, rows),
+                                 ("H", hsetups, off_path)):
+            o = tbatch._batch_operands(setups, dt, dev, "auto")
+            M, lay = o.M, setups[0].layout
+            check(type(M).__name__ == "CooOp" and not M.batched,
+                  f"{tag}: the batch's operator is {type(M).__name__}, not "
+                  "one shared COO operator")
+            B, (nr, nc) = len(setups), M.shape
+            nnz = M.row_vals.numel()
+            label = f"{tag}: B = {B}, {nr} x {nc}, {nnz} nonzeros"
+            X = torch.tensor(rng.standard_normal((B, nc)), dtype=dt, device=dev)
+            Y = torch.tensor(rng.standard_normal((B, nr)), dtype=dt, device=dev)
+            csr_row = torch.sparse_csr_tensor(M.row_ptr, M.row_idx.long(),
+                                              M.row_vals, (nr, nc))
+            csr_col = torch.sparse_csr_tensor(M.col_ptr, M.col_idx.long(),
+                                              M.col_vals, (nc, nr))
+
+            def per_row(M=M, X=X, Y=Y):
+                return (torch.stack([kernels.coo_spmv(
+                            M.row_ptr, M.row_idx, M.row_vals, x, M.row_seg)
+                            for x in X]),
+                        torch.stack([kernels.coo_spmv(
+                            M.col_ptr, M.col_idx, M.col_vals, y, M.col_seg)
+                            for y in Y]))
+
+            check_entry(
+                torch, kernels, out, "coo_spmv_batch", sfx, "coo_spmv.cu",
+                "proxsdp_tpu/ops/linop.py:81",
+                lambda f, M=M, X=X, Y=Y: (
+                    f(M.row_ptr, M.row_idx, M.row_vals, X, M.row_seg),
+                    f(M.col_ptr, M.col_idx, M.col_vals, Y, M.col_seg)),
+                kernels.coo_spmv_batch_plain,
+                (M.row_ptr, M.row_idx, M.row_vals, X, M.col_ptr, M.col_idx,
+                 M.col_vals, Y), (Y, X), 4 * nnz * B,
+                library=lambda a=csr_row, b=csr_col, X=X, Y=Y: (
+                    torch.sparse.mm(a, X.T), torch.sparse.mm(b, Y.T)),
+                compare_fn=_rows_exact(torch, per_row, f"coo_spmv_batch "
+                                       f"({label})"),
+                label=label,
+                note="" if tag == "M" else " (not on phase M's path)")
+            if tag == "M":
+                LAUNCH_US.append((f"coo_spmv_batch_{sfx} ({label}: M x)",
+                                  lambda M=M, X=X: kernels.coo_spmv_batch(
+                                      M.row_ptr, M.row_idx, M.row_vals, X,
+                                      M.row_seg), "seg_spmv_batch_kernel"))
+            linesearch_batch_row(torch, kernels, out, o, lay.p, lay.m, sfx,
+                                 dt, dev, rng, f"{label}, COO")
+        # K13b: M's blocks, then 4096 of lengths 2-257 at B = 7
+        for B, lens, on in ((M_SIZE, I_SOC_LENS, True),
+                            (M_OFF_B, tuple(2 + (37 * i) % 256
+                                            for i in range(4096)), False)):
+            V = torch.tensor(soc_blocks(rng, lens, B), dtype=dt, device=dev)
+            Vpad = soc_padded(torch, V, lens)
+
+            def per_row(V=V, lens=lens):
+                outs = [kernels.soc_projection(v.contiguous(), lens)
+                        for v in V]
+                return (torch.stack([o[0] for o in outs]),
+                        torch.stack([o[1] for o in outs]))
+
+            label = (f"{'M' if on else 'off'}: B = {B}, {len(lens)} blocks of "
+                     f"lengths " + (f"{lens[0]}" if on else "2-257"))
+            check_entry(
+                torch, kernels, rows if on else off_path,
+                "soc_projection_batch", sfx, "soc_proj.cu",
+                "proxsdp_tpu/ops/cones.py:43",
+                lambda f, V=V, lens=lens: f(V, lens),
+                kernels.soc_projection_batch_plain, (V,),
+                (torch.empty_like(V), torch.empty(B, dtype=dt, device=dev)),
+                4.3 * V.numel(),
+                library=lambda Vpad=Vpad: torch.linalg.vector_norm(Vpad, dim=-1),
+                compare_fn=_rows_exact(torch, per_row,
+                                       f"soc_projection_batch ({label})"),
+                tol=0.0 if sfx == "f64" else 1e-7, label=label,
+                note="" if on else " (not on phase M's path)")
+            if on:
+                LAUNCH_US.append((f"soc_projection_batch_{sfx} ({label})",
+                                  lambda V=V, lens=lens:
+                                  kernels.soc_projection_batch(V, lens),
+                                  "soc_proj_batch_kernel"))
+        # K9 at M's grouped stack, K9L at its side-200 blocks
+        for side, nb in ((I_PSD_SIDES[0], M_SIZE * I_PSD_SIDES.count(
+                I_PSD_SIDES[0])), (I_PSD_SIDES[-1], M_SIZE)):
+            X = eigh_inputs(torch, rng, side, dt, dev, B=nb)
+            large = side > kernels.EIGH_MAX_SIDE[dt]
+            tol = (EIGH_RTOL_F32_L * side if large and sfx == "f32"
+                   else EIGH_RTOL[sfx])
+            check_entry(
+                torch, kernels, rows,
+                "batched_psd_eigh_large" if large else "batched_psd_eigh", sfx,
+                "batched_eigh_large.cu" if large else "batched_eigh.cu",
+                "proxsdp_tpu/ops/cones.py:622",
+                lambda f, X=X: f(X, TOL_PSD), kernels.batched_psd_eigh_plain,
+                (X,), (torch.empty_like(X), torch.empty(nb, side, dtype=dt,
+                                                        device=dev),
+                       torch.empty(nb, dtype=torch.int32, device=dev),
+                       torch.empty(nb, side, dtype=dt, device=dev)),
+                nb * 10.5 * side ** 3,
+                library=lambda Xf=torch.nan_to_num(X): torch.linalg.eigh(Xf),
+                compare_fn=eigh_compare(torch, X, tol), tol=tol,
+                label=f"M: side {side}", wrapper="batched_psd_eigh")
+    # K12 at M2's first program: the f32 race's subspace step, bucket 16
+    side, k, B, dt = I_PSD_SIDES[-1], 16, M_SIZE, torch.float32
+    v, V = subspace_inputs(torch, rng, B, side, k, dt, dev)
+    large = not (k <= kernels.SUBSPACE_MAX_K and kernels.subspace_smem_bytes(
+        side, k, dt, False) <= kernels.SUBSPACE_SMEM_BYTES)
+    Xs = torch.nan_to_num(kernels.tri_to_square_plain(v, side))
+
+    def library(Xs=Xs, V=V):
+        Q = torch.linalg.qr(torch.bmm(Xs, V)).Q
+        th, U = torch.linalg.eigh(torch.bmm(Q.mT, torch.bmm(Xs, Q)))
+        W = torch.bmm(Q, U)
+        return torch.bmm(W * th.clamp_min(0)[:, None, :], W.mT)
+
+    check_entry(
+        torch, kernels, rows,
+        "batched_subspace_large" if large else "batched_subspace", "f32",
+        "batched_subspace.cu", "proxsdp_tpu/ops/cones.py:427",
+        lambda f: f(v, V, side, TOL_PSD, False), kernels.batched_subspace_plain,
+        (v, V), (torch.empty(B, side * (side + 1) // 2, dtype=dt, device=dev),
+                 torch.empty_like(V), torch.empty(B, 5, dtype=dt, device=dev)),
+        B * (6 * side * side * k + 14 * side * k * k + 10 * k ** 3),
+        library=library,
+        compare_fn=subspace_compare(torch, v, V, side, SUB_RTOL_L["f32"]),
+        tol=SUB_RTOL_L["f32"], label=f"M: B = {B}, side {side}, k = {k}",
+        wrapper="batched_subspace")
+    return rows, off_path
+
+
+def _m_checks(tag, res, Xs, socs, ref_obj, rtol, mean_rtol=None):
+    """Statuses, feasibility within the solver's bound, lambda_min(X) >=
+    -1e-6 ||X||_F for every PSD block of every instance, ||v|| - s <=
+    tol_soc for every SOC block, the objectives against ``ref_obj`` (each
+    to ``rtol``, on average to ``mean_rtol``) relative to 1 + |obj|."""
+    from proxsdp_tpu_torch import Options
+
+    status = np.array([r.status for r in res])
+    feas = np.array([r.primal_feasible_user_tol for r in res])
+    lam = min(float(np.linalg.eigvalsh(r.primal[X])[0])
+              / max(float(np.linalg.norm(r.primal[X])), 1e-300)
+              for r in res for X in Xs)
+    gap = max(float(np.linalg.norm(r.primal[v][1:]) - r.primal[v][0])
+              for r in res for v in socs)
+    ref = np.array(ref_obj)
+    dev = np.abs(np.array([r.objval for r in res]) - ref) / (1.0 + np.abs(ref))
+    tol_soc = Options().tol_soc
+    print(f"phase {tag} checks: statuses "
+          f"{dict(zip(*np.unique(status, return_counts=True)))}; feasible "
+          f"{int(feas.sum())}/{len(res)}; min lambda_min(X)/||X||_F over "
+          f"{len(Xs)} blocks {lam:.3e}; max ||v|| - s over {len(socs)} SOC "
+          f"blocks {gap:.3e} (bound {tol_soc:.0e}); objectives vs the JAX "
+          f"batch: max |diff|/(1+|ref|) {dev.max():.3e} (bound {rtol:.1e}), "
+          f"mean {dev.mean():.3e}"
+          + (f" (bound {mean_rtol:.0e})" if mean_rtol else ""))
+    check((status == 1).all(), f"{tag}: not every instance reached status 1")
+    check(feas.all(), f"{tag}: {int((~feas).sum())} instances not feasible "
+          "within tol_feasibility")
+    check(lam >= -1e-6, f"{tag}: lambda_min(X)/||X||_F = {lam}")
+    check(gap <= tol_soc, f"{tag}: SOC gap {gap} > {tol_soc}")
+    check((dev <= rtol).all(), f"{tag}: objectives of instances "
+          f"{np.nonzero(dev > rtol)[0].tolist()} differ from the JAX batch's "
+          f"by more than {rtol} (1 + |obj|)")
+    check(mean_rtol is None or dev.mean() <= mean_rtol,
+          f"{tag}: mean objective deviation {dev.mean():.3e} > {mean_rtol}")
+
+
+def phase_m(torch, kernels, smi):
+    """M1: phase I's program swept over M_SIZE instances (each its own b
+    and c: ``conic_sweep_instance``) with one shared COO operator (1000 x
+    28,628: ROADMAP C26's case), projection "eigh" under
+    Options(tol_gap=1e-4, tol_feasibility=1e-4): K9 on the 32 side-19
+    blocks of every instance in one launch, K9L on the side-200 blocks,
+    K13b, K14b and K15b's COO form, in the f32 race and the f64 phase;
+    against the JAX batch; a profiled window of its f32 program; its f64
+    program on instances 0-3 for M_F64_ITERS iterations against the JAX
+    package's.  M2: the same instances under projection "subspace" (the
+    side-200 block on K12 / K12L, the side-19 blocks on K9 in the same
+    step) against the JAX run lined up for C11 and C12, its reseeds and
+    programs printed beside the JAX run's.  Returns {tag: (entries,
+    shapes)} of the counted runs."""
+    import proxsdp_tpu_torch as tx
+    from proxsdp_tpu_torch import Options, solve_batch
+    from proxsdp_tpu_torch.problem import preprocess
+
+    out = {}
+    base = Options(tol_gap=1e-4, tol_feasibility=1e-4)
+    probs, (Xs, socs, _) = m_problems(tx)
+    lay = preprocess(probs[0]).layout
+    print(f"phase M: {M_SIZE} instances of phase I's program: "
+          f"{len(lay.sdp_sides)} PSD blocks, {len(lay.soc_lens)} SOC blocks, "
+          f"n = {lay.n}, p = {lay.p}, m = {lay.m}")
+    t = time.perf_counter()
+    res, entries, shapes, _ = _l_run(torch, kernels, "M1", smi, probs, base,
+                                     names=M_KERNELS, projection="eigh")
+    print(f"phase M1 iterations {[r.iter for r in res]} (JAX {M1_REF_ITERS})")
+    _m_checks("M1", res, Xs, socs, M1_REF_OBJ, M_OBJ_RTOL)
+    for name in ("batched_psd_eigh", "batched_psd_eigh_large",
+                 "soc_projection_batch", "coo_spmv_batch",
+                 "linesearch_loop_batch"):
+        for sfx in ("f32", "f64"):
+            check(entries[f"{name}_{sfx}"] > 0,
+                  f"M1: {name}_{sfx} launched no kernel")
+    out["M1"] = (entries, shapes)
+    setups = [preprocess(p) for p in probs]
+    prof = profile_steps(torch, kernels, setups,
+                         base.replace(dtype="float32"))
+    per = prof[4] or {}
+    print(f"phase M1 f32 program, a profiled window of {PROFILE_STEPS} steps "
+          f"on {smi}: "
+          f"{'not measured' if prof[0] is None else f'{prof[0]:.1f}'} CUDA "
+          f"kernels and {prof[1]:.1f} of the port's launches a step, device "
+          f"busy {'not measured' if prof[2] is None else f'{prof[2]:.3f}'}, "
+          f"{prof[3]:.2f} ms a step; device us a launch: " + ", ".join(
+              f"{k_} {per[k_]:.1f}" if k_ in per else f"{k_} not measured"
+              for k_ in ("soc_projection_batch", "coo_spmv_batch",
+                         "linesearch_loop_batch", "batched_psd_eigh",
+                         "batched_psd_eigh_large")))
+    # the f64 program against the JAX package's iterate
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_batch(probs[:M_F64_SIZE], base.replace(
+        hybrid_precision=False, max_iter=M_F64_ITERS), projection="eigh")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d_obj = np.abs(np.array([r.objval for r in res])
+                   / np.array(M1_F64_REF["obj"]) - 1.0)
+    d_x = np.abs(np.array([np.linalg.norm(r.primal) for r in res])
+                 / np.array(M1_F64_REF["xnorm"]) - 1.0)
+    print(f"phase M1 f64 (instances 0-{M_F64_SIZE - 1}, hybrid_precision="
+          f"False, {M_F64_ITERS} iterations) on {smi}: {wall:.2f} s; objective"
+          f" vs the JAX f64 program: max relative {d_obj.max():.3e}, ||x|| "
+          f"{d_x.max():.3e} (bound {M_F64_RTOL:.0e}); launches " + json.dumps(
+              {e: n for e, n in kernels.launch_counts.items()
+               if n and e.rsplit("_f", 1)[0] in M_KERNELS}))
+    check(all(r.status == 3 and r.iter == M_F64_ITERS for r in res),
+          "M1 f64: not at the iteration limit")
+    check(max(d_obj.max(), d_x.max()) <= M_F64_RTOL,
+          "M1 f64: the f64 program parts from the JAX package's")
+    print(f"phase M1: {time.perf_counter() - t:.1f} s")
+
+    # ---- M2: the subspace mode on the side-200 block
+    t = time.perf_counter()
+    res, entries, shapes, stats = _l_run(torch, kernels, "M2", smi, probs,
+                                         base, names=M_KERNELS,
+                                         projection="subspace")
+    it2 = [r.iter for r in res]
+    print(f"phase M2 iterations {min(it2)}/{int(np.median(it2))}/{max(it2)} "
+          f"(JAX {M2_REF_ITERS})")
+    print(f"phase M2 reseeds (dtype, min iter, max iter, k, masked, r_max): "
+          f"{stats.reseeds}; JAX: {M2_REF_RESEEDS}")
+    programs = [(d, k) for d, _, k in stats.programs]
+    print(f"phase M2 programs (dtype, k): {programs}; JAX: {M2_REF_PROGRAMS}")
+    if [tuple(r) for r in stats.reseeds] != M2_REF_RESEEDS \
+            or programs != M2_REF_PROGRAMS:
+        print("phase M2 FINDING: the reseed or program sequence differs from "
+              "the JAX run's (C14)")
+    check(sum(entries[f"{name}_{sfx}"] for name in ("batched_subspace",
+                                                    "batched_subspace_large")
+              for sfx in ("f32", "f64", "f64_f32")) > 0,
+          "M2: K12 / K12L launched no kernel")
+    check(entries["batched_psd_eigh_f32"] > 0,
+          "M2: K9 launched no kernel beside the subspace step")
+    _m_checks("M2", res, Xs, socs, M2_REF_OBJ, G_OBJ_RTOL, G_OBJ_MEAN_RTOL)
+    out["M2"] = (entries, shapes)
+    print(f"phase M2: {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def phase_m_rows(rows, runs):
+    """Each phase-M row's launches: K12's (K12L's) at its shape in M2, the
+    others' at their shape (K9, K9L) or their entry point's in M1; (rows
+    for the kernels line, rows left off it)."""
+    sub = [r for r in rows if r["name"].startswith("batched_subspace")]
+    kept, left = [], []
+    for group, tag in (([r for r in rows if r not in sub], "M1"),
+                       (sub, "M2")):
+        entries, shapes = runs[tag]
+        a, b = assign_launches(group, shapes, entries)
+        kept += a
+        left += b
+    return kept, left
+
+
+
 def main() -> int:
     import torch
 
@@ -4087,6 +4563,26 @@ def main() -> int:
                   f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
         print("phase L rows left off the line (not launched at their shape "
               "in L): " + ", ".join(row["name"] for row in left))
+        print(json.dumps({"kernels": [
+            {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
+        return 0
+
+    if "--phase-m" in sys.argv[1:]:
+        # phase M's kernel rows and phase M alone
+        t_phase = time.perf_counter()
+        mrows, moff = sweep_kernel_checks(torch, kernels,
+                                          np.random.default_rng(13),
+                                          torch.device("cuda"))
+        print(f"phase M rows: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        kept, left = phase_m_rows(mrows, phase_m(torch, kernels, smi))
+        print(f"phase M: {time.perf_counter() - t_phase:.1f} s")
+        for label, fn, pattern in LAUNCH_US:
+            us = device_us(torch, fn, pattern, calls=10)
+            print(f"kernel {label}: device "
+                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print("phase M rows left off the line: " + ", ".join(
+            row["name"] for row in left + moff))
         print(json.dumps({"kernels": [
             {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
         return 0
@@ -4180,6 +4676,10 @@ def main() -> int:
     lrows = large_kernel_checks(torch, kernels, np.random.default_rng(12),
                                 torch.device("cuda"))
     print(f"phase B: phase L's rows {time.perf_counter() - t_l:.1f} s")
+    t_m = time.perf_counter()
+    mrows, moff = sweep_kernel_checks(torch, kernels, np.random.default_rng(13),
+                                      torch.device("cuda"))
+    print(f"phase B: phase M's rows {time.perf_counter() - t_m:.1f} s")
     print(f"phase B: {time.perf_counter() - t_phase:.1f} s (above side 1024 "
           f"{t_g - t_b:.1f} s, phase G's shapes {t_hi - t_g:.1f} s, phases H "
           f"and I's {time.perf_counter() - t_hi:.1f} s)")
@@ -4390,10 +4890,29 @@ def main() -> int:
           "the plain version but not launched at their shape there: "
           + ", ".join(row["name"] for row in l_left))
 
+    # ---- 12. phase M: solve_batch over any cone layout (phase I's program
+    # swept over 16 instances: K9, K9L, K13b, K14b, K15b's COO form; M2 the
+    # subspace mode, K12 beside K9)
+    t_phase = time.perf_counter()
+    runs_m = phase_m(torch, kernels, smi)
+    print(f"phase M: {time.perf_counter() - t_phase:.1f} s")
+    m_kept, m_left = phase_m_rows(mrows, runs_m)
+    for row in m_kept:
+        check(row["launches"] > 0, f"{row['name']} launched no kernel in M")
+    rows += m_kept
+    print("kernels line: phase M's rows take the launches of their entry "
+          "point (K9, K9L, K12: at their shape) in M1 or M2; checked against "
+          "the plain version but not launched at their shape there: "
+          + ", ".join(row["name"] for row in m_left + moff))
+    print_shapes("phase M1", runs_m["M1"][1], mrows)
+    print_shapes("phase M2", runs_m["M2"][1], mrows)
+
     for label, fn, pattern in LAUNCH_US:
         us = device_us(torch, fn, pattern, calls=10)
         print(f"kernel {label}: device "
               f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+    check(all(row["ms"] is not None for row in rows),
+          "kernels line: a row without its times")
     names = {row["name"].split(" ")[0].rsplit("_f", 1)[0] for row in rows}
     # one trial's kernels (TRIAL_KERNELS) are checked in phase B but run on
     # no path: K15 and K15b run the trials
@@ -4401,7 +4920,7 @@ def main() -> int:
                - {n.replace("_f64", "").replace("_f32", "") for n in names})
     check(not missing, f"kernels line: no row of {sorted(missing)}")
 
-    print(f"phases A-L: {time.perf_counter() - t_start:.1f} s")
+    print(f"phases A-M: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))

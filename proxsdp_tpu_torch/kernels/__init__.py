@@ -12,12 +12,14 @@ kernels.
 |--------------------|--------------------------------------------------|
 | ell_spmv           | ops/linop.py:123-127 EllOp.matvec / rmatvec      |
 | coo_spmv           | ops/linop.py:81-90 CooOp.matvec / rmatvec        |
+|   (_batch: K14b)   |   the same over B rows, the operator shared      |
 | linesearch_loop    | solver.py:436-482 the whole linesearch loop      |
 | ls_dual_update     | solver.py:452-463 linesearch body + box proj.    |
 | sq_dist            | solver.py:459-461 the accept test's norms        |
 | residuals          | solver.py:545-612 _residuals_and_gap reductions  |
 | primal_update_sym  | solver.py:308 + ops/cones.py:172-173             |
 | soc_projection     | ops/cones.py:43-56 + solver.py:414-419 SOC proj. |
+|   (_batch: K13b)   |   the same for every instance, a gap each        |
 | ns_gemm            | ops/cones.py:84-95, 285-297 the polar products   |
 | fro_scale          | ops/cones.py:85-86, 279-284 Frobenius scaling    |
 | sym                | ops/cones.py:94, 292 S = (Y + Y^T) / 2           |
@@ -36,9 +38,9 @@ kernels.
 | square_to_tri      | ops/tri.py:47-52 (batched)                       |
 | batched_gemv(_t)   | ops/linop.py:44-48 DenseOp products, vmapped     |
 
-The batch driver (``parallel/batch.py``) runs K1, K3, K4 and the
-linesearch loop through their ``*_batch`` entry points: a leading instance
-axis on every vector, per-instance step scalars as (B,) tensors and
+The batch driver (``parallel/batch.py``) runs K1, K3, K4, K13, K14 and
+the linesearch loop through their ``*_batch`` entry points: a leading
+instance axis on every vector, per-instance step scalars as (B,) tensors and
 per-instance b, h, c, one launch per batch.  K1's and the linesearch
 loop's batched entry points take one operator for every instance or one
 per instance (stacked ELL values or dense matrices, a value stride in the
@@ -87,7 +89,7 @@ BATCH_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch", "residuals_batch",
                  "square_to_tri", "batched_subspace", "batched_gemv",
                  "batched_psd_eigh_large", "batched_subspace_large",
                  "ns_gemm_batch", "fro_scale_batch", "sym_batch",
-                 "sym_guard_batch")
+                 "sym_guard_batch", "soc_projection_batch", "coo_spmv_batch")
 TRIAL_KERNELS = ("ls_dual_update", "sq_dist", "ls_dual_update_batch",
                  "sq_dist_batch", "batched_gemv_t")
 KERNELS = SOLVE_KERNELS + BATCH_KERNELS + TRIAL_KERNELS
@@ -100,7 +102,7 @@ _ARGTYPES = {
     "ls_dual_update": [_P] * 11 + [_I, _I, _P],
     "sq_dist": [_P, _P, _P, _P, _I, _P],
     "linesearch_loop": [_P] * 21 + [_I] * 6 + [_D, _D, _P],
-    "linesearch_loop_batch": [_P] * 20 + [_I] * 8 + [_D, _D, _P],
+    "linesearch_loop_batch": [_P] * 21 + [_I] * 8 + [_D, _D, _P],
     "residuals": [_P] * 18 + [_I] * 4 + [_P],
     "primal_update_sym": [_P] * 6 + [_I] * 3 + [_P],
     "soc_projection": [_P] * 3 + [_I] + [_P] * 3,
@@ -129,6 +131,8 @@ _ARGTYPES = {
     "fro_scale_batch": [_P] * 3 + [_I, _I, _P],
     "sym_batch": [_P, _P, _I, _I, _P],
     "sym_guard_batch": [_P] * 7 + [_I, _I, _P],
+    "soc_projection_batch": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "coo_spmv_batch": [_P] * 4 + [_I, _P, _I, _I, _P],
 }
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -293,6 +297,39 @@ def coo_spmv(ptr, idx, vals, v, seg):
     out = torch.empty(nseg, dtype=v.dtype, device=v.device)
     _launch(name, v.dtype, v.device, _ptr(ptr), _ptr(idx), _ptr(vals), _ptr(v),
             _ptr(out), nseg)
+    return out
+
+
+def coo_spmv_batch_plain(ptr, idx, vals, V, seg):
+    # the rows' sums as coo_spmv_plain's: index_add_ adds the terms of a
+    # segment in order, each column of the (nseg, B) sums on its own
+    terms = vals[:, None] * V[:, idx.long()].T
+    return torch.zeros(ptr.shape[0] - 1, V.shape[0], dtype=V.dtype,
+                       device=V.device).index_add_(0, seg, terms).T.contiguous()
+
+
+COO_BATCH_ROWS = 8  # coo_spmv.cu: rows of V a warp sums at once
+
+
+def coo_spmv_batch(ptr, idx, vals, V, seg):
+    """``coo_spmv`` of each row of V (B, ncols) over one operator's
+    segments (K14b): out[i, s] = sum_{k in [ptr[s], ptr[s+1])} vals[k] *
+    V[i, idx[k]], (B, nseg); each row K14's bit for bit."""
+    name = "coo_spmv_batch"
+    if (ptr.dtype != torch.int64 or idx.dtype != torch.int32
+            or seg.dtype != torch.int64 or ptr.dim() != 1
+            or idx.shape != vals.shape or seg.shape != vals.shape):
+        raise ValueError(f"{name}: want int64 ptr and seg, int32 idx, and "
+                         "one length for idx, vals and seg")
+    if V.dim() != 2 or -(-V.shape[0] // COO_BATCH_ROWS) > 65535:
+        raise ValueError(f"{name}: want a 2-d V of at most "
+                         f"{65535 * COO_BATCH_ROWS} rows")
+    if _on_cpu(name, ptr, idx, vals, V, seg):
+        return coo_spmv_batch_plain(ptr, idx, vals, V, seg)
+    B, nseg = V.shape[0], ptr.shape[0] - 1
+    out = torch.empty((B, nseg), dtype=V.dtype, device=V.device)
+    _launch(name, V.dtype, V.device, _ptr(ptr), _ptr(idx), _ptr(vals), _ptr(V),
+            V.shape[1], _ptr(out), nseg, B)
     return out
 
 
@@ -670,20 +707,8 @@ def _soc_groups(lens: tuple, device):
 
 
 def soc_projection_plain(v, lens: tuple):
-    out = torch.empty_like(v)
-    gaps = []
-    for ln, idx in _soc_groups(tuple(lens), v.device):
-        blk = v[idx]
-        s, V = blk[:, 0], blk[:, 1:]
-        nv = torch.sqrt(_warp_sq_norms(V))
-        scale = 0.5 * (1.0 + s / torch.where(nv == 0, 1.0, nv))
-        in_cone, in_polar = nv <= s, nv <= -s
-        new_s = torch.where(in_polar, 0.0, torch.where(in_cone, s, scale * nv))
-        f = torch.where(in_polar, 0.0, torch.where(in_cone, 1.0, scale))
-        new_v = f[:, None] * V
-        out[idx] = torch.cat([new_s[:, None], new_v], dim=1)
-        gaps.append(torch.amax(torch.sqrt(_warp_sq_norms(new_v)) - new_s))
-    return out, torch.amax(torch.stack(gaps))
+    out, gap = soc_projection_batch_plain(v[None], lens)
+    return out[0], gap[0]
 
 
 SOC_WARPS = 8  # soc_proj.cu: blocks per CTA
@@ -704,6 +729,49 @@ def soc_projection(v, lens: tuple):
     gap = torch.empty((), dtype=v.dtype, device=v.device)
     _launch(name, v.dtype, v.device, _ptr(v), _ptr(out), _ptr(offs), len(lens),
             _ptr(partials), _ptr(gap))
+    return out, gap
+
+
+def soc_projection_batch_plain(V, lens: tuple):
+    B = V.shape[0]
+    out = torch.empty_like(V)
+    gaps = []
+    for ln, idx in _soc_groups(tuple(lens), V.device):
+        blk = V[:, idx].reshape(-1, ln)  # (B * G, ln), instance-major
+        s, W = blk[:, 0], blk[:, 1:]
+        nv = torch.sqrt(_warp_sq_norms(W))
+        scale = 0.5 * (1.0 + s / torch.where(nv == 0, 1.0, nv))
+        in_cone, in_polar = nv <= s, nv <= -s
+        new_s = torch.where(in_polar, 0.0, torch.where(in_cone, s, scale * nv))
+        f = torch.where(in_polar, 0.0, torch.where(in_cone, 1.0, scale))
+        new_v = f[:, None] * W
+        out[:, idx] = torch.cat([new_s[:, None], new_v], dim=1).view(
+            B, -1, ln)
+        gaps.append(torch.amax((torch.sqrt(_warp_sq_norms(new_v)) - new_s)
+                               .view(B, -1), dim=1))
+    return out, torch.amax(torch.stack(gaps, dim=1), dim=1)
+
+
+def soc_projection_batch(V, lens: tuple):
+    """``soc_projection`` of each row of V (B, total), one launch (K13b):
+    (proj (B, total), gap (B,)), each row K13's bit for bit.  V's rows may
+    have a stride (a column slice of the batch's iterate)."""
+    name = "soc_projection_batch"
+    offs, total = _soc_table(tuple(lens), V.device)
+    if V.dim() != 2 or V.shape[1] != total or V.shape[0] > 65535:
+        raise ValueError(f"{name}: V has shape {tuple(V.shape)}, want (B <= "
+                         f"65535, {total})")
+    if V.stride(1) != 1:
+        raise ValueError(f"{name}: V's columns must be contiguous")
+    if _on_cpu(name, V, strided=True):
+        return soc_projection_batch_plain(V, lens)
+    B = V.shape[0]
+    grid = min(-(-len(lens) // SOC_WARPS), 1024)
+    out = torch.empty((B, total), dtype=V.dtype, device=V.device)
+    partials = torch.empty(B * grid, dtype=V.dtype, device=V.device)
+    gap = torch.empty(B, dtype=V.dtype, device=V.device)
+    _launch(name, V.dtype, V.device, _ptr(V), V.stride(0), _ptr(out),
+            _ptr(offs), len(lens), B, _ptr(partials), _ptr(gap))
     return out, gap
 
 
@@ -1274,10 +1342,11 @@ def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
                           tau_old, theta, beta, active, p: int, m: int,
                           delta: float, decay: float, max_steps: int):
     """``linesearch_loop`` for each instance of a batch (the vmapped
-    while_loop, parallel/batch.py:141) over the batch's ELL or dense
-    operator -- one shared by every instance, or one per instance (stacked
-    ELL values or (B, p + m, n) matrices: K15b') -- rows (B, p + m) and
-    (B, n), per-instance b, h and scalars (B,), and ``active`` (B,) bool.
+    while_loop, parallel/batch.py:141) over the batch's operator -- one
+    ELL, COO or dense operator shared by every instance (the COO form's M'
+    y is K14b's column segments), or one per instance (stacked ELL values
+    or (B, p + m, n) matrices: K15b') -- rows (B, p + m) and (B, n),
+    per-instance b, h and scalars (B,), and ``active`` (B,) bool.
     An active instance runs its own trials; an inactive one runs none and
     keeps its values (y, Mty, theta, tau).  Returns (y_temp, Mty, theta,
     ps, trials (B,) int32).  One launch on the card; on the CPU the plain
@@ -1289,11 +1358,10 @@ def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
     n = Mty_old.shape[1]
     if rows != p + m:
         raise ValueError(f"{name}: y has {rows} columns, want p + m = {p + m}")
-    form, _, idx, vals, width = _rmatvec_form(name, M, rows, n)
-    if form == LS_COO:
-        raise TypeError(f"{name}: the COO operator is not supported in a batch")
-    vstride = _value_stride(name, vals, (n, width) if form == LS_ELL
-                            else (rows, n), B)
+    form, ptr, idx, vals, width = _rmatvec_form(name, M, rows, n)
+    table = ((n, width) if form == LS_ELL else (idx.numel(),)
+             if form == LS_COO else (rows, n))
+    vstride = _value_stride(name, vals, table, B)
     for t, what in ((Mx, "Mx"), (Mx_old, "Mx_old"), (y_old, "y_old")):
         _check_rows(name, t, B, rows, what)
     _check_rows(name, b, B, p, "b")
@@ -1320,6 +1388,7 @@ def linesearch_loop_batch(M, y, Mx, Mx_old, b, h, y_old, Mty, Mty_old, tau,
     _launch(name, dt, dev, *map(_ptr, (y, Mx, Mx_old, b, h, y_old, Mty,
                                        Mty_old, tau, tau_old, theta, beta,
                                        active)),
+            None if ptr is None else _ptr(ptr),
             None if idx is None else _ptr(idx), _ptr(vals),
             *map(_ptr, (y_temp, Mty_out, theta_out, ps_out, trials)),
             B, p, m, n, width, vstride, form, int(max_steps), float(delta),

@@ -47,15 +47,18 @@
 // K15b design: one block per instance of the batch, which runs that
 // instance's trials alone over its own M': the operator's values of
 // instance b start at vals + b * vstride -- vstride 0 for one operator
-// shared by every instance (ELL or dense), the (n, width) ELL values or
-// the (p + m, n) dense matrix of each instance for the per-instance
+// shared by every instance (ELL, COO or dense), the (n, width) ELL values
+// or the (p + m, n) dense matrix of each instance for the per-instance
 // operators of an "ell_batched" / "dense_batched" sweep
 // (proxsdp_tpu/parallel/batch.py:129-136, 241-256).  K2b's rows
 // and K1b's products strided over the block's threads, each squared
 // distance folded by reduce.cuh's block tree (K2b's and sq_dist_batch's
-// order).  No grid barrier: the launch ends when the last instance has
-// accepted or run max_steps trials.  An inactive instance runs no trial
-// and keeps its values (y, Mty, theta, tau).
+// order).  The COO form (a shared CooOp, K14b's M' y) sums each column
+// segment with one of the block's warps in K14's order (lane-strided,
+// then the shuffle tree), a barrier, then the squared distance as the
+// other forms take it.  No grid barrier: the launch ends when the last
+// instance has accepted or run max_steps trials.  An inactive instance
+// runs no trial and keeps its values (y, Mty, theta, tau).
 #include <cooperative_groups.h>
 
 #include "reduce.cuh"
@@ -315,6 +318,7 @@ ls_loop_batch_kernel(const T* __restrict__ y, const T* __restrict__ Mx,
                      const T* __restrict__ theta_p,
                      const T* __restrict__ beta_p,
                      const bool* __restrict__ active,
+                     const int64_t* __restrict__ ptr,
                      const int32_t* __restrict__ idx,
                      const T* __restrict__ vals, T* y_temp, T* Mty,
                      T* theta_out, T* ps_out, int32_t* trials_out, int64_t p,
@@ -362,10 +366,28 @@ ls_loop_batch_kernel(const T* __restrict__ y, const T* __restrict__ Mx,
     }
     // block_sum's barriers also make y_temp visible to the whole block
     const T dy = block_sum(acc);
+    if (F == kCoo) {  // K14's column segments, a warp each
+      const int lane = t & 31;
+      for (int64_t s = t >> 5; s < n; s += kWarps) {
+        const int64_t end = ptr[s + 1];
+        T a = T(0);
+        for (int64_t k = ptr[s] + lane; k < end; k += 32)
+          a += valsi[k] * ld(yti + idx[k]);
+        for (int off = 16; off > 0; off >>= 1)
+          a += __shfl_down_sync(0xffffffffu, a, off);
+        if (lane == 0) Mtyi[s] = a;
+      }
+      __syncthreads();  // every segment's sum before the distance
+    }
     acc = T(0);
     for (int64_t j = t; j < n; j += kThreads) {
-      const T v = product<T, F>(j, idx, valsi, yti, rows, n, width);
-      Mtyi[j] = v;
+      T v;
+      if (F == kCoo) {
+        v = ld(Mtyi + j);
+      } else {
+        v = product<T, F>(j, idx, valsi, yti, rows, n, width);
+        Mtyi[j] = v;
+      }
       const T d = v - Mtyoi[j];
       acc += d * d;
     }
@@ -387,11 +409,12 @@ void launch_batch_form(const void* y, const void* Mx, const void* Mx_old,
                        const void* Mty_in, const void* Mty_old,
                        const void* tau, const void* tau_old,
                        const void* theta, const void* beta,
-                       const void* active, const void* idx, const void* vals,
-                       void* y_temp, void* Mty, void* theta_out, void* ps_out,
-                       void* trials, int64_t B, int64_t p, int64_t m,
-                       int64_t n, int64_t width, int64_t vstride, double delta,
-                       double decay, int64_t max_steps, cudaStream_t stream) {
+                       const void* active, const void* ptr, const void* idx,
+                       const void* vals, void* y_temp, void* Mty,
+                       void* theta_out, void* ps_out, void* trials, int64_t B,
+                       int64_t p, int64_t m, int64_t n, int64_t width,
+                       int64_t vstride, double delta, double decay,
+                       int64_t max_steps, cudaStream_t stream) {
   ls_loop_batch_kernel<T, F><<<static_cast<unsigned>(B), kThreads, 0,
                                stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(Mx),
@@ -400,7 +423,8 @@ void launch_batch_form(const void* y, const void* Mx, const void* Mx_old,
       static_cast<const T*>(Mty_in), static_cast<const T*>(Mty_old),
       static_cast<const T*>(tau), static_cast<const T*>(tau_old),
       static_cast<const T*>(theta), static_cast<const T*>(beta),
-      static_cast<const bool*>(active), static_cast<const int32_t*>(idx),
+      static_cast<const bool*>(active), static_cast<const int64_t*>(ptr),
+      static_cast<const int32_t*>(idx),
       static_cast<const T*>(vals), static_cast<T*>(y_temp),
       static_cast<T*>(Mty), static_cast<T*>(theta_out),
       static_cast<T*>(ps_out), static_cast<int32_t*>(trials), p, m, n, width,
@@ -412,29 +436,34 @@ int launch_batch(const void* y, const void* Mx, const void* Mx_old,
                  const void* b, const void* h, const void* y_old,
                  const void* Mty_in, const void* Mty_old, const void* tau,
                  const void* tau_old, const void* theta, const void* beta,
-                 const void* active, const void* idx, const void* vals,
-                 void* y_temp, void* Mty, void* theta_out, void* ps_out,
-                 void* trials, int64_t B, int64_t p, int64_t m, int64_t n,
-                 int64_t width, int64_t vstride, int64_t form,
+                 const void* active, const void* ptr, const void* idx,
+                 const void* vals, void* y_temp, void* Mty, void* theta_out,
+                 void* ps_out, void* trials, int64_t B, int64_t p, int64_t m,
+                 int64_t n, int64_t width, int64_t vstride, int64_t form,
                  int64_t max_steps, double delta, double decay,
                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (form != kEll && form != kDense)
-    return static_cast<int>(cudaErrorInvalidValue);
+#define PROXSDP_LS_BATCH_FORM(F)                                             \
+  launch_batch_form<T, F>(y, Mx, Mx_old, b, h, y_old, Mty_in, Mty_old, tau,  \
+                          tau_old, theta, beta, active, ptr, idx, vals,      \
+                          y_temp, Mty, theta_out, ps_out, trials, B, p, m,   \
+                          n, width, vstride, delta, decay, max_steps, s)
   if (B > 0) {
-    if (form == kEll)
-      launch_batch_form<T, kEll>(y, Mx, Mx_old, b, h, y_old, Mty_in, Mty_old,
-                                 tau, tau_old, theta, beta, active, idx, vals,
-                                 y_temp, Mty, theta_out, ps_out, trials, B, p,
-                                 m, n, width, vstride, delta, decay, max_steps,
-                                 s);
-    else
-      launch_batch_form<T, kDense>(y, Mx, Mx_old, b, h, y_old, Mty_in,
-                                   Mty_old, tau, tau_old, theta, beta, active,
-                                   idx, vals, y_temp, Mty, theta_out, ps_out,
-                                   trials, B, p, m, n, width, vstride, delta,
-                                   decay, max_steps, s);
+    switch (form) {
+      case kEll:
+        PROXSDP_LS_BATCH_FORM(kEll);
+        break;
+      case kCoo:
+        PROXSDP_LS_BATCH_FORM(kCoo);
+        break;
+      case kDense:
+        PROXSDP_LS_BATCH_FORM(kDense);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+#undef PROXSDP_LS_BATCH_FORM
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,24 +497,26 @@ PROXSDP_LS_ENTRY(f32, float)
 // K15b.  Rows of B instances: y, Mx, Mx_old, y_old, y_temp (B, p + m); b
 // (B, p); h (B, m); Mty_in, Mty_old, Mty (B, n); tau, tau_old, theta, beta,
 // theta_out, ps_out (B,); active (B,) bool; trials (B,) int32.  form: 0
-// ELL (idx: the shared (n, width) column indices; vals: their values) or 2
-// dense (vals: the (p + m, n) matrix).  vals holds one operator's values
-// (vstride 0) or B of them, instance b's at vals + b * vstride.
-// max_steps >= 1.
+// ELL (idx: the shared (n, width) column indices; vals: their values), 1
+// COO (ptr: n + 1 int64 column starts; idx, vals: the column-sorted
+// triplets) or 2 dense (vals: the (p + m, n) matrix).  vals holds one
+// operator's values (vstride 0) or B of them, instance b's at vals + b *
+// vstride.  max_steps >= 1.
 #define PROXSDP_LS_BATCH_ENTRY(SFX, T)                                       \
   extern "C" int proxsdp_linesearch_loop_batch_##SFX(                       \
       const void* y, const void* Mx, const void* Mx_old, const void* b,     \
       const void* h, const void* y_old, const void* Mty_in,                 \
       const void* Mty_old, const void* tau, const void* tau_old,            \
       const void* theta, const void* beta, const void* active,              \
-      const void* idx, const void* vals, void* y_temp, void* Mty,           \
-      void* theta_out, void* ps_out, void* trials, int64_t B, int64_t p,    \
-      int64_t m, int64_t n, int64_t width, int64_t vstride, int64_t form,   \
-      int64_t max_steps, double delta, double decay, void* stream) {        \
+      const void* ptr, const void* idx, const void* vals, void* y_temp,     \
+      void* Mty, void* theta_out, void* ps_out, void* trials, int64_t B,    \
+      int64_t p, int64_t m, int64_t n, int64_t width, int64_t vstride,      \
+      int64_t form, int64_t max_steps, double delta, double decay,          \
+      void* stream) {                                                       \
     return launch_batch<T>(y, Mx, Mx_old, b, h, y_old, Mty_in, Mty_old,     \
-                           tau, tau_old, theta, beta, active, idx, vals,    \
-                           y_temp, Mty, theta_out, ps_out, trials, B, p, m, \
-                           n, width, vstride, form, max_steps, delta,       \
+                           tau, tau_old, theta, beta, active, ptr, idx,     \
+                           vals, y_temp, Mty, theta_out, ps_out, trials, B, \
+                           p, m, n, width, vstride, form, max_steps, delta, \
                            decay, stream);                                  \
   }
 PROXSDP_LS_BATCH_ENTRY(f64, double)

@@ -7,7 +7,7 @@
 * ``CooOp`` -- the triplets sorted by row and by column, for a matrix with
   a row or column too dense for ELL and too large for the dense form;
   both products are kernel K14 (``kernels.coo_spmv``), a gather and a
-  segmented sum.
+  segmented sum; over a batch's (B, .) rows K14b (``coo_spmv_batch``).
 
 A batch (``parallel/batch.py``) whose instances differ in [A; G] holds
 one operator per instance, as the JAX driver's vmapped ``DenseOp(0)`` and
@@ -16,7 +16,9 @@ one operator per instance, as the JAX driver's vmapped ``DenseOp(0)`` and
 K16 (``kernels.batched_gemv``, ``batched_gemv_t``), or an ``EllOp`` with
 shared index tables and stacked (B, rows, width) values, whose batched
 products are K1's batched entry point with a value stride.  Such an
-operator is ``batched``; it has no single-instance products.
+operator is ``batched``; it has no single-instance products.  A batch
+whose instances share [A; G] broadcasts one operator of any form, as the
+JAX driver's vmap does (batch.py:229-231).
 
 All are ``nn.Module``s holding their tables as buffers, so ``.to(device)``
 moves them.
@@ -207,6 +209,15 @@ class CooOp(nn.Module):
     def rmatvec(self, y):
         return kernels.coo_spmv(self.col_ptr, self.col_idx, self.col_vals, y,
                                 self.col_seg)
+
+    def matvec_batch(self, X):
+        """M x for each row of the (B, n) X (K14b)."""
+        return kernels.coo_spmv_batch(self.row_ptr, self.row_idx,
+                                      self.row_vals, X, self.row_seg)
+
+    def rmatvec_batch(self, Y):
+        return kernels.coo_spmv_batch(self.col_ptr, self.col_idx,
+                                      self.col_vals, Y, self.col_seg)
 
     def rmatvec_tables(self):
         """M' for the linesearch kernels: (form, ptr, idx, vals, width)."""

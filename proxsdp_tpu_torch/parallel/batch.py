@@ -7,15 +7,19 @@ instance axis and drives it with one ``while_loop`` whose predicate is
 Here the instance axis is written out:
 
 * the state is the single-instance ``solver.State`` with axis 0 = instance
-  on every field (scalars (B,), ring buffers (B, L), warm (B, side) or, in
-  the subspace mode, (B, side, k) bases);
+  on every field (scalars (B,), per-block min_eig and ranks (B, blocks),
+  ring buffers (B, L), warm (B, side) or, in the subspace mode, (B, side,
+  k) bases);
 * ``_primal_step``, ``_linesearch`` and ``_dual_step`` are the batched
-  forms, beside the single-instance ones: the update is K4's batched entry
-  point (no symmetrisation in the packed-triangle layout), the products
-  K1's batched entry point, the linesearch's trials one launch of K15b;
-* the projection is one of the JAX batch's three engines, at any side
-  (``ops.cones.projection_kind``, the gating of cones.py:124-540 for one
-  block):
+  forms, beside the single-instance ones, over any cone layout: the update
+  is K4's batched entry point over the whole row (no symmetrisation in the
+  packed-triangle layout), the products the operator's batched ones, the
+  linesearch's trials one launch of K15b;
+* the PSD blocks are projected as ``solver._primal_step`` projects them
+  (``solver.block_plan``): same-side blocks for which the gating always
+  takes the dense path are stacked over instances x blocks, one dense
+  eigh; every other block goes through the JAX batch's engine for its side
+  (``ops.cones.projection_kind``, the gating of cones.py:124-540):
 
   - the dense eigh (``ops.cones.psd_projection_small_batch``: K10 to the
     square, the batched Jacobi projection, K10 back), the batch's default
@@ -23,21 +27,28 @@ Here the instance axis is written out:
     matrix and rotations fit in a block's shared memory (side <= 118 in
     f64, 168 in f32) and K9L above (the same rotations, the working set in
     device memory);
-  - in the subspace mode, ``kernels.batched_subspace``, the accept-always
-    Rayleigh-Ritz step (cones.py:427-510): K12 where one instance's
-    working set fits in a block's shared memory and k <= 64, else K12L
-    (its panels in device memory, k up to the largest bucket);
+  - in the subspace mode, for a block with 0 < k < side // 2,
+    ``kernels.batched_subspace``, the accept-always Rayleigh-Ritz step
+    (cones.py:427-510): K12 where one instance's working set fits in a
+    block's shared memory and k <= 64, else K12L (its panels in device
+    memory, k up to the largest bucket); the other blocks take K9 in the
+    same step;
   - under ``Options(projection="polar")`` at sides >= ``polar_min_side``
-    with the subspace step off, the Newton-Schulz polar projection
-    (cones.py:62-109, 526-540; ``ops.cones.polar_psd_batch``: K10, the
-    batched entry points of K5 and K6, K10 back).  It reports min_eig 0,
-    keeps the warm vector and counts as no fallback; an instance whose
-    result is not finite passes its X through with rank = side;
-* the operator is one shared by every instance or, where the instances'
-  [A; G] differ, one per instance (``_batch_operands``): stacked ELL
-  values over shared index tables (K1's and K15b's value stride) or a
-  (B, p+m, n) stack of dense matrices (K16 ``batched_gemv`` for M x,
-  K15b's own per-instance M' y);
+    outside a group, the Newton-Schulz polar projection (cones.py:62-109,
+    526-540; ``ops.cones.polar_psd_batch``: K10, the batched entry points
+    of K5 and K6, K10 back).  It reports min_eig 0, keeps the warm vector
+    and counts as no fallback; an instance whose result is not finite
+    passes its X through with rank = side;
+  - a lone side-1 block is clipped at 0;
+* the SOC blocks of every instance are K13b (``kernels.
+  soc_projection_batch``), with each instance's gap (B,) for the stop
+  test; the free and LP coordinates keep the update's values;
+* the operator is one shared by every instance -- ELL (K1's batched
+  entry point), COO (K14b; K15b's COO form in the linesearch) or dense --
+  or, where the instances' [A; G] differ, one per instance
+  (``_batch_operands``): stacked ELL values over shared index tables (K1's
+  and K15b's value stride) or a (B, p+m, n) stack of dense matrices (K16
+  ``batched_gemv`` for M x, K15b's own per-instance M' y);
 * ``solver._residuals_and_gap`` (K3's batched entry point) and
   ``solver._control`` run on the batched state as they are;
 * ``run_chunk`` reads one flag pair per iteration (any / all instances
@@ -49,16 +60,18 @@ race with per-instance stall tracking, a hand-over to f64 that restarts
 the step machinery of stalled or non-finite instances, and an f64 final
 phase.  The blocks stay packed scaled triangles (no ``to_square_form``).
 The projection is the dense eigh unless the subspace mode is on
-(``projection="subspace"``, or ``"auto"`` with B > 32 and a side with
-16 < side // 2): then every iteration takes the accept-always subspace
-step, and between chunks the host reseeds the bases of instances whose
-worst Ritz residual grew (``_reseed_batch``: an exact host eigh),
-escalates the bucket with the observed rank, or drops the batch to the
-eigh program when the rank outgrows ``side // 2``.
+(``projection="subspace"``, or ``"auto"`` with B > 32, for a layout with
+a block of 16 < side // 2): then every iteration takes the accept-always
+subspace step on those blocks, and between chunks the host reseeds the
+bases of instances whose worst Ritz residual grew (``_reseed_batch``: an
+exact host eigh of every subspace block), escalates the bucket with the
+observed rank, or drops the batch to the eigh program when the rank
+outgrows every subspace block's ``side // 2``.
 
 An instance that ends with status 5 or 6 under ``certificate_search``
 goes through the single-instance ``solve``, warm-started from its batch
-iterate, for its ray search.
+iterate (through user space, so every PSD block reaches the square form
+and the SOC blocks and the tail are carried), for its ray search.
 
 ``equilibration``, ``equilibration_force`` and ``block_equilibration``
 are accepted and have no effect, as in the JAX batch driver: its
@@ -67,13 +80,14 @@ unscale (batch.py:257-269, 311-318).
 
 Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
 ``mesh=`` (multi-GPU, B14), ``tp_shards`` (A12), ``checkpoint_path``
-(A10), ``linop="coo"`` (B2b), SOC blocks and problems without exactly
-one PSD block (A7).
+(A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import time
 from typing import Sequence
 
@@ -102,6 +116,7 @@ from ..solver import (
     _residuals_and_gap,
     _sub_bucket,
     _unsupported,
+    block_plan,
     init_state,
     solve,
 )
@@ -114,19 +129,12 @@ def _force_batch_options(opts: Options) -> Options:
                         subspace_rank=0)
 
 
-def _check_batch(opts: Options, layout: ConeLayout) -> None:
-    """Options and layouts outside the slice raise, naming the ROADMAP item."""
+def _check_batch(opts: Options) -> None:
+    """Options outside the port raise, naming the ROADMAP item."""
     if opts.tp_shards:
         _unsupported("tp_shards", "A12")
     if opts.checkpoint_path:
         _unsupported("checkpoint_path", "A10")
-    if opts.linop == "coo":
-        _unsupported("linop='coo'", "B2b")
-    if layout.soc_lens:
-        _unsupported("SOC blocks in a batch", "A7 / B3'")
-    if len(layout.sdp_sides) != 1:
-        _unsupported("batched problems without exactly one PSD block "
-                     "(multi-block, LPs)", "A7")
 
 
 # ---------------------------------------------------------------------------
@@ -303,61 +311,98 @@ class BatchStats:
 # ---------------------------------------------------------------------------
 
 
-def _subspace_on(side: int, opts: Options) -> bool:
-    """The subspace step's gate (cones.py:235): 0 < k < side // 2 for
-    k = min(subspace_rank, side).  The driver sets subspace_rank only in
-    the subspace mode (``_force_batch_options`` clears it), together with
-    (B, side, k) bases."""
-    return 0 < min(opts.subspace_rank, side) < side // 2
+@functools.lru_cache(maxsize=64)
+def _group_index(offsets: tuple, tl: int, device) -> torch.Tensor:
+    """The columns of a group's blocks, block after block: x[:, index]
+    is the (B, nb * tl) stack of the group's packed triangles."""
+    return torch.tensor(np.concatenate([np.arange(off, off + tl)
+                                        for off in offsets]), device=device)
 
 
 def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
-    """x <- proj_K(x - tau*(M'y + c)); Mx <- M x, for every instance."""
-    side = layout.sdp_sides[0]
-    tl = tri_len(side)
+    """x <- proj_K(x - tau*(M'y + c)); Mx <- M x, for every instance, block
+    by block over the layout (solver.py:306-432 under batch.py:141's
+    vmap): K4b's update over the whole row; each group of same-side small
+    blocks (``solver.block_plan``) stacked over instances x blocks, one
+    dense eigh (K10, K9 or K9L, K10); every other PSD block through the
+    engine ``projection_kind`` picks for it (the subspace step on K12 /
+    K12L, polar on K5b / K6b, or the dense eigh); the SOC blocks on K13b
+    with each instance's gap; the free and LP tail as the update left
+    it."""
     u = kernels.primal_update_batch(s.x, s.Mty, o.c, s.primal_step)
-    n = u.shape[1]
-    v = u if n == tl else u[:, :tl].contiguous()
-    # the single block's rule (cones.py:124-540; use_lanczos is off here):
-    # the subspace step, else polar, else the dense eigh
-    assert not _subspace_on(side, opts) or s.warm[0].dim() == 3, \
-        "the subspace mode needs (B, side, k) bases"
-    kind = projection_kind(side, opts, s.warm[0].dim() == 3)
-    if kind == "subspace":
-        # the driver turns the subspace mode on only with
-        # subspace_accept_always (batch.py:340-345); the mixed mode is an
-        # f64 program's subspace_mixed (cones.py:435)
-        blocks, me, cur, warm, bad, stats = kernels.batched_subspace(
-            v, s.warm[0], side, opts.tol_psd,
-            bool(opts.subspace_mixed) and v.dtype == torch.float64)
-        # the NaN guard counts as a fallback (cones.py:505-509)
-        fallbacks = s.proj_fallbacks + bad.to(s.proj_fallbacks.dtype)
-        sub_stats = stats
-        sub_worst = torch.maximum(s.sub_worst, stats[:, 0])
-    elif kind == "polar":
-        # min_eig 0 (the full path's semantics), the warm vectors kept, no
-        # fallback counted (cones.py:526-540)
-        Xp, cur = polar_psd_batch(kernels.tri_to_square(v, side),
-                                  aggressive=opts.polar_aggressive,
-                                  polish=opts.polar_polish)
-        blocks = kernels.square_to_tri(Xp, side)
-        me, warm = v.new_zeros(v.shape[0]), s.warm[0]
-        fallbacks = s.proj_fallbacks
-        sub_stats, sub_worst = s.sub_stats, s.sub_worst
+    B, dev, dt = u.shape[0], u.device, u.dtype
+    plan = block_plan(layout, opts)
+    min_eig = list(s.min_eig.unbind(1))
+    current_rank = list(s.current_rank.unbind(1))
+    warm = list(s.warm)
+    # the dense eigh or a subspace step's NaN guard ran (used_full), per
+    # instance; None: no PSD block (solver.py:389-391, 408, 430)
+    any_full = None
+    sub_stats, sub_worst = s.sub_stats, s.sub_worst
+    for side, blks in plan.groups:
+        tl, nb = tri_len(side), len(blks)
+        idx = _group_index(tuple(off for _, off in blks), tl, dev)
+        proj, me_b, cur_b, warm_b = psd_projection_small_batch(
+            u[:, idx].view(B * nb, tl), side, opts=opts)
+        u[:, idx] = proj.view(B, nb * tl)
+        me_b, cur_b = me_b.view(B, nb), cur_b.view(B, nb)
+        warm_b = warm_b.view(B, nb, -1)
+        for gi, (bi, _) in enumerate(blks):
+            min_eig[bi] = me_b[:, gi].to(s.min_eig.dtype)
+            current_rank[bi] = cur_b[:, gi]
+            warm[bi] = warm_b[:, gi]  # a view: no kernel reads it
+        any_full = torch.ones(B, dtype=torch.bool, device=dev)
+    for bi, off, side in plan.singles:
+        tl = tri_len(side)
+        v = u[:, off : off + tl].contiguous()
+        kind = projection_kind(side, opts, warm[bi].dim() == 3)
+        full = torch.zeros(B, dtype=torch.bool, device=dev)
+        stats = v.new_zeros(B, 3)
+        if kind == "scalar":
+            blk = torch.clamp_min(v, 0.0)
+            me, cur = blk[:, 0], (blk[:, 0] > 0).to(torch.int32)
+        elif kind == "subspace":
+            # the driver turns the subspace mode on only with
+            # subspace_accept_always (batch.py:340-345); the mixed mode is
+            # an f64 program's subspace_mixed (cones.py:435); the NaN guard
+            # counts as a fallback (cones.py:505-509)
+            blk, me, cur, warm[bi], full, stats = kernels.batched_subspace(
+                v, warm[bi], side, opts.tol_psd,
+                bool(opts.subspace_mixed) and dt == torch.float64)
+        elif kind == "polar":
+            # min_eig 0 (the full path's semantics), the warm vector kept,
+            # no fallback counted (cones.py:526-540)
+            Xp, cur = polar_psd_batch(kernels.tri_to_square(v, side),
+                                      aggressive=opts.polar_aggressive,
+                                      polish=opts.polar_polish)
+            blk, me = kernels.square_to_tri(Xp, side), v.new_zeros(B)
+        else:  # the dense eigh (use_lanczos is off in a batch)
+            blk, me, cur, warm[bi] = psd_projection_small_batch(v, side,
+                                                                opts=opts)
+            full = torch.ones(B, dtype=torch.bool, device=dev)
+        u[:, off : off + tl] = blk
+        min_eig[bi] = me.to(s.min_eig.dtype)
+        current_rank[bi] = cur
+        any_full = full if any_full is None else any_full | full
+        sub_worst = torch.maximum(sub_worst, stats[:, 0])
+        if bi == 0:
+            sub_stats = stats
+    if layout.soc_lens:
+        a = layout.soc_offsets[0]
+        b = a + sum(layout.soc_lens)
+        u[:, a:b], max_soc_gap = kernels.soc_projection_batch(
+            u[:, a:b], layout.soc_lens)
     else:
-        blocks, me, cur, warm = psd_projection_small_batch(v, side, opts=opts)
-        # the dense eigh ran for every block of side > 1 (used_full); the
-        # subspace stats nothing reads in this mode are left as they are
-        fallbacks = s.proj_fallbacks + 1 if side > 1 else s.proj_fallbacks
-        sub_stats, sub_worst = s.sub_stats, s.sub_worst
-    x = blocks if n == tl else torch.cat([blocks, u[:, tl:]], dim=1)
+        max_soc_gap = torch.full((B,), -math.inf, dtype=dt, device=dev)
     return s.replace(
-        x=x,
-        Mx=o.M.matvec_batch(x),
-        min_eig=me.to(s.min_eig.dtype).unsqueeze(1),
-        current_rank=cur.unsqueeze(1),
-        warm=(warm,),
-        proj_fallbacks=fallbacks,
+        x=u,
+        Mx=o.M.matvec_batch(u),
+        min_eig=torch.stack(min_eig, dim=1),
+        current_rank=torch.stack(current_rank, dim=1).to(torch.int32),
+        warm=tuple(warm),
+        max_soc_gap=max_soc_gap,
+        proj_fallbacks=(s.proj_fallbacks if any_full is None
+                        else s.proj_fallbacks + any_full.to(torch.int32)),
         sub_stats=sub_stats,
         sub_worst=sub_worst,
     )
@@ -474,7 +519,7 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
     for s in setups[1:]:
         if s.layout != layout:
             raise ValueError("all batched problems must share one geometry")
-    _check_batch(opts, layout)
+    _check_batch(opts)
 
     B = len(setups)
     hybrid = opts.dtype == "float64" and opts.hybrid_precision

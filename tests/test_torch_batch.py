@@ -171,12 +171,13 @@ def _scaled_rows():
 
 
 @pytest.mark.parametrize("case, item", [
-    ("mesh", "B14"), ("checkpoint", "A10"), ("tp_shards", "A12"),
-    ("coo", "B2b"), ("soc", "A7")])
+    ("mesh", "B14"), ("checkpoint", "A10"), ("tp_shards", "A12")])
 def test_out_of_slice_raises(case, item):
     """Every mode outside the slice raises, naming its ROADMAP item.  (The
     polar projection and the equilibration options, which raised A11 and
-    A6, run since they were ported: tests/test_torch_batch_large.py.)"""
+    A6, run since they were ported: tests/test_torch_batch_large.py; the
+    COO operator, SOC blocks and any layout of blocks too:
+    tests/test_torch_batch_layouts.py.)"""
     problems, kw = _problems(tx, B=2), {}
     if case == "mesh":
         kw["mesh"] = object()
@@ -184,14 +185,6 @@ def test_out_of_slice_raises(case, item):
         kw["options"] = tx.Options(checkpoint_path="unused.ckpts")
     elif case == "tp_shards":
         kw["options"] = tx.Options(tp_shards=2)
-    elif case == "coo":
-        kw["options"] = tx.Options(linop="coo")
-    elif case == "soc":
-        opt = tx.Optimizer()
-        s = opt.add_soc_var(3)
-        opt.add_eq_constraint({int(s[1]): 1.0}, 3.0)
-        opt.set_objective({int(s[0]): 1.0})
-        problems = [opt.build_problem()] * 2
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tx.solve_batch(problems, device="cpu", **kw)
 

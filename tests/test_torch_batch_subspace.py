@@ -251,9 +251,9 @@ def _fetch_latest(ss):
 def _jax_logged(monkeypatch, events):
     """Log the JAX driver's reseeds (k, instances masked, r_max) and
     programs (dtype, k); give its first subspace program, after iteration
-    1, the basis the port's iteration 1 computes on X = 0: cholqr2 of the
-    start basis, its columns reversed (ROADMAP C11); and read its fetch at
-    the latest ring slot (C12)."""
+    1, the basis the port's iteration 1 computes on X = 0 for each
+    subspace block: cholqr2 of the start basis, its columns reversed
+    (ROADMAP C11); and read its fetch at the latest ring slot (C12)."""
     reseed, runner = jbatch._reseed_batch, jbatch._cached_batch_runner
 
     def logged_reseed(states, layout, k, mask, c_np, opts):
@@ -266,16 +266,20 @@ def _jax_logged(monkeypatch, events):
         run, _ = runner(layout, opts, m_kind)
 
         def run_patched(states, ops):
-            if not events["patched"] and states.warm[0].ndim == 3:
+            if not events["patched"] and any(w.ndim == 3 for w in states.warm):
                 events["patched"] = True
-                V = torch.tensor(np.asarray(states.warm[0]))
+                starts = [np.asarray(w) for w in states.warm]
                 states = run(states,
                              ops._replace(chunk_end=jnp.asarray(1, jnp.int32)))
-                eps = kernels.CHOLQR_EPS[V.dtype]
-                Q = kernels._cholqr_batch_plain(
-                    kernels._cholqr_batch_plain(V, eps), eps)
-                states = states._replace(warm=(jnp.asarray(
-                    Q.flip(-1).numpy()),))
+                warm = list(states.warm)
+                for bi, V in enumerate(starts):
+                    if V.ndim == 3:
+                        V = torch.tensor(V)
+                        eps = kernels.CHOLQR_EPS[V.dtype]
+                        Q = kernels._cholqr_batch_plain(
+                            kernels._cholqr_batch_plain(V, eps), eps)
+                        warm[bi] = jnp.asarray(Q.flip(-1).numpy())
+                states = states._replace(warm=tuple(warm))
             return run(states, ops)
 
         return run_patched, jax.jit(_fetch_latest)

@@ -1463,3 +1463,121 @@ def test_solve_batch_large_on_card_matches_cpu(cuda, case):
     else:
         assert counts["ns_gemm_batch"] > 0 and counts["sym_guard_batch"] > 0
         assert counts["batched_psd_eigh_large"] == 0
+
+
+# ---- the batch over any cone layout: K13b, K14b and K15b's COO form
+
+
+@pytest.mark.parametrize("nblk", [128, 4096])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_soc_projection_batch_matches_rows(cuda, dtype, nblk):
+    """K13b on B = 7 rows (a column slice of a wider iterate, as the batch
+    passes it) against K13 on each row and the plain version, bit for
+    bit; one launch."""
+    rng = np.random.default_rng(nblk + 1)
+    rows = [soc_inputs(rng, nblk, dtype, cuda) for _ in range(7)]
+    lens = rows[0][1]
+    wide = torch.zeros(7, 3 + rows[0][0].numel() + 5, dtype=dtype, device=cuda)
+    wide[:, 3:-5] = torch.stack([v for v, _ in rows])
+    V = wide[:, 3:-5]
+    kernels.reset_launch_counts()
+    got, gap = kernels.soc_projection_batch(V, lens)
+    torch.cuda.synchronize()
+    assert kernels.kernel_launches()["soc_projection_batch"] == 1
+    for i in range(7):
+        one, g1 = kernels.soc_projection(V[i].contiguous(), lens)
+        assert torch.equal(got[i], one) and torch.equal(gap[i], g1)
+    want, wgap = kernels.soc_projection_batch_plain(V, lens)
+    assert torch.equal(got, want) and torch.equal(gap, wgap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_coo_spmv_batch_matches_rows(cuda, dtype):
+    """K14b on B = 11 rows (two groups of eight rows, the second short)
+    over test_coo_spmv_matches_plain's operator: each row K14's bit for
+    bit, the plain version within RTOL; a repeat gives the same bits."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(16)
+    side, m, B = 60, 2500, 11
+    n = side * side
+    rows = np.concatenate([np.zeros(side, np.int64), 1 + np.arange(m)])
+    cols = np.concatenate([np.arange(side) * (side + 1),
+                           rng.choice(n, m, replace=False)])
+    A = sp.csr_matrix((rng.standard_normal(side + m), (rows, cols)),
+                      shape=(m + 1, n))
+    M = build_linop(A, sp.csr_matrix((0, n)), dtype, device=cuda)
+    assert type(M).__name__ == "CooOp"
+    X = torch.tensor(rng.standard_normal((B, n)), dtype=dtype, device=cuda)
+    Y = torch.tensor(rng.standard_normal((B, m + 1)), dtype=dtype, device=cuda)
+    kernels.reset_launch_counts()
+    got = (M.matvec_batch(X), M.rmatvec_batch(Y))
+    torch.cuda.synchronize()
+    assert kernels.kernel_launches()["coo_spmv_batch"] == 2
+    for i in range(B):
+        assert torch.equal(got[0][i], M.matvec(X[i]))
+        assert torch.equal(got[1][i], M.rmatvec(Y[i]))
+    want = (kernels.coo_spmv_batch_plain(M.row_ptr, M.row_idx, M.row_vals, X,
+                                         M.row_seg),
+            kernels.coo_spmv_batch_plain(M.col_ptr, M.col_idx, M.col_vals, Y,
+                                         M.col_seg))
+    _close(got, want, dtype)
+    assert torch.equal(M.matvec_batch(X), got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_linesearch_loop_batch_coo_matches_sequence(cuda, dtype):
+    """K15b's COO form over _ls_operator's COO operator, B = 9 with
+    per-instance step scales and a third inactive, against the batched K2
+    -> K14b -> sq_dist sequence: bit for bit in f64, within K2's f32 bound
+    in f32; inactive instances keep their values."""
+    rng = np.random.default_rng(17)
+    M, _, p, m = _ls_operator("coo", dtype, cuda, rng)
+    B = 9
+    st = _ls_state(rng, M, p, m, 4.0, False, dtype, cuda, B=B)
+    Mty_old = M.rmatvec_batch(st["y_old"])
+    active = torch.tensor(np.arange(B) % 3 != 1, device=cuda)
+    args = (st["y"], st["Mx"], st["Mx_old"], st["b"], st["h"], st["y_old"],
+            st["Mty"], Mty_old, st["tau"], st["tau_old"], st["theta"],
+            st["beta"], active, p, m, 0.9999, 0.75, 5000)
+    kernels.reset_launch_counts()
+    got = kernels.linesearch_loop_batch(M, *args)
+    torch.cuda.synchronize()
+    counts = kernels.kernel_launches()
+    assert counts["linesearch_loop_batch"] == 1 and sum(counts.values()) == 1
+    want = kernels.linesearch_loop_batch_plain(M, *args)
+    _equal_or_close(got, want, dtype)
+    trials = got[4].cpu()
+    assert int(trials[~active.cpu()].abs().sum()) == 0
+    assert int(trials[active.cpu()].max()) > 1
+    assert torch.equal(got[0][~active], st["y"][~active])
+
+
+@pytest.mark.parametrize("linop", ["auto", "coo"])
+def test_solve_batch_layouts_on_card_matches_cpu(cuda, linop):
+    """solve_batch's f64 program over chip_smoke.py's conic sweep at a
+    small size (PSD blocks of sides 4, 4 and 9, SOC blocks of 3, 5 and 5,
+    6 LP coordinates, 20 rows; B = 4) on the card against the CPU plain
+    run: the same statuses, iterations within 2 %, objectives to 1e-6 (as
+    test_solve_batch_per_instance_on_card_matches_cpu); K9, K13b and,
+    under linop="coo", K14b on the path."""
+    from proxsdp_tpu_torch.parallel.batch import solve_batch
+    import chip_smoke
+
+    data = chip_smoke.conic_program_data(sides=(4, 4, 9), soc_lens=(3, 5, 5),
+                                         n_lp=6, rows=20, density=0.3)
+    problems = [chip_smoke.build_conic_program(
+        tx, chip_smoke.conic_sweep_instance(data, s))[0] for s in range(4)]
+    opts = tx.Options(tol_gap=1e-4, tol_feasibility=1e-4,
+                      hybrid_precision=False, linop=linop)
+    kernels.reset_launch_counts()
+    got = solve_batch(problems, opts)
+    counts = kernels.kernel_launches()
+    want = solve_batch(problems, opts, device="cpu")
+    for g, w in zip(got, want):
+        assert g.status == w.status == 1
+        assert abs(g.iter - w.iter) <= max(2, 0.02 * w.iter)
+        assert abs(g.objval - w.objval) <= 1e-6 * (1 + abs(w.objval))
+    assert counts["batched_psd_eigh"] > 0
+    assert counts["soc_projection_batch"] > 0
+    assert (counts["coo_spmv_batch"] > 0) == (linop == "coo")

@@ -838,7 +838,9 @@ if what == "batch":
     k1 = [randsdp_problem(s, cs.K1_SIDE, cs.K1_ROWS, varbounds=False)[0]
           for s in range(8)]
     k3 = cs.k3_problems(jx.Optimizer, random_graph_weights, 8, cs.K3_SIDE)
-    for tag, probs, kw in (("K1", k1, {}), ("K3", k3, {}),
+    for tag, probs, kw in (("K1", k1, dict(tol_gap=cs.K1_TOL,
+                                           tol_feasibility=cs.K1_TOL)),
+                           ("K3", k3, {}),
                            ("K1_exact", k1, dict(tol_gap=1e-7,
                                                  tol_feasibility=1e-7,
                                                  hybrid_precision=False)),
@@ -1125,3 +1127,140 @@ def test_phase_l2_rounding_scatter(witness):
     assert got["status"] == [1] * k["L2_SIZE"]
     assert dev.max() <= k["L2_OBJ_RTOL"]
     assert dev.mean() <= k["L2_OBJ_MEAN_RTOL"]
+
+
+# chip_smoke.py's phase M: the JAX package's solve_batch of the sweep over
+# phase I's program (chip_smoke.conic_sweep_instance: phase I's operator,
+# each instance's b and c from default_rng(s)) on one CPU thread --
+# "eigh": projection "eigh" under Options(tol_gap=1e-4,
+# tol_feasibility=1e-4) (M1); "f64": its f64 program on the first
+# instances for a number of iterations; "sub": projection "subspace" (M2),
+# lined up with the port as G_CHILD is (C11, C12) on every subspace block,
+# its reseeds and programs logged
+M_CHILD = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+import proxsdp_tpu as jx
+from proxsdp_tpu.parallel import batch as jb
+from proxsdp_tpu_torch import kernels
+import chip_smoke as cs
+what, B = sys.argv[1], int(sys.argv[2])
+data = cs.conic_program_data()
+probs = [cs.build_conic_program(jx, cs.conic_sweep_instance(data, s))[0]
+         for s in range(B)]
+opts = dict(tol_gap=1e-4, tol_feasibility=1e-4)
+if what == "f64":
+    res = jb.solve_batch(probs, jx.Options(hybrid_precision=False,
+                                           max_iter=int(sys.argv[3]), **opts),
+                         projection="eigh")
+    out = dict(obj=[r.objval for r in res],
+               xnorm=[float(np.linalg.norm(r.primal)) for r in res])
+elif what == "eigh":
+    res = jb.solve_batch(probs, jx.Options(**opts), projection="eigh")
+    out = dict(status=[r.status for r in res], obj=[r.objval for r in res],
+               iter=[r.iter for r in res])
+else:
+    reseeds, programs, patched = [], [], []
+    reseed, runner = jb._reseed_batch, jb._cached_batch_runner
+    def logged_reseed(states, layout, k, mask, c_np, opts):
+        it = np.asarray(states.iter)
+        out, r = reseed(states, layout, k, mask, c_np, opts)
+        reseeds.append([str(np.asarray(states.x).dtype), int(it.min()),
+                        int(it.max()), int(k), int(np.sum(mask)), int(r)])
+        return out, r
+    def fetch_latest(ss):
+        i = (ss.iter - 1) % ss.buf_gap.shape[1]
+        take = jax.vmap(lambda buf, j: buf[j])
+        ft = ss.buf_gap.dtype
+        return jnp.stack([ss.iter.astype(ft), ss.status.astype(ft),
+                          take(ss.buf_gap, i), take(ss.buf_feas, i),
+                          take(ss.buf_prim_obj, i), take(ss.buf_dual_obj, i),
+                          ss.sub_worst.astype(ft)], axis=-1)
+    def logged_runner(layout, opts, m_kind="shared"):
+        programs.append([opts.dtype, int(opts.subspace_rank)])
+        run, _ = runner(layout, opts, m_kind)
+        def run_patched(states, ops):
+            if not patched and any(w.ndim == 3 for w in states.warm):
+                patched.append(True)
+                starts = [np.asarray(w) for w in states.warm]
+                states = run(states,
+                             ops._replace(chunk_end=jnp.asarray(1, jnp.int32)))
+                warm = list(states.warm)
+                for bi, V in enumerate(starts):
+                    if V.ndim == 3:
+                        V = torch.tensor(V)
+                        eps = kernels.CHOLQR_EPS[V.dtype]
+                        Q = kernels._cholqr_batch_plain(
+                            kernels._cholqr_batch_plain(V, eps), eps)
+                        warm[bi] = jnp.asarray(Q.flip(-1).numpy())
+                states = states._replace(warm=tuple(warm))
+            return run(states, ops)
+        return run_patched, jax.jit(fetch_latest)
+    jb._reseed_batch, jb._cached_batch_runner = logged_reseed, logged_runner
+    res = jb.solve_batch(probs, jx.Options(**opts), projection="subspace")
+    jb._reseed_batch, jb._cached_batch_runner = reseed, runner
+    it = np.array([r.iter for r in res])
+    out = dict(obj=[r.objval for r in res], status=[r.status for r in res],
+               iters=f"{it.min()}/{int(np.median(it))}/{it.max()}",
+               reseeds=reseeds, programs=programs)
+print(json.dumps(out))
+"""
+
+
+def _m_child(*args, timeout=3600, env=ONE_THREAD):
+    proc = subprocess.run([sys.executable, "-c", M_CHILD, *map(str, args)],
+                          cwd=ROOT, env={**os.environ, **env},
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _m_constants() -> dict:
+    return _module_constants(SMOKE, ("M_", "M1_", "M2_"))
+
+
+def test_phase_m_constants_are_consistent():
+    """chip_smoke.py's phase M constants hang together: one objective and
+    iteration count per instance, the subspace mode's answers within 5e-3
+    (1 + |obj|) of the eigh mode's (the same optima), its reseeds start at
+    iteration 128 on bucket 16 with every instance and its programs with
+    the f32 subspace program at 16; the sweep's instances differ."""
+    k = _m_constants()
+    B = k["M_SIZE"]
+    assert len(k["M1_REF_OBJ"]) == len(k["M1_REF_ITERS"]) == B
+    assert len(k["M2_REF_OBJ"]) == B
+    for a, b in zip(k["M1_REF_OBJ"], k["M2_REF_OBJ"]):
+        assert abs(a - b) <= 5e-3 * (1 + abs(a))
+    assert len(set(k["M1_REF_OBJ"])) == B
+    res, prg = k["M2_REF_RESEEDS"], k["M2_REF_PROGRAMS"]
+    assert res[0][:5] == ("float32", 128, 128, 16, B)
+    assert prg[0] == ("float32", 16) and prg[-1][0] == "float64"
+    assert len(k["M1_F64_REF"]["obj"]) == k["M_F64_SIZE"]
+
+
+@pytest.mark.slow
+def test_phase_m_reference_values():
+    """chip_smoke.py's phase M constants re-derived by the JAX package on
+    one CPU thread: M1's statuses, objectives (1e-9 relative) and
+    iterations, its f64 program, M2's objectives, iterations, reseeds and
+    programs."""
+    k = _m_constants()
+    B = k["M_SIZE"]
+    got = _m_child("eigh", B)
+    assert got["status"] == [1] * B
+    np.testing.assert_allclose(got["obj"], k["M1_REF_OBJ"], rtol=1e-9)
+    assert got["iter"] == k["M1_REF_ITERS"]
+    got = _m_child("f64", k["M_F64_SIZE"], k["M_F64_ITERS"])
+    for key in ("obj", "xnorm"):
+        np.testing.assert_allclose(got[key], k["M1_F64_REF"][key], rtol=1e-9)
+    got = _m_child("sub", B)
+    assert got["status"] == [1] * B
+    np.testing.assert_allclose(got["obj"], k["M2_REF_OBJ"], rtol=1e-9)
+    assert got["iters"] == k["M2_REF_ITERS"]
+    assert [tuple(r) for r in got["reseeds"]] == k["M2_REF_RESEEDS"]
+    assert [tuple(p) for p in got["programs"]] == k["M2_REF_PROGRAMS"]

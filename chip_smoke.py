@@ -102,8 +102,9 @@
    graph with X_00 free and rewarded (unbounded), at J2_OPTS; status,
    certificate_found and status string against the JAX package's runs
    (J1_REF, J2_REF), the declaration, the final iteration and the ray's
-   farkas() value printed beside them; J3, phase D's instances with one
-   of them infeasible through solve_batch: the others status 1, that one
+   farkas() value printed beside them; J3, the first J3_SIZE (256) of
+   phase D's instances with one of them infeasible through solve_batch:
+   the others status 1, that one
    status 6 with a ray after the batch's re-entry into solve.
 
    Phase B also holds K15 and K15b (the linesearch's trial loop) to the
@@ -792,6 +793,9 @@ J_SIDE = 124
 # phase J3's infeasible instance (X_00 = -1): one, since each re-entry
 # into solve takes ~25-35 s of the run's time
 J_BAD = (3,)
+# phase J3's batch: the first J3_SIZE of phase D's instances (1024 until
+# the whole script passed ~1000 s on a slow host)
+J3_SIZE = 256
 
 
 def j1_problem(maxcut_problem, random_graph_weights):
@@ -1029,6 +1033,8 @@ CALL_SHAPE = {
     # phase G: (B, side, k) of K12, (B, s, s) of K9
     "batched_subspace": lambda v, warm, *a, **kw: tuple(warm.shape),
     "batched_psd_eigh": lambda X, *a, **kw: tuple(X.shape),
+    # phase N: (side, k) of K17
+    "subspace_sign": lambda Q, *a, **kw: tuple(Q.shape),
 }
 
 
@@ -3224,9 +3230,9 @@ J_DECL_RTOL = {"J1": 0.0, "J2": 5e-3}
 
 def j_kernel_checks(torch, kernels, rng, dev, bsetups):
     """Phase B rows of phase J: K15 on J1's operator (f64) and J2's (f32,
-    f64), K15b at J3's shapes (phase D's), and K15 on the dense operator
-    that J3's re-entries solve through (``solve`` builds it for an
-    instance of side 16: f32 and f64); rows by phase."""
+    f64), K15b at J3's shapes (the first J3_SIZE of phase D's), and K15
+    on the dense operator that J3's re-entries solve through (``solve``
+    builds it for an instance of side 16: f32 and f64); rows by phase."""
     from proxsdp_tpu_torch.models.maxcut import (maxcut_problem,
                                                  random_graph_weights)
     from proxsdp_tpu_torch.ops.linop import build_linop
@@ -3250,18 +3256,19 @@ def j_kernel_checks(torch, kernels, rng, dev, bsetups):
         linesearch_row(torch, kernels, rows["J3"], M, st.layout.p,
                        st.layout.m, sfx, dt, dev, rng,
                        f"J3 re-entry: side {BATCH_SIDE}, {type(M).__name__}")
-    lay = bsetups[0].layout
+    lay, jsetups = bsetups[0].layout, bsetups[:J3_SIZE]
     for sfx, dt in dtypes.items():
         linesearch_batch_row(torch, kernels, rows["J3"],
-                             _batch_operands(bsetups, dt, dev, "auto"), lay.p,
+                             _batch_operands(jsetups, dt, dev, "auto"), lay.p,
                              lay.m, sfx, dt, dev, rng,
-                             f"J3: side {BATCH_SIDE}, B = {len(bsetups)}")
+                             f"J3: side {BATCH_SIDE}, B = {len(jsetups)}")
     return rows
 
 
 def phase_j(torch, kernels, smi, bproblems):
     """J1 (infeasible) and J2 (unbounded) at side 124 through ``solve``,
-    J3 (phase D's instances, one made infeasible) through ``solve_batch``;
+    J3 (the first J3_SIZE of phase D's instances, one made infeasible)
+    through ``solve_batch``;
     (launches by entry point of each)."""
     from proxsdp_tpu_torch import Options, solve, solve_batch
     from proxsdp_tpu_torch.models.maxcut import (maxcut_problem,
@@ -3307,7 +3314,7 @@ def phase_j(torch, kernels, smi, bproblems):
         check(entries[tag]["linesearch_loop_f64"] > 0,
               f"{tag}: linesearch_loop_f64 (K15) launched no kernel")
     # J3: the batch's re-entry
-    probs = j3_problems([p for p, _ in bproblems])
+    probs = j3_problems([p for p, _ in bproblems[:J3_SIZE]])
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = solve_batch(probs, Options(tol_gap=1e-4, tol_feasibility=1e-4))
@@ -4500,6 +4507,551 @@ def phase_m_rows(rows, runs):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase N: the single solve's remaining options on the side-250 max-cut
+# ---------------------------------------------------------------------------
+
+N_ITERS = 300  # the f64 programs' iterations from init_state (N1, N3)
+N_F64_RTOL = 1e-6  # phases F and I's bound on a 300-iteration iterate
+N2_OBJ_RTOL = 2e-4  # an f32 race's like-mode bound, relative to 1 + |obj|
+N3_OPTS = {"hybrid_precision": False, "subspace_rank": 16,
+           "subspace_accept_always": True}
+# N3's default (mixed) program builds its basis in f32: the two builds'
+# f32 rounding moves its residuals ~2e-3 apart over 300 iterations (the
+# JAX mixed and f64 programs differ by as much), so ||X||_F, lambda_min
+# and the objectives are held to this and the rest printed; its f64 form
+# (subspace_mixed=False) is held to N_F64_RTOL in full
+N3_MIXED_RTOL = 1e-5
+N4_SAVE = 100  # N4's checkpoint iteration (f64) ...
+N4_RACE_SAVE = 512  # ... and in the default driver's f32 subspace race
+# the JAX package on one CPU thread (tests/test_torch_reference_values.py::
+# N_CHILD re-derives them, slow): N1, Options(square_form=False,
+# chunk_iters=256) -- status, objective, iterations and [race rank,
+# hand-over, polar reseeds] -- and its f64 program's iterate after N_ITERS
+# iterations (the 14 fetched scalars, ||X||_F, lambda_min); N2, the same
+# under Options(subspace_sign=True); N3, N3_OPTS's iterate (mixed, and
+# with subspace_mixed=False: "f64") in the square and the packed layout,
+# the JAX run given the port's basis after iteration 1 (C11)
+N1_REF = {'status': 1, 'objval': 1250.5878444614436, 'iter': 598, 'events': [24, 597, 144]}
+N1_F64_REF = {'fetch': [300.0, 0.0, 0.005715743269095343, 0.0001718348455696725, -1243.7927710468, -1229.6494943237433, 0.08131993591705226, 0.001373923975738065, 0.08131993591705226, 2.0, 300.0, 0.0, 0.0, 0.0], 'norm': 5.40713931648196, 'lmin': -6.679388390237639e-16}
+N2_REF = {'status': 1, 'objval': 1250.4963688516564, 'iter': 596, 'events': [24, 595, 127]}
+N3_REF = {
+    "N3sq": {'fetch': [300.0, 0.0, 0.0063056546271998675, 0.0015889409615874976, -1235.9270488936681, -1220.43179274321, 0.4740251315005866, 0.012500483155618157, 0.4740251315005866, 2.0, 0.0, 0.00010280819393411129, -0.4160046215330444, 11.0], 'norm': 5.461291736350423, 'lmin': -8.085643220459639e-16},
+    "N3tri": {'fetch': [300.0, 0.0, 0.006305654627198305, 0.001588940961587456, -1235.9270488936643, -1220.43179274321, 0.474025131500578, 0.012500483155617827, 0.474025131500578, 2.0, 0.0, 0.00010280819393410624, -0.4160046215330444, 11.0], 'norm': 5.461291736350425, 'lmin': -8.246058225813558e-16},
+    "N3f64sq": {'fetch': [300.0, 0.0, 0.006306278154156093, 0.001585500935340177, -1235.940781348429, -1220.4438304546559, 0.4731230132962321, 0.012472793978042889, 0.4731230132962321, 2.0, 0.0, 0.00010264620280294961, -0.41600664742327625, 11.0], 'norm': 5.461530996465812, 'lmin': -8.798134260099886e-16},
+    "N3f64tri": {'fetch': [300.0, 0.0, 0.006306278154151599, 0.001585500935337776, -1235.9407813484158, -1220.4438304546538, 0.4731230132956655, 0.012472793978023195, 0.4731230132956655, 2.0, 0.0, 0.0001026462028028944, -0.4160066474232764, 11.0], 'norm': 5.461530996465809, 'lmin': -9.17657274161157e-16},
+}
+
+
+def block_of(x, side: int, square: bool):
+    """The (side, side) matrix of the PSD block at offset 0 of x: reshaped
+    (square form) or unpacked from its scaled triangle (column-major upper
+    triangle, off-diagonal entries times sqrt(2))."""
+    x = np.asarray(x, np.float64)
+    if square:
+        return x[: side * side].reshape(side, side)
+    j = np.repeat(np.arange(side), np.arange(1, side + 1))
+    i = np.concatenate([np.arange(c + 1) for c in range(side)])
+    v = x[: side * (side + 1) // 2] / np.where(i == j, 1.0, np.sqrt(2.0))
+    X = np.zeros((side, side))
+    X[i, j] = v
+    X[j, i] = v
+    return X
+
+
+# K17 against its plain twin: Bp and the statistics relative to the
+# largest entry (f32 products summed in other orders through ~30
+# dependent k x k products: K12's 3e-6 to 1e-5 of the scale); the flags
+# equal, except where a test's statistic lies within SIGN_NEAR of its
+# threshold (then the case is printed)
+SIGN_RTOL = 1e-5
+SIGN_NEAR = 1e-4
+# (side, k, timed): the f32 race's buckets at side 250, phase E's k = 128
+# at side 2000 (timed) and the largest bucket (checked only)
+SIGN_SHAPES = ((SIDE, 16, True), (SIDE, 24, True), (SIDE, 32, True),
+               (LZ_SIDE, 128, True), (LZ_SIDE, 256, False))
+# K12 at B = 1 (the accept-always step in solve) against its plain twin,
+# as phase G's rows
+SUB1_RTOL = {"f64": 1e-10, "f32": 1e-4, "f64_f32": 1e-4}
+
+
+def sign_margins(torch, Q, Z, accept_tol, subspace_tol, k):
+    """The sign body's three tests (cones.py:370-386) as (value, threshold)
+    pairs from the plain arithmetic: rfro against thresh * scale, k - npos
+    against 0.5, ||S S - I||_F against 0.05 sqrt(k)."""
+    from proxsdp_tpu_torch.ops.cones import POLAR_QA, POLAR_QB, POLAR_QC
+
+    B = Q.T @ Z
+    B = 0.5 * (B + B.T)
+    sF = torch.sqrt(torch.sum(B * B)) + 1e-30
+    Y = B / sF
+    for _ in range(7):
+        A2 = Y @ Y
+        Y = POLAR_QA * Y + Y @ (POLAR_QB * A2 + POLAR_QC * (A2 @ A2))
+    for _ in range(4):
+        Y = 1.5 * Y - 0.5 * (Y @ (Y @ Y))
+    S = 0.5 * (Y + Y.T)
+    eye = torch.eye(k, dtype=Q.dtype, device=Q.device)
+    R = (Z - Q @ B) @ (0.5 * (eye + S))
+    thresh = max(subspace_tol, float(accept_tol)) * max(float(sF), 1.0)
+    npos = 0.5 * (k + float(torch.trace(S)))
+    return [(float(torch.sqrt(torch.sum(R * R))), thresh), (k - npos, 0.5),
+            (float(torch.sqrt(torch.sum((S @ S - eye) ** 2))),
+             0.05 * np.sqrt(k))]
+
+
+def sign_inputs(torch, kernels, rng, side, k, dev, case="converged"):
+    """(Q, Z, accept_tol) of one sign step on the card: X with the race's
+    spectrum (k // 2 clear positive eigenvalues, a negative bulk), Q the
+    CholeskyQR2 basis of X times the top-k eigenvectors (``converged``) or
+    them plus noise (``unconverged``), Z = X Q; ``rank_deficient`` zeroes
+    a column of Q, ``nan`` puts a NaN in Z."""
+    f32 = torch.float32
+    U = torch.linalg.qr(torch.tensor(rng.standard_normal((side, side)),
+                                     dtype=torch.float64, device=dev)).Q
+    npos = k // 2
+    w = np.concatenate([np.linspace(40.0, 1.0, npos),
+                        -np.linspace(0.05, 5.0, side - npos)])
+    X = ((U * torch.tensor(w, device=dev)) @ U.T).to(f32)
+    warm = U[:, :k].to(f32)
+    if case == "unconverged":
+        warm = warm + 0.3 * torch.tensor(rng.standard_normal((side, k)),
+                                         dtype=f32, device=dev)
+    Q = kernels.cholqr_plain(kernels.cholqr_plain(X @ warm, 1e-6), 1e-6)
+    if case == "rank_deficient":
+        Q[:, k // 3] = 0.0
+    Z = X @ Q
+    if case == "nan":
+        Z[3, 1] = float("nan")
+    return Q.contiguous(), Z.contiguous(), torch.tensor(1e-4, dtype=f32,
+                                                        device=dev)
+
+
+def option_kernel_checks(torch, kernels, rng, dev):
+    """Phase N's kernels against their plain versions: K17 at the f32
+    race's buckets at side 250 (k = 16, 24, 32) and at side 2000 (k = 128
+    timed, 256 checked), and at side 250, k = 24 on unconverged,
+    rank-deficient and non-finite inputs (checked); K12 at B = 1 (side
+    250, k = 16) in f32, the mixed mode and f64; K10 and the packed-form
+    K4 (an empty square-block table) at side 250, K4 bit for bit.  Times
+    beside the plain twin and the library route: for K17 the eigh route
+    it replaces (torch.linalg.eigh of B and the reconstruction of Bp).
+    Returns (rows for the kernels line, rows checked but off every path)."""
+    rows, off = [], []
+    f32 = torch.float32
+
+    def sign_row(side, k, case, timed):
+        Q, Z, at = sign_inputs(torch, kernels, rng, side, k, dev, case)
+        B = Q.T @ Z
+        B = 0.5 * (B + B.T)
+
+        def library(B=B):  # the eigh route the sign body replaces
+            w, V = torch.linalg.eigh(B)
+            return (V * w.clamp_min(0.0)) @ V.T
+
+        def cmp(got, want):
+            flags_equal = torch.equal(got[2].cpu(), want[2].cpu())
+            if not flags_equal:
+                margins = sign_margins(torch, Q, Z, at, 1e-9, k)
+                near = [abs(v - t) <= SIGN_NEAR * max(abs(t), 1e-30)
+                        for v, t in margins]
+                print(f"kernel subspace_sign_f32 ({case}, side {side}, k = {k})"
+                      f": flags {got[2].tolist()} vs {want[2].tolist()}, tests "
+                      f"(value, threshold) {margins}")
+                check(any(near), f"subspace_sign ({case}, k = {k}): flags "
+                      f"{got[2].tolist()} vs {want[2].tolist()} away from "
+                      "every threshold")
+            fin = torch.isfinite(want[0]).all()
+            check(bool(fin) == bool(torch.isfinite(got[0]).all()),
+                  "subspace_sign: Bp finite in one version only")
+            return compare(torch, got[:2], want[:2])
+
+        args = (Q, Z, at, 1e-9, 7, 4, False)
+        # Q^T Z, Q B, the residual's Pp product (2 side k^2 each) and
+        # ~30 k x k products (7 x 3 + 4 x 2 + S S, S B)
+        flops = 3 * 2 * side * k * k + 31 * 2 * k ** 3
+        dest = rows if (timed and case == "converged") else off
+        check_entry(torch, kernels, dest, "subspace_sign", "f32",
+                    "subspace_sign.cu", "proxsdp_tpu/ops/cones.py:349",
+                    lambda f: f(*args), kernels.subspace_sign_plain, (Q, Z, at),
+                    (torch.empty(k * k + 3, dtype=f32, device=dev),
+                     torch.empty(3, dtype=torch.int32, device=dev)),
+                    flops, library=library, compare_fn=cmp, tol=SIGN_RTOL,
+                    label=f"N: {case}, side {side}, k = {k}",
+                    note=" (library: eigh of B and Bp)", timed=timed)
+        if timed and case == "converged":
+            LAUNCH_US.append((f"subspace_sign_f32 (side {side}, k = {k})",
+                              lambda: kernels.subspace_sign(*args),
+                              "subspace_sign_kernel"))
+
+    for side, k, timed in SIGN_SHAPES:
+        sign_row(side, k, "converged", timed)
+    for case in ("unconverged", "rank_deficient", "nan"):
+        sign_row(SIDE, 24, case, False)
+
+    # ---- K12 at B = 1: the accept-always step in solve
+    side, k = SIDE, 16
+    tl = side * (side + 1) // 2
+    for sfx in ("f64_f32", "f32", "f64"):
+        dt = f32 if sfx == "f32" else torch.float64
+        mixed = sfx == "f64_f32"
+        v, V = subspace_inputs(torch, rng, 3, side, k, dt, dev,
+                               converged=mixed)
+        v, V = v[:1].contiguous(), V[:1].contiguous()
+        Xs = kernels.tri_to_square_plain(v, side)
+
+        def library(Xs=Xs, V=V):
+            Q = torch.linalg.qr(torch.bmm(Xs, V)).Q
+            th, U = torch.linalg.eigh(torch.bmm(Q.mT, torch.bmm(Xs, Q)))
+            W = torch.bmm(Q, U)
+            return torch.bmm(W * th.clamp_min(0)[:, None, :], W.mT)
+
+        def cmp(got, want, v=v, tol=SUB1_RTOL[sfx]):
+            blk, me, rank, warm, bad, stats = got
+            pblk, pme, prank, pwarm, pbad, pstats = want
+            check(torch.equal(bad, pbad) and not bool(bad.any()),
+                  "batched_subspace (B = 1): guard flags")
+            check(torch.equal(rank, prank)
+                  and torch.equal(stats[:, 2], pstats[:, 2]),
+                  "batched_subspace (B = 1): ranks differ")
+            P = warm[0].double() @ warm[0].double().T
+            Pp = pwarm[0].double() @ pwarm[0].double().T
+            span = float((P - Pp).abs().max())
+            check(span <= max(tol, 1e-9) * 10,
+                  f"batched_subspace (B = 1): bases span other spaces ({span:.3e})")
+            scale = float(v.abs().max())
+            err = max(float((blk - pblk).abs().max()),
+                      float((me - pme).abs().max()),
+                      float((stats[:, :2] - pstats[:, :2]).abs().max()))
+            return err, err / scale
+
+        check_entry(
+            torch, kernels, rows if sfx != "f32" else off, "batched_subspace",
+            sfx,
+            "batched_subspace.cu", "proxsdp_tpu/ops/cones.py:497",
+            lambda f, v=v, V=V, m=mixed: f(v, V, side, TOL_PSD, m),
+            kernels.batched_subspace_plain, (v, V),
+            (torch.empty(1, tl, dtype=dt, device=dev), torch.empty_like(V),
+             torch.empty(1, 5, dtype=dt, device=dev)),
+            6 * side * side * k + 14 * side * k * k + 10 * k ** 3,
+            library=library, compare_fn=cmp, tol=SUB1_RTOL[sfx],
+            label=f"N3: B = 1, side {side}, k = {k}",
+            note="" if sfx != "f32" else " (not on phase N's path)")
+
+    # ---- K10 and the packed-form K4 at side 250 (N1's shapes)
+    for sfx, dt in (("f32", f32), ("f64", torch.float64)):
+        v = torch.tensor(rng.standard_normal((1, tl)), dtype=dt, device=dev)
+        Xs = kernels.tri_to_square_plain(v, side).contiguous()
+        gather = (torch.empty(side * side, dtype=torch.int32, device=dev),)
+        check_entry(torch, kernels, rows, "tri_to_square", sfx, "tri_gather.cu",
+                    "proxsdp_tpu/ops/tri.py:39", lambda f, v=v: (f(v, side),),
+                    kernels.tri_to_square_plain, (v,) + gather, (Xs,),
+                    side * side, tol=0.0, label=f"N1: B = 1, side {side}")
+        check_entry(torch, kernels, rows, "square_to_tri", sfx, "tri_gather.cu",
+                    "proxsdp_tpu/ops/tri.py:47", lambda f, Xs=Xs: (f(Xs, side),),
+                    kernels.square_to_tri_plain, (Xs,) + gather[:0]
+                    + (torch.empty(tl, dtype=torch.int32, device=dev),), (v,),
+                    tl, tol=0.0, label=f"N1: B = 1, side {side}")
+        x, Mty, c = (torch.tensor(rng.standard_normal(tl), dtype=dt, device=dev)
+                     for _ in range(3))
+        tau = torch.tensor(0.37, dtype=dt, device=dev)
+        check_entry(torch, kernels, rows, "primal_update_sym", sfx,
+                    "primal_update_sym.cu", "proxsdp_tpu/solver.py:308",
+                    lambda f: (f(x, Mty, c, tau, ()),),
+                    kernels.primal_update_sym_plain, (x, Mty, c, tau),
+                    (torch.empty_like(x),), 3 * tl, tol=0.0,
+                    label=f"N1: packed, n = {tl}")
+    return rows, off
+
+
+def _solve_once(torch, kernels, solve, problem, opts, **kw):
+    """One solve with the launch counts set to 0 just before it and read
+    just after: (result, wall s, counts by entry point, by kernel, by entry
+    point and call shape, captured stdout)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    SHAPES.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = solve(problem, opts, **kw)
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, dict(kernels.launch_counts),
+            kernels.kernel_launches(), collections.Counter(SHAPES.counts),
+            buf.getvalue())
+
+
+def _events(log: str) -> list:
+    """[race rank, hand-over iteration, polar reseeds] from a solve's log
+    (0, 0, -1 where absent), as the JAX references record them."""
+    race = re.search(r"f32 race: subspace rank (\d+)", log)
+    hand = re.search(r"f32 -> f64 at iter (\d+)", log)
+    fb = re.search(r"f32 polar-reseed=(\d+), dense-eigh=(\d+)", log)
+    return [int(race.group(1)) if race else 0, int(hand.group(1)) if hand else 0,
+            int(fb.group(1)) if fb else -1]
+
+
+def _n_steps(torch, kernels, problem, opts, square):
+    """N_ITERS iterations of an f64 program from init_state on the card,
+    counted: (fetched scalars, ||X||_F, lambda_min, counts by entry point,
+    seconds, warnings of synchronising calls after the first iteration)."""
+    import warnings
+
+    from proxsdp_tpu_torch import convert
+    from proxsdp_tpu_torch import solver as tsolver
+    from proxsdp_tpu_torch.ops.linop import build_linop
+    from proxsdp_tpu_torch.problem import preprocess, to_square_form
+
+    dev = torch.device("cuda")
+    setup = preprocess(problem)
+    if square:
+        setup = to_square_form(setup)
+    layout = setup.layout
+    o = convert.operands_from_numpy(
+        M=build_linop(setup.A, setup.G, torch.float64, device=dev), b=setup.b,
+        h=setup.h, c=setup.c, norm_b=setup.norm_b, norm_h=setup.norm_h,
+        norm_c=setup.norm_c, obj_scale=setup.obj_scale * setup.rhs_scale,
+        device=dev)
+    _, iteration, fetch = tsolver.make_chunk_runner(layout, opts, device=dev)
+    s = convert.state_from_numpy(tsolver.init_state(layout, opts, setup), dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = iteration(s, o, 0)
+    torch.cuda.synchronize()
+    # after the first iteration (its tables are built and cached), every
+    # device-to-host synchronisation is reported
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for k in range(1, N_ITERS):
+                s = iteration(s, o, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entries = dict(kernels.launch_counts)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    got = fetch(s)
+    X = block_of(s.x.cpu().numpy(), SIDE, square)
+    return (got, float(np.linalg.norm(X)), float(np.linalg.eigvalsh(X)[0]),
+            entries, wall, syncs)
+
+
+def _n_iterate_check(label, got, norm, lmin, ref, smi, wall,
+                     rtol=N_F64_RTOL, held=range(2, 9)):
+    """A 300-iteration iterate against the JAX one: the counters exactly;
+    ||X||_F, lambda_min (relative to the norm) and the fetched scalars of
+    ``held`` within ``rtol``, the others printed."""
+    rf = np.asarray(ref["fetch"])
+    each = {i: abs(float(got[i]) - rf[i]) / max(abs(rf[i]), 1e-300)
+            for i in range(2, 9)}
+    rel = {"fetch": max(each[i] for i in held),
+           "norm": abs(norm - ref["norm"]) / ref["norm"],
+           "lmin": abs(lmin - ref["lmin"]) / ref["norm"]}
+    print(f"phase {label} ({N_ITERS} iterations from init_state) on {smi}: "
+          f"{wall:.3f} s, {1e3 * wall / N_ITERS:.2f} ms/iteration; relative "
+          "differences from the JAX iterate " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rel.items())
+          + " (fetched gap, feas, prim, dual, pres, dres, comb: "
+          + ", ".join(f"{each[i]:.1e}" for i in range(2, 9))
+          + f"; held: {list(held)} to {rtol:.0e})")
+    check(got[:2].tolist() == rf[:2].tolist()
+          and got[9:11].tolist() == rf[9:11].tolist(),
+          f"{label}: counters {got[:2].tolist() + got[9:11].tolist()} vs the "
+          f"JAX run's {rf[:2].tolist() + rf[9:11].tolist()}")
+    check(max(rel.values()) <= rtol,
+          f"{label}: the iterate differs by {max(rel.values()):.3e} > {rtol}")
+
+
+def phase_n(torch, kernels, smi):
+    """The single solve's remaining options on the side-250 max-cut, each
+    solve once with the launch counts set to 0 just before it and read
+    just after.  N1: Options(square_form=False) under the default driver
+    (K10 in and out of every projection, K4 without symmetrisation),
+    against the JAX package's packed-layout answer, then its f64 program
+    for N_ITERS iterations against the JAX iterate; N2:
+    Options(subspace_sign=True) (K17 once per race subspace step, K8 only
+    in the f64 polish); N3: N3_OPTS for N_ITERS iterations in both layouts,
+    mixed and f64, against the JAX iterates lined up for C11 (K12 once an
+    iteration, no K8, no synchronising call); N4: a checkpoint of the f64 program at
+    iteration N4_SAVE resumed to status 1 against phase A's answer, and
+    one taken in the default driver's f32 subspace race at N4_RACE_SAVE
+    resumed into that race.  Returns {tag: (counts by entry point, by
+    entry point and shape)} of N1, N2 and N3."""
+    import os
+    import tempfile
+
+    import proxsdp_tpu_torch as tx
+    from proxsdp_tpu_torch.models.maxcut import maxcut_problem, random_graph_weights
+    from proxsdp_tpu_torch.utils.checkpoint import load_checkpoint_numpy
+
+    problem, Xidx = maxcut_problem(random_graph_weights(0, SIDE))
+    out = {}
+    # ---- N1: the packed layout
+    res, wall, entries, counts, shapes, log = _solve_once(
+        torch, kernels, tx.solve, problem, tx.Options(
+            square_form=False, log_verbose=True, log_freq=10 ** 9,
+            timer_verbose=True))
+    bound = 1e-4 * (1 + abs(N1_REF["objval"]))
+    ev = _events(log)
+    k10 = counts["tri_to_square"] + counts["square_to_tri"]
+    print(f"phase N1 (Options(square_form=False)) on {smi}: status {res.status}"
+          f" objval {res.objval!r} (JAX packed {N1_REF['objval']!r}, diff "
+          f"{res.objval - N1_REF['objval']:.3e}, bound {bound:.3e}; phase C's "
+          f"square-layout reference {HYB_REF_OBJ!r}, diff "
+          f"{res.objval - HYB_REF_OBJ:.3e}) iterations {res.iter} (JAX packed "
+          f"{N1_REF['iter']}, square {HYB_REF_ITERS}) wall {wall:.3f} s, "
+          f"{res.iter / wall:.1f} iterations/s; [race rank, hand-over, polar "
+          f"reseeds] {ev} (JAX {N1_REF['events']}); K10 launches {k10} "
+          f"({k10 / max(res.iter, 1):.2f} an iteration)")
+    print("phase N1 launches: " + json.dumps({e: n for e, n in entries.items()
+                                              if n}))
+    check(res.status == 1, f"N1: status {res.status}")
+    check(abs(res.objval - N1_REF["objval"]) <= bound,
+          f"N1: objval {res.objval} vs {N1_REF['objval']}")
+    check(k10 >= 2 * res.iter, f"N1: K10 launched {k10} < 2 x {res.iter}")
+    X = res.primal[Xidx]
+    check(float(np.linalg.eigvalsh(X)[0]) >= -1e-6 * float(np.linalg.norm(X)),
+          "N1: X not PSD")
+    out["N1"] = (entries, shapes)
+    got, norm, lmin, entries_f, wall, _ = _n_steps(
+        torch, kernels, problem,
+        tx.Options(hybrid_precision=False, square_form=False), False)
+    _n_iterate_check("N1 f64 packed", got, norm, lmin, N1_F64_REF, smi, wall)
+    check(entries_f["tri_to_square_f64"] >= N_ITERS
+          and entries_f["primal_update_sym_f64"] >= N_ITERS,
+          "N1 f64: K10 / K4 not launched every iteration")
+
+    # ---- N2: the sign-based subspace race
+    res, wall, entries, counts, shapes, log = _solve_once(
+        torch, kernels, tx.solve, problem, tx.Options(
+            subspace_sign=True, log_verbose=True, log_freq=10 ** 9,
+            timer_verbose=True))
+    bound = N2_OBJ_RTOL * (1 + abs(N2_REF["objval"]))
+    ev = _events(log)
+    k17 = entries["subspace_sign_f32"]
+    # K7 runs twice a step: in each race subspace step, each polar reseed
+    # of the race and each mixed polish step (one K8 launch each)
+    steps = (entries["cholqr_f32"] // 2 - max(ev[2], 0)
+             - entries["ritz_accept_f64"])
+    print(f"phase N2 (Options(subspace_sign=True)) on {smi}: status "
+          f"{res.status} objval {res.objval!r} (JAX {N2_REF['objval']!r}, diff "
+          f"{res.objval - N2_REF['objval']:.3e}, bound {bound:.3e}) iterations "
+          f"{res.iter} (JAX {N2_REF['iter']}) wall {wall:.3f} s; [race rank, "
+          f"hand-over, polar reseeds] {ev} (JAX {N2_REF['events']}); race "
+          f"subspace steps {steps}: K17 launches {k17}, accepts "
+          f"{k17 - max(ev[2], 0)}, fallbacks {max(ev[2], 0)}; K8 launches f32 "
+          f"{entries['ritz_accept_f32']}, f64 {entries['ritz_accept_f64']}")
+    print("phase N2 launches: " + json.dumps({e: n for e, n in entries.items()
+                                              if n}))
+    check(res.status == 1, f"N2: status {res.status}")
+    check(abs(res.objval - N2_REF["objval"]) <= bound,
+          f"N2: objval {res.objval} vs {N2_REF['objval']}")
+    check(k17 > 0 and k17 == steps,
+          f"N2: K17 launched {k17} times in {steps} race subspace steps")
+    check(entries["ritz_accept_f32"] == 0, "N2: K8 launched in the f32 race")
+    out["N2"] = (entries, shapes)
+
+    # ---- N3: the accept-always step, both layouts, the default mixed
+    # program and its f64 form
+    for mixed, square in ((True, True), (True, False), (False, True),
+                          (False, False)):
+        tag = ("N3" if mixed else "N3f64") + ("sq" if square else "tri")
+        entry = "batched_subspace_f64_f32" if mixed else "batched_subspace_f64"
+        got, norm, lmin, entries3, wall, syncs = _n_steps(
+            torch, kernels, problem, tx.Options(
+                **N3_OPTS, square_form=square, subspace_mixed=mixed), square)
+        _n_iterate_check(f"{tag} (accept-always, "
+                         f"{'mixed' if mixed else 'f64'}, "
+                         f"{'square' if square else 'packed'})", got, norm,
+                         lmin, N3_REF[tag], smi, wall,
+                         *((N3_MIXED_RTOL, (4, 5)) if mixed else ()))
+        k12 = entries3[entry]
+        print(f"phase {tag}: K12 launches {k12}, K8 launches "
+              f"{entries3['ritz_accept_f64'] + entries3['ritz_accept_f32']}, "
+              f"synchronising calls after iteration 1: {len(syncs)}"
+              + (f" ({syncs[:3]})" if syncs else ""))
+        check(k12 == N_ITERS, f"{tag}: K12 launched {k12} != {N_ITERS}")
+        check(entries3["ritz_accept_f64"] + entries3["ritz_accept_f32"] == 0,
+              f"{tag}: K8 launched")
+        check(not syncs, f"{tag}: a synchronising call in the iteration")
+        out[tag] = (entries3, collections.Counter({
+            (entry, (1, SIDE, 16)): k12}))
+
+    # ---- N4: checkpoint and resume
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/n4.npz"
+        r1, w1, *_ = _solve_once(torch, kernels, tx.solve, problem, tx.Options(
+            hybrid_precision=False, checkpoint_path=path,
+            checkpoint_freq=N4_SAVE, max_iter=2 * N4_SAVE, chunk_iters=N4_SAVE))
+        check(r1.status == 3 and os.path.exists(path),
+              f"N4: status {r1.status}, checkpoint written "
+              f"{os.path.exists(path)}")
+        r2, w2, *_ = _solve_once(torch, kernels, tx.solve, problem,
+                                 tx.Options(hybrid_precision=False),
+                                 resume_from=path)
+        print(f"phase N4 (f64 checkpoint at {2 * N4_SAVE}) on {smi}: status "
+              f"{r1.status} in {w1:.3f} s; resumed: status {r2.status} objval "
+              f"{r2.objval!r} (phase A's reference {REF_OBJ!r}, diff "
+              f"{r2.objval - REF_OBJ:.3e}) iterations {r2.iter} (phase A "
+              f"{REF_ITERS}) in {w2:.3f} s")
+        check(r2.status == 1 and abs(r2.objval - REF_OBJ)
+              <= 1e-4 * (1 + abs(REF_OBJ)), f"N4: resumed {r2.status} "
+              f"{r2.objval}")
+        path = f"{tmp}/n4race.npz"
+        r1, w1, *_, log1 = _solve_once(torch, kernels, tx.solve, problem,
+                                       tx.Options(
+                                           checkpoint_path=path,
+                                           checkpoint_freq=N4_RACE_SAVE,
+                                           max_iter=N4_RACE_SAVE,
+                                           log_verbose=True, log_freq=10 ** 9))
+        fields, phase32 = load_checkpoint_numpy(path)
+        r2, w2, *_, log2 = _solve_once(torch, kernels, tx.solve, problem,
+                                       tx.Options(log_verbose=True,
+                                                  log_freq=10 ** 9),
+                                       resume_from=path)
+        ev1, ev2 = _events(log1), _events(log2)
+        print(f"phase N4 (race checkpoint at {int(fields['iter'])}: f32 "
+              f"{phase32}, basis {fields['warm'][0].shape}) on {smi}: entry "
+              f"rank {ev1[0]}; resumed: status {r2.status} objval "
+              f"{r2.objval!r} (phase C's reference {HYB_REF_OBJ!r}, diff "
+              f"{r2.objval - HYB_REF_OBJ:.3e}) iterations {r2.iter} (phase C "
+              f"{HYB_REF_ITERS}), hand-over at {ev2[1]}, a second race entry "
+              f"{'yes' if ev2[0] else 'no'}, in {w2:.3f} s")
+        check(phase32 and fields["warm"][0].ndim == 2 and ev1[0] > 0,
+              "N4: the race checkpoint is not in the f32 subspace race")
+        check(ev2[0] == 0 and ev2[1] > N4_RACE_SAVE,
+              "N4: the resume did not continue in the f32 subspace race")
+        check(r2.status == 1 and abs(r2.objval - HYB_REF_OBJ)
+              <= 1e-4 * (1 + abs(HYB_REF_OBJ)),
+              f"N4: race resume {r2.status} {r2.objval}")
+    return out
+
+
+def phase_n_rows(rows, runs):
+    """Each phase-N row's launches: K17's at its shape in N2, K12's at its
+    shape in N3 (both layouts), K10's and the packed K4's entry point in
+    N1's solve; (rows for the kernels line, rows left off it)."""
+    kept, left = [], []
+    n3 = ({}, collections.Counter())
+    for tag in ("N3sq", "N3tri", "N3f64sq", "N3f64tri"):
+        for e, n in runs[tag][0].items():
+            n3[0][e] = n3[0].get(e, 0) + n
+        n3[1].update(runs[tag][1])
+    for row in rows:
+        name = row["name"]
+        entries, shapes = (runs["N2"] if name.startswith("subspace_sign")
+                           else n3 if name.startswith("batched_subspace")
+                           else runs["N1"])
+        a, b = assign_launches([row], shapes, entries)
+        kept += [r for r in a if r["launches"]]
+        left += b + [r for r in a if not r["launches"]]
+    return kept, left
+
+
 def main() -> int:
     import torch
 
@@ -4583,6 +5135,26 @@ def main() -> int:
                   f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
         print("phase M rows left off the line: " + ", ".join(
             row["name"] for row in left + moff))
+        print(json.dumps({"kernels": [
+            {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
+        return 0
+
+    if "--phase-n" in sys.argv[1:]:
+        # phase N's kernel rows and phase N alone
+        t_phase = time.perf_counter()
+        nrows, noff = option_kernel_checks(torch, kernels,
+                                           np.random.default_rng(14),
+                                           torch.device("cuda"))
+        print(f"phase N rows: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        kept, left = phase_n_rows(nrows, phase_n(torch, kernels, smi))
+        print(f"phase N: {time.perf_counter() - t_phase:.1f} s")
+        for label, fn, pattern in LAUNCH_US:
+            us = device_us(torch, fn, pattern, calls=10)
+            print(f"kernel {label}: device "
+                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print("phase N rows left off the line: " + ", ".join(
+            row["name"] for row in left + noff))
         print(json.dumps({"kernels": [
             {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
         return 0
@@ -4680,6 +5252,10 @@ def main() -> int:
     mrows, moff = sweep_kernel_checks(torch, kernels, np.random.default_rng(13),
                                       torch.device("cuda"))
     print(f"phase B: phase M's rows {time.perf_counter() - t_m:.1f} s")
+    t_n = time.perf_counter()
+    nrows, noff = option_kernel_checks(torch, kernels, np.random.default_rng(14),
+                                       torch.device("cuda"))
+    print(f"phase B: phase N's rows {time.perf_counter() - t_n:.1f} s")
     print(f"phase B: {time.perf_counter() - t_phase:.1f} s (above side 1024 "
           f"{t_g - t_b:.1f} s, phase G's shapes {t_hi - t_g:.1f} s, phases H "
           f"and I's {time.perf_counter() - t_hi:.1f} s)")
@@ -4722,9 +5298,10 @@ def main() -> int:
         {e: n for e, n in entries.items() if n}))
     for name in kernels.SOLVE_KERNELS:
         # K11 runs only above full_eig_max_side (phase F), K13 only on SOC
-        # blocks (phase I), K14 only on a COO operator (phases H and I)
+        # blocks (phase I), K14 only on a COO operator (phases H and I),
+        # K17 only under subspace_sign=True (phase N2)
         check(counts[name] > 0 or name in ("lanczos_krylov", "soc_projection",
-                                           "coo_spmv"),
+                                           "coo_spmv", "subspace_sign"),
               f"C: {name} launched no kernel")
     for name in ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym"):
@@ -4907,6 +5484,20 @@ def main() -> int:
     print_shapes("phase M1", runs_m["M1"][1], mrows)
     print_shapes("phase M2", runs_m["M2"][1], mrows)
 
+    # ---- 13. phase N: the single solve's remaining options (the packed
+    # layout, the sign-based race on K17, the accept-always step on K12 at
+    # B = 1, checkpoint and resume)
+    t_phase = time.perf_counter()
+    runs_n = phase_n(torch, kernels, smi)
+    print(f"phase N: {time.perf_counter() - t_phase:.1f} s")
+    n_kept, n_left = phase_n_rows(nrows, runs_n)
+    rows += n_kept
+    print("kernels line: phase N's rows take the launches of their entry "
+          "point (K17, K12: at their shape) in N1, N2 or N3; checked against "
+          "the plain version but not launched at their shape there: "
+          + ", ".join(row["name"] for row in n_left + noff))
+    print_shapes("phase N2", runs_n["N2"][1], all_rows + nrows)
+
     for label, fn, pattern in LAUNCH_US:
         us = device_us(torch, fn, pattern, calls=10)
         print(f"kernel {label}: device "
@@ -4920,7 +5511,7 @@ def main() -> int:
                - {n.replace("_f64", "").replace("_f32", "") for n in names})
     check(not missing, f"kernels line: no row of {sorted(missing)}")
 
-    print(f"phases A-M: {time.perf_counter() - t_start:.1f} s")
+    print(f"phases A-N: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))

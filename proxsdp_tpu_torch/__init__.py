@@ -5,11 +5,14 @@ names match (``solver``, ``ops/cones``, ``ops/linop``, ...), and each slice
 is accepted only when it matches ``proxsdp_tpu`` on the same input.  It
 imports ``torch``, numpy and scipy -- never jax, never ``proxsdp_tpu``.
 
-Ported so far: solves of square-form conic programs -- PSD blocks of any
-number and side (the Lanczos projection above ``full_eig_max_side``),
-SOC blocks, free and LP coordinates, Ruiz and block equilibration with
-the ``block_equilibration="auto"`` probe, warm starts, the certificate
-search after an infeasible or unbounded declaration -- by the default
+Ported so far: solves of conic programs -- PSD blocks of any number and
+side (the Lanczos projection above ``full_eig_max_side``) in the
+square-form or the packed-triangle layout, SOC blocks, free and LP
+coordinates, Ruiz and block equilibration with the
+``block_equilibration="auto"`` probe, warm starts, checkpoints and
+``resume_from``, the sign-based and the accept-always subspace steps,
+the certificate search after an infeasible or unbounded declaration --
+by the default
 ``solve(problem)`` (the hybrid f32 race and f64 polish) and single f64
 or f32 programs, and the batched sweep ``solve_batch(problems)`` of
 many same-geometry single-block problems (the packed-triangle layout,

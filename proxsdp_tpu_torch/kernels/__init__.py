@@ -26,6 +26,8 @@ kernels.
 | sym_guard          | ops/cones.py:96-109, 294-310 Xp, guard and rank  |
 | cholqr             | ops/cones.py:243-263 one CholeskyQR pass         |
 | ritz_accept        | ops/cones.py:443-489 the Ritz acceptance test    |
+| subspace_sign      | ops/cones.py:349-410 the sign-based step's k x k |
+|                    |   work and acceptance test (f32 only)            |
 | lanczos_krylov     | ops/lanczos.py:56-95 the Lanczos recurrence      |
 | batched_psd_eigh   | ops/cones.py:622-675, 204-211 batched eigh proj. |
 |   (_large: K9L)    |   the same past one block's shared memory        |
@@ -72,7 +74,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.cones import box_projection
+from ..ops.cones import POLAR_QA, POLAR_QB, POLAR_QC, box_projection
 from ..utils.vech import offdiag_mask_tri, square_gather_index, tri_ij
 from . import build
 from .build import KernelError
@@ -83,7 +85,7 @@ from .build import KernelError
 SOLVE_KERNELS = ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym", "ns_gemm", "fro_scale", "sym",
                  "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov",
-                 "soc_projection", "coo_spmv")
+                 "soc_projection", "coo_spmv", "subspace_sign")
 BATCH_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch", "residuals_batch",
                  "primal_update_batch", "batched_psd_eigh", "tri_to_square",
                  "square_to_tri", "batched_subspace", "batched_gemv",
@@ -113,6 +115,7 @@ _ARGTYPES = {
     "sym_guard": [_P] * 7 + [_I, _P],
     "cholqr": [_P, _P, _P, _I, _I, _D, _P],
     "ritz_accept": [_P] * 4 + [_I, _I, _D, _D, _I] + [_P] * 4,
+    "subspace_sign": [_P] * 7 + [_I, _I, _D, _I, _I, _I, _P],
     "lanczos_krylov": [_P] * 6 + [_I, _I, _D, _P],
     "ell_spmv_batch": [_P] * 4 + [_I] * 5 + [_P],
     "ls_dual_update_batch": [_P] * 10 + [_I] * 3 + [_P],
@@ -140,9 +143,13 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 _MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",),
           "batched_subspace": ("f64_f32",),
           "batched_subspace_large": ("f64_f32",)}
+# entry points of one type only
+_ONLY = {"subspace_sign": ("f32",)}
 
 
 def _suffixes(name: str) -> tuple[str, ...]:
+    if name in _ONLY:
+        return _ONLY[name]
     return (*_SUFFIX.values(), *_MIXED.get(name, ()))
 
 
@@ -1138,6 +1145,87 @@ def ritz_accept(W, XW, theta, accept_tol, tol: float, tol_psd: float,
     return lam, stats, flags
 
 
+# ------------------------------------- K17 sign-based subspace step
+
+# subspace_sign.cu keeps its four k x k matrices in shared memory to this
+# k, above it in a device workspace
+SIGN_SMEM_MAX_K = 64
+
+
+def subspace_sign_plain(Q, Z, accept_tol, subspace_tol: float,
+                        aggressive: int, polish: int, force_full: bool):
+    k = Q.shape[1]
+    eye = torch.eye(k, dtype=Q.dtype, device=Q.device)
+    B = Q.T @ Z
+    B = 0.5 * (B + B.T)
+    sF = torch.sqrt(torch.sum(B * B)) + 1e-30
+    Y = B / sF
+    for _ in range(aggressive):
+        A2 = Y @ Y
+        Y = POLAR_QA * Y + Y @ (POLAR_QB * A2 + POLAR_QC * (A2 @ A2))
+    for _ in range(polish):
+        Y = 1.5 * Y - 0.5 * (Y @ (Y @ Y))
+    S = 0.5 * (Y + Y.T)
+    npos = 0.5 * (k + torch.trace(S))
+    Pp = 0.5 * (eye + S)
+    R = (Z - Q @ B) @ Pp
+    rfro = torch.sqrt(torch.sum(R * R))
+    scale = torch.clamp_min(sF, 1.0)
+    thresh = torch.tensor(subspace_tol, dtype=Q.dtype, device=Q.device)
+    if accept_tol is not None:
+        thresh = torch.maximum(thresh, accept_tol)
+    sign_err = torch.sqrt(torch.sum((S @ S - eye) ** 2))
+    conv = ((rfro <= thresh * scale) & ((k - npos) >= 0.5)
+            & (sign_err <= 0.05 * torch.sqrt(
+                torch.tensor(k, dtype=Q.dtype, device=Q.device)))
+            & (not force_full))
+    stats = torch.stack([rfro / scale, npos - k, npos])
+    Bp = 0.5 * (B + S @ B)
+    Bp = 0.5 * (Bp + Bp.T)
+    rank = torch.where(torch.isfinite(npos),
+                       torch.clamp(torch.round(npos), 0, k), 0.0)
+    info = torch.stack([conv.to(torch.int32), rank.to(torch.int32),
+                        (~torch.all(torch.isfinite(B))).to(torch.int32)])
+    return Bp, stats, info
+
+
+def subspace_sign(Q, Z, accept_tol, subspace_tol: float, aggressive: int,
+                  polish: int, force_full: bool):
+    """(Bp, stats, info) of a sign-based subspace step (see
+    subspace_sign.cu): Q the (side, k) CholeskyQR2 basis, Z = X Q, both
+    f32; accept_tol a 0-d f32 tensor or None; Bp (k, k) = sym((B + sign(B)
+    B) / 2) for B = sym(Q^T Z), stats = PsdProjResult.sub_stats [rfro /
+    scale, npos - k, npos], info = int32 [conv_ok, rank, B non-finite]."""
+    name = "subspace_sign"
+    if Q.dim() != 2 or Z.shape != Q.shape:
+        raise ValueError(f"{name}: Q and Z must be one (side, k) shape")
+    side, k = Q.shape
+    extra = []
+    if accept_tol is not None:
+        _check_scalar(name, accept_tol, "accept_tol")
+        extra = [accept_tol]
+    cpu = _on_cpu(name, Q, Z, *extra)
+    if Q.dtype != torch.float32:
+        raise TypeError(f"{name}: f32 only (the sign body's gate)")
+    if cpu:
+        return subspace_sign_plain(Q, Z, accept_tol, subspace_tol, aggressive,
+                                   polish, force_full)
+    if k > SUBSPACE_LARGE_MAX_K:
+        raise ValueError(f"{name}: k = {k} > {SUBSPACE_LARGE_MAX_K}")
+    dev = Q.device
+    ws = (torch.empty(4 * k * k, dtype=torch.float32, device=dev)
+          if k > SIGN_SMEM_MAX_K else None)
+    Bp = torch.empty((k, k), dtype=torch.float32, device=dev)
+    stats = torch.empty(3, dtype=torch.float32, device=dev)
+    info = torch.empty(3, dtype=torch.int32, device=dev)
+    _launch(name, torch.float32, dev, _ptr(Q), _ptr(Z),
+            None if accept_tol is None else _ptr(accept_tol),
+            None if ws is None else _ptr(ws), _ptr(Bp), _ptr(stats),
+            _ptr(info), side, k, float(subspace_tol), int(aggressive),
+            int(polish), int(bool(force_full)))
+    return Bp, stats, info
+
+
 # ------------------------------------------- K11 Lanczos recurrence
 
 LANCZOS_CHUNK = 256  # lanczos.cu: the vector chunk of its reductions
@@ -1540,10 +1628,15 @@ def _workspace(name: str, nbytes: int, dtype, device) -> torch.Tensor:
 def _eigh_rows(X):
     """torch.linalg.eigh of a (B, s, s) batch with jnp.linalg.eigh's NaN
     for an instance with a non-finite entry, that instance alone (torch
-    raises there).  The test is on the device: no host sync."""
+    raises there), and LAPACK's w = 0, V = I for an all-zero instance
+    (cuSOLVER leaves its outputs unwritten there; ops.cones._eigh).  The
+    tests are on the device: no host sync."""
     ok = torch.all(torch.isfinite(X), dim=(-2, -1))
-    w, V = torch.linalg.eigh(torch.where(ok[:, None, None], X,
-                                         torch.zeros_like(X)))
+    nz = torch.any((X != 0).flatten(1), dim=1)
+    eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+    w, V = torch.linalg.eigh(torch.where((ok & nz)[:, None, None], X, eye))
+    w = torch.where(nz[:, None], w, 0.0)
+    V = torch.where(nz[:, None, None], V, eye)
     return (torch.where(ok[:, None], w, torch.nan),
             torch.where(ok[:, None, None], V, torch.nan))
 

@@ -17,6 +17,17 @@
     the tall-skinny products are library calls; the acceptance test is
     kernel K8.  ``lax.cond(conv_ok, ...)`` becomes one host read of K8's
     flag, the same sync the eigh already costs;
+  - the sign-based subspace step ``_subspace_body_sign`` (337-425,
+    ``subspace_sign=True`` in an f32 program that is neither mixed nor
+    accept-always, the gate of 317-321): K7 twice, the two tall-skinny
+    library products, then kernel K17 (the k x k Newton-Schulz sign, the
+    residual and the test in one launch), one host read of its flags and
+    on accept the library reconstruction Q Bp Q^T with its NaN guard;
+  - the accept-always step (``subspace_accept_always=True``, 497-510):
+    kernel K12 at B = 1 on the packed block, the reconstruction applied
+    without a test or a reseed and no host read.  A square block is
+    packed for it by K10 and unpacked after (K12 reads packed triangles;
+    two K10 launches of side^2 words cost far less than the step);
   - the Lanczos low-rank projection (542-619) above ``full_eig_max_side``:
     ``ops.lanczos.lanczos_topk`` (kernel K11, then the ncv x ncv eigh and
     K5's Ritz rotation), the residual test on the ``target_rank`` leading
@@ -26,6 +37,11 @@
     ``max_target_rank_krylov_eigs``) are the polar projection at a giant
     side and the dense eigh otherwise -- a dead branch, since the gating
     needs a giant side (ROADMAP C2), reproduced as the JAX package has it.
+
+A packed-triangle block (``square_form=False``) goes through K10's
+``tri_to_square`` before its projection and ``square_to_tri`` after it,
+with no symmetrisation (cones.py:166-174); the accept-always step takes it
+as it is.
 
 * ``psd_projection_small_batch`` (cones.py:622-675): the dense-eigh
   projection of B same-side blocks, packed scaled triangles (the batch
@@ -46,8 +62,7 @@ directly.
 
 The SOC projection (cones.py:43-56) is kernel K13,
 ``kernels.soc_projection``, which ``solver._primal_step`` calls on all
-SOC blocks at once.  The sign-based subspace body (``subspace_sign=True``,
-cones.py:337-425) is ROADMAP B5'.
+SOC blocks at once.
 """
 
 from __future__ import annotations
@@ -57,6 +72,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..utils.vech import sympackeddim
 from .lanczos import lanczos_topk
 
 POLAR_QA, POLAR_QB, POLAR_QC = 3.4445, -4.7750, 2.0315
@@ -73,7 +89,10 @@ class PsdProjResult(NamedTuple):
     min_eig: torch.Tensor  # 0-d; full and polar paths report 0
     current_rank: torch.Tensor  # 0-d int32
     warm: torch.Tensor  # (side,) warm vector or (side, k) basis
-    used_full: bool  # a dense eigh or a polar reseed ran (host bool)
+    # a dense eigh or a polar reseed ran, or the NaN guard of the sign or
+    # accept-always step fired: a host bool, or a 0-d device bool where
+    # only the device knows (the guard)
+    used_full: bool | torch.Tensor
     # subspace diagnostics [rnmax/scale, min_theta, npos], zeros elsewhere
     sub_stats: torch.Tensor
 
@@ -132,14 +151,20 @@ def _eigh(A):
     """torch.linalg.eigh with jnp.linalg.eigh's semantics on a non-finite
     input, and where LAPACK's or cuSOLVER's iteration does not converge:
     NaN eigenpairs (torch raises in both cases; the NaNs send the caller
-    to its fallback, as in the JAX package).  The finite test is on the
-    device, so it costs no host sync."""
+    to its fallback, as in the JAX package).  An all-zero input (the cold
+    start's first projection) gets LAPACK's answer, w = 0 and V = I: there
+    cuSOLVER leaves its outputs as the allocator handed them over, so on
+    the card they held whatever freed memory held (NaN after a NaN
+    guard).  The tests are on the device, so they cost no host sync."""
     ok = torch.all(torch.isfinite(A))
+    nz = torch.any(A != 0)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     try:
-        w, V = torch.linalg.eigh(torch.where(ok, A, torch.zeros_like(A)))
+        w, V = torch.linalg.eigh(torch.where(ok & nz, A, eye))
     except torch.linalg.LinAlgError:
         return (torch.full(A.shape[:-1], torch.nan, dtype=A.dtype,
                            device=A.device), torch.full_like(A, torch.nan))
+    w, V = torch.where(nz, w, 0.0), torch.where(nz, V, eye)
     return torch.where(ok, w, torch.nan), torch.where(ok, V, torch.nan)
 
 
@@ -218,6 +243,46 @@ def _subspace_body(X, warm, k: int, opts, accept_tol, force_full: bool):
     return Xp, me, cur, wv, True, stats
 
 
+def _subspace_body_sign(X, warm, k: int, opts, accept_tol, force_full: bool):
+    """The matmul-only subspace step (cones.py:337-425): Newton-Schulz
+    sign(B) of the Rayleigh quotient B instead of its eigh, an aggregate
+    residual test, (B + sign(B) B) / 2 projected back; f32 only.  Returns
+    (Xp, min_eig, rank, warm, used_full, sub_stats)."""
+    Q = _cholqr2(torch.matmul(X, warm))
+    Z = torch.matmul(X, Q)
+    Bp, stats, info = kernels.subspace_sign(
+        Q, Z, accept_tol, opts.subspace_tol, opts.polar_aggressive,
+        opts.polar_polish, force_full)
+    if bool(info[0]):  # the one host read of the step
+        Xp = torch.matmul(Q, torch.matmul(Bp, Q.T))
+        bad = ~torch.all(torch.isfinite(Xp))
+        return (torch.where(bad, X, Xp), X.new_zeros(()), info[1],
+                torch.where(bad, warm, Q), bad, stats)
+    if opts.subspace_fallback == "polar":
+        Xp, me, cur, wv = polar_reseed(X, warm, X.dtype, opts)
+    else:
+        Xp, me, cur, wv = full_path_sub(X, k, opts)
+    return Xp, me, cur, wv, True, stats
+
+
+def _use_sign(dtype, opts) -> bool:
+    """The sign body's gate (cones.py:317-321): an f32 program (the mixed
+    mode is an f64 program's) without the accept-always step."""
+    return (bool(opts.subspace_sign) and dtype == torch.float32
+            and not opts.subspace_accept_always)
+
+
+def _accept_always(v, warm, side: int, opts) -> PsdProjResult:
+    """The accept-always subspace step (cones.py:497-510) on a packed
+    scaled triangle v (tri_len,): kernel K12 at B = 1.  The eigh body's
+    reconstruction runs unconditionally; where it is not finite, X and the
+    old basis go out and used_full is set (on the device: no host read)."""
+    mixed = bool(opts.subspace_mixed) and v.dtype == torch.float64
+    blocks, me, rank, wv, bad, stats = kernels.batched_subspace(
+        v.view(1, -1), warm.unsqueeze(0), side, opts.tol_psd, mixed=mixed)
+    return PsdProjResult(blocks[0], me[0], rank[0], wv[0], bad[0], stats[0])
+
+
 def lanczos_ncv(side: int, opts) -> int:
     """Lanczos steps of a side (cones.py:565-573): at least 2 k_max + 1 and
     ``eigsolver_min_lanczos``, side // 32 at a giant side (above
@@ -280,31 +345,51 @@ def _lanczos_path(X, warm, target_rank: int, opts, force_full: bool):
 def psd_projection_block(X, warm, *, opts, accept_tol=None,
                          force_full: bool = False,
                          target_rank=None) -> PsdProjResult:
-    """Project the symmetric (side, side) matrix X onto the PSD cone.
+    """Project one PSD block onto the PSD cone.
 
-    X must already be symmetric: on the solver's path kernel K4 fuses the
-    symmetrisation (cones.py:172-173) into the primal update.  The branch
-    is ``projection_kind``'s: the subspace step when ``0 < k < side // 2``
-    for k = min(subspace_rank, side) and the warm start is a (side, k)
-    basis; else the polar projection when ``projection == "polar"`` and
-    side >= polar_min_side; else, at a side above ``full_eig_max_side``
-    and ``min_size_krylov_eigs``, the Lanczos projection of
-    ``target_rank`` pairs (an int, or a 0-d tensor read once on the host;
-    that branch needs it); else the dense eigh.  ``accept_tol`` (a 0-d
-    tensor) and the host flag ``force_full`` feed the subspace test;
-    ``force_full`` also sends the Lanczos branch to its fallback.
+    ``X`` is the symmetric (side, side) matrix of a square-form block --
+    on the solver's path kernel K4 fuses the symmetrisation (cones.py:
+    172-173) into the primal update -- or the packed scaled triangle
+    (tri_len,) of a ``square_form=False`` block; the projection comes back
+    in the same form.  The branch is ``projection_kind``'s: the subspace
+    step when ``0 < k < side // 2`` for k = min(subspace_rank, side) and
+    the warm start is a (side, k) basis (the accept-always step, the sign
+    body or the eigh body); else the polar projection when ``projection ==
+    "polar"`` and side >= polar_min_side; else, at a side above
+    ``full_eig_max_side`` and ``min_size_krylov_eigs``, the Lanczos
+    projection of ``target_rank`` pairs (an int, or a 0-d tensor read once
+    on the host; that branch needs it); else the dense eigh.
+    ``accept_tol`` (a 0-d tensor) and the host flag ``force_full`` feed
+    the subspace tests; ``force_full`` also sends the Lanczos branch to
+    its fallback.
     """
-    side = X.shape[0]
-    zero3 = X.new_zeros(3)
+    packed = X.dim() == 1
+    side = sympackeddim(X.shape[0]) if packed else X.shape[0]
     kind = projection_kind(side, opts, warm.dim() == 2)
     if kind == "scalar":
         proj = torch.clamp_min(X.reshape(1), 0.0)
-        return PsdProjResult(proj.reshape(1, 1), proj[0],
-                             (proj[0] > 0).to(torch.int32), warm, False, zero3)
+        return PsdProjResult(proj.reshape(X.shape), proj[0],
+                             (proj[0] > 0).to(torch.int32), warm, False,
+                             X.new_zeros(3))
+    if kind == "subspace" and opts.subspace_accept_always:
+        if packed:
+            return _accept_always(X, warm, side, opts)
+        res = _accept_always(kernels.square_to_tri(X.view(1, side, side),
+                                                   side)[0], warm, side, opts)
+        return res._replace(block=kernels.tri_to_square(
+            res.block.view(1, -1), side)[0])
+    if packed:
+        res = psd_projection_block(
+            kernels.tri_to_square(X.view(1, -1), side)[0], warm, opts=opts,
+            accept_tol=accept_tol, force_full=force_full,
+            target_rank=target_rank)
+        return res._replace(block=kernels.square_to_tri(
+            res.block.view(1, side, side), side)[0])
+    zero3 = X.new_zeros(3)
     if kind == "subspace":
         k = int(min(opts.subspace_rank, side))
-        return PsdProjResult(*_subspace_body(X, warm, k, opts, accept_tol,
-                                             force_full))
+        body = _subspace_body_sign if _use_sign(X.dtype, opts) else _subspace_body
+        return PsdProjResult(*body(X, warm, k, opts, accept_tol, force_full))
     if kind == "polar":
         Xp, rank = polar_psd(X, aggressive=opts.polar_aggressive,
                              polish=opts.polar_polish)

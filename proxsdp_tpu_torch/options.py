@@ -4,9 +4,8 @@ Every field and default is identical to the JAX package's, so one
 ``Options`` value means the same thing in both packages (a test compares
 the two field by field).  The field comments of the JAX package explain
 each knob; here they only say which ones the port honours.  The port
-runs one square-form PSD block under the default hybrid driver or a
-single f64/f32 program: ``solver.solve`` raises ``NotImplementedError``
-(naming the ROADMAP item) for a value outside it.
+honours every field but ``tp_shards``, for which ``solver.solve`` and
+``solve_batch`` raise ``NotImplementedError`` (naming ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -144,8 +143,8 @@ class Options:
     square_form: bool = True
     mixed_projection: bool = False
 
-    # persistent-subspace projection; subspace_sign and
-    # subspace_accept_always are ROADMAP B5' and B13 in the port
+    # persistent-subspace projection (subspace_sign: kernel K17 in an f32
+    # program; subspace_accept_always: kernel K12 at B = 1 in solve)
     subspace_rank: int = 0
     subspace_tol: float = 1e-9
     subspace_reseed_freq: int = 256
@@ -172,7 +171,7 @@ class Options:
     restart_decay: float = 0.8
     restart_trigger: str = "gap"  # "gap" | "kkt"
 
-    # checkpoint/resume (ROADMAP A10 in the port)
+    # checkpoint/resume: utils/checkpoint.py, the JAX package's format
     checkpoint_path: str = ""
     checkpoint_freq: int = 0
 

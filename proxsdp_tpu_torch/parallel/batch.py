@@ -78,9 +78,11 @@ are accepted and have no effect, as in the JAX batch driver: its
 ``preprocess`` call does not equilibrate and its operands carry no row
 unscale (batch.py:257-269, 311-318).
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``mesh=`` (multi-GPU, B14), ``tp_shards`` (A12), ``checkpoint_path``
-(A10).
+``checkpoint_path`` writes no checkpoint in the batch loop, as in the
+JAX batch driver: it rides in the options of the re-entry into ``solve``
+for a declared instance (batch.py:591-603).  Not ported yet, raising
+``NotImplementedError`` with its ROADMAP item: ``mesh=`` (multi-GPU,
+B14), ``tp_shards`` (A12).
 """
 
 from __future__ import annotations
@@ -133,8 +135,6 @@ def _check_batch(opts: Options) -> None:
     """Options outside the port raise, naming the ROADMAP item."""
     if opts.tp_shards:
         _unsupported("tp_shards", "A12")
-    if opts.checkpoint_path:
-        _unsupported("checkpoint_path", "A10")
 
 
 # ---------------------------------------------------------------------------

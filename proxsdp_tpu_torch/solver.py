@@ -1,16 +1,19 @@
 """PDHG (Chambolle-Pock) solver core -- the port of ``proxsdp_tpu/solver.py``.
 
-Square-form PSD blocks (any number and sides), SOC blocks, free and LP
-coordinates with equality and inequality rows, in f64 or f32; per
-iteration
+PSD blocks (any number and sides) in the square-form layout (the
+default) or as packed scaled triangles (``square_form=False``), SOC
+blocks, free and LP coordinates with equality and inequality rows, in f64
+or f32; per iteration
 
-1. ``_primal_step``: kernel K4 (update + symmetrise every square block),
-   the PSD projection of each block (``ops.cones``: same-side small
-   blocks grouped into one batched eigh, kernel K9 on the card; each other
-   block by dense eigh, the polar projection on K5/K6, the subspace step
-   on K7/K8 with a polar or dense fallback, or Lanczos on K11), the SOC
-   projection of every SOC block (kernel K13), then ``M x`` (kernel K1
-   for ELL);
+1. ``_primal_step``: kernel K4 (the update, and in the square layout the
+   symmetrisation of every block), the PSD projection of each block
+   (``ops.cones``: same-side small blocks grouped into one batched eigh,
+   kernel K9 on the card; each other block by dense eigh, the polar
+   projection on K5/K6, the subspace step on K7/K8 with a polar or dense
+   fallback, its sign-based body on K7/K17, its accept-always form on K12,
+   or Lanczos on K11; a packed block unpacked and packed again by K10),
+   the SOC projection of every SOC block (kernel K13), then ``M x``
+   (kernel K1 for ELL);
 2. ``_linesearch``: the Malitsky-Pock trials (K2's dual update, M'y, the
    accept test), at most ``max_linsearch_steps`` of them, all in one
    launch of kernel K15;
@@ -22,12 +25,14 @@ iteration
 The iteration is plain functions on a ``State`` dataclass of tensors.
 ``solve`` is the host driver (solver.py:1209-2357): Ruiz or block
 equilibration and the ``block_equilibration="auto"`` probe, warm starts,
-and under the default ``Options()`` the hybrid f32 race -> f64 polish with
-its subspace entries, watchdog and logging; ``hybrid_precision=False`` one
-program; after a status 5 or 6 the certificate search (the ray search on
-the zeroed operands, its deadlines, the resume after a failed search and
-the demotion of an unproven declaration).  Anything outside the port raises ``NotImplementedError`` naming
-its ROADMAP item; nothing falls back.
+checkpoints and ``resume_from`` (``utils/checkpoint.py``, the JAX
+package's format), and under the default ``Options()`` the hybrid f32
+race -> f64 polish with its subspace entries, watchdog and logging;
+``hybrid_precision=False`` one program; after a status 5 or 6 the
+certificate search (the ray search on the zeroed operands, its deadlines,
+the resume after a failed search and the demotion of an unproven
+declaration).  ``tp_shards`` raises ``NotImplementedError`` naming its
+ROADMAP item (A12); nothing falls back.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from .problem import (
     to_square_form,
 )
 from .result import STATUS_STRINGS, Result
+from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.vech import ivec, offdiag_mask_tri, sympackedlen, tri_ij
 
 
@@ -353,7 +359,11 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
     ``target_ranks`` holds each block's target rank as a host int where
     its projection is Lanczos (the one branch that uses it), else None."""
     sides = layout.sdp_sides
-    u = kernels.primal_update_sym(s.x, s.Mty, o.c, s.primal_step, sides)
+    square = layout.square_form
+    # the packed layout symmetrises nothing: tri_to_square builds each
+    # block symmetric (cones.py:174)
+    u = kernels.primal_update_sym(s.x, s.Mty, o.c, s.primal_step,
+                                  sides if square else ())
     # relative-inexactness budget of the subspace test: the latest combined
     # PPA residual, clamped (solver.py:315-325); 0 before the first one
     accept_tol = None
@@ -369,16 +379,18 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
         force_full = force_full or k % opts.full_eig_freq < opts.full_eig_len
 
     plan = block_plan(layout, opts)
+    lens = layout.sdp_blk_lens
     nb = len(sides)
     blocks = [None] * nb  # projected flat blocks
     min_eig = list(s.min_eig.unbind(0))
     current_rank = list(s.current_rank.unbind(0))
     warm = list(s.warm)
+    # host bool, or a 0-d device bool from a NaN guard (no host read)
     any_full = False
     sub_stats, sub_worst = s.sub_stats, s.sub_worst
     for side, blks in plan.groups:
-        s2 = side * side
-        stacked = torch.stack([u[off : off + s2] for _, off in blks])
+        tl = lens[blks[0][0]]
+        stacked = torch.stack([u[off : off + tl] for _, off in blks])
         proj, me_b, cur_b, warm_b = psd_projection_small_batch(
             stacked, side, opts=opts)
         for gi, (bi, _) in enumerate(blks):
@@ -389,7 +401,8 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
         any_full = True  # the dense eigh ran (the full path's used_full)
     for bi, off, side in plan.singles:
         tr = target_ranks[bi] if target_ranks is not None else None
-        res = psd_projection_block(u[off : off + side * side].view(side, side),
+        v = u[off : off + lens[bi]]
+        res = psd_projection_block(v.view(side, side) if square else v,
                                    s.warm[bi], opts=opts,
                                    accept_tol=accept_tol,
                                    force_full=force_full, target_rank=tr)
@@ -397,13 +410,13 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
         min_eig[bi] = res.min_eig.to(s.min_eig.dtype)
         current_rank[bi] = res.current_rank
         warm[bi] = res.warm
-        any_full = any_full or res.used_full
+        any_full = _any(any_full, res.used_full)
         sub_worst = torch.maximum(sub_worst, res.sub_stats[0])
         if bi == 0:
             sub_stats = res.sub_stats
     max_soc_gap = torch.full((), -math.inf, dtype=u.dtype, device=u.device)
     pieces = blocks
-    end = sum(side * side for side in sides)
+    end = sum(lens)
     if layout.soc_lens:
         soc_end = end + sum(layout.soc_lens)
         proj, max_soc_gap = kernels.soc_projection(u[end:soc_end],
@@ -411,6 +424,10 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
         pieces = pieces + [proj]
         end = soc_end
     x = torch.cat(pieces + [u[end:]]) if pieces else u
+    if isinstance(any_full, torch.Tensor):
+        proj_fallbacks = s.proj_fallbacks + any_full.to(torch.int32)
+    else:
+        proj_fallbacks = s.proj_fallbacks + 1 if any_full else s.proj_fallbacks
     return s.replace(
         x=x,
         Mx=o.M.matvec(x),
@@ -418,10 +435,21 @@ def _primal_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
         current_rank=torch.stack(current_rank).to(torch.int32),
         warm=tuple(warm),
         max_soc_gap=max_soc_gap,
-        proj_fallbacks=s.proj_fallbacks + 1 if any_full else s.proj_fallbacks,
+        proj_fallbacks=proj_fallbacks,
         sub_stats=sub_stats,
         sub_worst=sub_worst,
     )
+
+
+def _any(a, b):
+    """a or b for host bools and 0-d device bools, with no host read."""
+    if a is True or b is True:
+        return True
+    if a is False:
+        return b
+    if b is False:
+        return a
+    return a | b
 
 
 def _linesearch(s: State, o: Operands, layout: ConeLayout, opts: Options):
@@ -743,7 +771,6 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
     iteration (with the target ranks of the Lanczos blocks, where there
     are any).  ``fetch(s)`` returns the 14 host-monitored scalars as one
     NumPy array (one device-to-host copy)."""
-    _check_slice_layout(layout, opts)
     sides_arr = torch.tensor(layout.sdp_sides or (1,), dtype=torch.int32,
                              device=device)
     singles = block_plan(layout, opts).singles
@@ -836,20 +863,8 @@ def _unsupported(what: str, item: str):
 
 
 def _check_slice_options(opts: Options) -> None:
-    if opts.subspace_sign:
-        _unsupported("subspace_sign=True (the sign-based subspace body)",
-                     "B5 (_subspace_body_sign)")
-    if opts.subspace_accept_always:
-        _unsupported("subspace_accept_always=True (the batch mode)", "B13")
     if opts.tp_shards:
         _unsupported("tp_shards", "A12")
-    if opts.checkpoint_path:
-        _unsupported("checkpoint_path", "A10")
-
-
-def _check_slice_layout(layout: ConeLayout, opts: Options) -> None:
-    if layout.sdp_sides and not layout.square_form:
-        _unsupported("the packed-triangle layout of PSD blocks", "A7 / B12")
 
 
 def _row_norm_spread(setup) -> float:
@@ -995,8 +1010,13 @@ def _estimate_subspace(state: State, layout: ConeLayout, opts: Options, c_host):
     )
     specs = []
     for off, side in zip(layout.sdp_offsets, layout.sdp_sides):
-        Xm = x_host[off : off + side * side].reshape(side, side)
-        Xm = 0.5 * (Xm + Xm.T)
+        if layout.square_form:
+            Xm = x_host[off : off + side * side].reshape(side, side)
+            Xm = 0.5 * (Xm + Xm.T)
+        else:  # the packed triangle, unpacked (solver.py:1079-1086)
+            gidx, in_scale, _, _ = kernels._maps(side)
+            Xm = (x_host[off : off + sympackedlen(side)][gidx]
+                  * in_scale).reshape(side, side)
         w, V = np.linalg.eigh(Xm)
         lam_max = max(float(w[-1]), 0.0)
         r_blk = int(np.sum(w > max(opts.tol_psd, 1e-4 * max(lam_max, 1e-12))))
@@ -1100,12 +1120,16 @@ def _ieee_f32_products():
 
 
 def solve(problem, options: Options | None = None, *, warm_start=None,
-          device="cuda", **kwargs) -> Result:
+          resume_from: str | None = None, device="cuda", **kwargs) -> Result:
     """Solve a ConicProblem (or a preprocessed SetupProblem) on ``device``.
 
     The host driver of solver.py:1209-2357.  ``warm_start``: a previous
     Result for the same problem geometry, or a tuple (x, dual_eq, dual_in)
-    in user variable order.  With ``block_equilibration="auto"`` (the
+    in user variable order.  ``resume_from``: a checkpoint written under
+    ``checkpoint_path`` / ``checkpoint_freq`` (by this package or the JAX
+    one: one format) -- the loop continues from the saved state, in the
+    saved program (same problem and layout required).  With
+    ``block_equilibration="auto"`` (the
     default) a problem whose constraint-row norms spread more than
     ``block_equilibration_probe_spread`` races both preconditioners for a
     short probe and continues with the winner (``_solve_with_beq_probe``).
@@ -1127,11 +1151,12 @@ def solve(problem, options: Options | None = None, *, warm_start=None,
     float32 matmul precision.
     """
     with _ieee_f32_products():
-        return _solve(problem, options, device, kwargs, warm_start)
+        return _solve(problem, options, device, kwargs, warm_start,
+                      resume_from)
 
 
 def _solve(problem, options: Options | None, device, kwargs,
-           warm_start=None) -> Result:
+           warm_start=None, resume_from=None) -> Result:
     opts = options or Options()
     if kwargs:
         opts = opts.replace(**kwargs)
@@ -1149,16 +1174,14 @@ def _solve(problem, options: Options | None, device, kwargs,
         if isinstance(problem, ConicProblem)
         else problem
     )
-    if setup.layout.sdp_sides and not opts.square_form:
-        _unsupported("square_form=False (the packed-triangle layout)",
-                     "A7 / B12")
     if opts.log_verbose:
         _print_header(setup.layout, opts, device)
     # block_equilibration="auto": race both preconditioners for a short
     # probe and continue with the winner (solver.py:1246-1257)
     if (opts.block_equilibration == "auto"
             and opts.block_equilibration_probe_spread > 0
-            and warm_start is None and isinstance(problem, ConicProblem)
+            and warm_start is None and resume_from is None
+            and isinstance(problem, ConicProblem)
             and _row_norm_spread(setup) > opts.block_equilibration_probe_spread):
         return _solve_with_beq_probe(problem, opts, t0, device)
 
@@ -1177,8 +1200,11 @@ def _solve(problem, options: Options | None, device, kwargs,
     elif opts.equilibration or opts.equilibration_force:
         equil = equilibrate_host(setup, opts)
 
+    # the square-form device coordinates (solver.py:1276-1285): setup_h
+    # keeps the packed-triangle data for solution recovery and the checks
     setup_h = setup
-    setup = to_square_form(setup)
+    if opts.square_form and setup.layout.sdp_sides:
+        setup = to_square_form(setup)
     layout = setup.layout
 
     def make_operands(dt):
@@ -1235,9 +1261,32 @@ def _solve(problem, options: Options | None, device, kwargs,
         opts.full_eig_max_side, opts.polar_fallback_min_side)
     polish_fb = {"subspace_fallback": "polar"} if big_side else {}
 
+    if resume_from:
+        # solver.py:1411-1445: the saved program's runner, rebuilt from the
+        # saved basis width where the checkpoint was taken in a subspace
+        # program (the f32 race's or the polish's)
+        state, saved_phase32 = load_checkpoint(
+            resume_from, expect_square_form=layout.square_form, device=device)
+        sub_saved = (layout.sdp_sides and state.warm[0].dim() == 2
+                     and opts.subspace_rank == 0)
+        if hybrid and saved_phase32:
+            phase32 = True
+            if sub_saved:
+                run_chunk32, fetch32 = runner(opts32.replace(
+                    subspace_rank=int(state.warm[0].shape[1])))
+                sub32["entered"] = True
+        else:
+            phase32 = False
+            if state.x.dtype != dtype:
+                state = _cast_state(state, dtype)
+            if sub_saved:
+                run_chunk, fetch = runner(opts.replace(
+                    subspace_rank=int(state.warm[0].shape[1]), **polish_fb))
+
     budget = _Budget(opts, bool(layout.sdp_sides or layout.soc_lens))
     chunk = opts.chunk_iters or DEFAULT_CHUNK
     log_next = opts.log_freq
+    ckpt_next = opts.checkpoint_freq
     stall_window = max(3 * opts.convergence_window, 1500)
     hybrid_best = {"value": float("inf"), "since": 0}
     # best iterate by max(gap, feas), snapshot at most every 2 s: "snap"
@@ -1282,7 +1331,8 @@ def _solve(problem, options: Options | None, device, kwargs,
         host = convert.state_to_numpy(state)
         cert["snapshot"] = _cache_solution(
             host, setup_h, opts, t0, status=st, status_string=status_string,
-            exact_project=big_side, equil=equil)
+            exact_project=big_side, equil=equil,
+            square_form=layout.square_form)
         cert["resume"] = host
         operands, state = _enter_certificate_mode(st, operands, state, budget,
                                                   opts)
@@ -1332,6 +1382,14 @@ def _solve(problem, options: Options | None, device, kwargs,
                                       setup_h, setup_h.c_orig)
             _log_progress(sc, elapsed, opts, dfeas)
             log_next += opts.log_freq
+
+        # a checkpoint at a chunk end outside the certificate search
+        # (solver.py:1721-1735)
+        if (opts.checkpoint_path and opts.checkpoint_freq > 0
+                and not cert["mode"] and k >= ckpt_next):
+            save_checkpoint(opts.checkpoint_path, state, phase32,
+                            square_form=layout.square_form)
+            ckpt_next = k + opts.checkpoint_freq
 
         if phase32:
             # hand over on any f32 status, at a budget boundary, or when the
@@ -1600,7 +1658,8 @@ def _solve(problem, options: Options | None, device, kwargs,
         res = _cache_solution(
             fields, setup_h, opts, t0, status=final_status,
             status_string=status_string, zero_c=final_status == 6,
-            certificate_found=True, exact_project=big_side, equil=equil)
+            certificate_found=True, exact_project=big_side, equil=equil,
+            square_form=layout.square_form)
     elif cert["mode"]:
         # no ray: the demoted limit status at the best iterate, which is
         # at least as good as the declaration's snapshot (2297-2320)
@@ -1609,7 +1668,8 @@ def _solve(problem, options: Options | None, device, kwargs,
             res = _cache_solution(
                 fields, setup_h, opts, t0, status=final_status,
                 status_string=status_string or cert["snapshot"].status_string,
-                exact_project=big_side, equil=equil)
+                exact_project=big_side, equil=equil,
+                square_form=layout.square_form)
             res.iter = k
         else:
             res = cert["snapshot"]
@@ -1625,6 +1685,7 @@ def _solve(problem, options: Options | None, device, kwargs,
             fields, setup_h, opts, t0, status=final_status,
             status_string=status_string or STATUS_STRINGS[final_status],
             exact_project=big_side, equil=equil,
+            square_form=layout.square_form,
         )
         res.iter = total_k
     res = _annotate_limit_feas(res, setup_h, opts)

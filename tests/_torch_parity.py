@@ -22,6 +22,7 @@ from proxsdp_tpu import solver as jsolver
 from proxsdp_tpu.models import maxcut as jmaxcut
 from proxsdp_tpu.ops import linop as jlinop
 from proxsdp_tpu_torch import convert
+from proxsdp_tpu_torch import kernels as tkernels
 from proxsdp_tpu_torch.models import maxcut as tmaxcut
 
 # full-precision products everywhere (no TF32 on a card)
@@ -66,10 +67,24 @@ def torch_opts(**kw):
 
 
 @functools.lru_cache(maxsize=16)
-def jax_setup(name: str):
+def jax_setup(name: str, square_form: bool = True):
+    """The JAX package's SetupProblem of ``name``, in the square-form
+    layout or (``square_form=False``) the packed-triangle one."""
     from proxsdp_tpu.problem import preprocess, to_square_form
 
-    return to_square_form(preprocess(build_problem(jx, name)))
+    setup = preprocess(build_problem(jx, name))
+    return to_square_form(setup) if square_form else setup
+
+
+def block_matrix(x, off: int, side: int, square_form: bool = True):
+    """The (side, side) matrix of the PSD block at ``off`` of x: a
+    square-form block reshaped, a packed scaled triangle unpacked."""
+    x = np.asarray(x)
+    if square_form:
+        return x[off : off + side * side].reshape(side, side)
+    gidx, in_scale, _, _ = tkernels._maps(side)
+    return (x[off : off + side * (side + 1) // 2][gidx] * in_scale).reshape(
+        side, side)
 
 
 def jax_operands(setup, dtype=jnp.float64):
@@ -116,22 +131,30 @@ def jax_iteration(layout, opts):
 
 
 def assert_states_close(got: dict, want: dict, rtol=1e-9, atol=1e-11,
-                        offsets=(0,)):
-    """Every State field: floats to rtol/atol, integers exactly.  The warm
+                        offsets=(0,), square_form: bool = True):
+    """Every State field: floats to rtol/atol, integers exactly.  A warm
     vector is the top eigenvector of the projected matrix: it is compared
     up to sign, and only where that eigenvalue is simple (at iteration 1
-    the matrix is 0 and each LAPACK build returns its own basis);
-    ``offsets`` are the square blocks' offsets in x (``sdp_offsets``)."""
+    the matrix is 0 and each LAPACK build returns its own basis); a warm
+    (side, k) basis by its projector W W^T (its columns' signs and the
+    rotations inside a repeated Ritz value are each build's own).
+    ``offsets`` are the PSD blocks' offsets in x (``sdp_offsets``), in the
+    square-form layout or, with ``square_form=False``, the packed one."""
     assert set(got) == set(want)
     for name in want:
         if name == "warm":
             for g, w, off in zip(got[name], want[name], offsets):
                 g, w = np.asarray(g), np.asarray(w)
+                assert g.shape == w.shape, name
+                if g.ndim == 2:
+                    np.testing.assert_allclose(g @ g.T, w @ w.T, rtol=0,
+                                               atol=1e-7, err_msg=name)
+                    continue
                 np.testing.assert_allclose(np.linalg.norm(g), np.linalg.norm(w),
                                            rtol=1e-12)
                 side = g.shape[0]
-                ev = np.linalg.eigvalsh(np.asarray(
-                    want["x"][off : off + side * side]).reshape(side, side))
+                ev = np.linalg.eigvalsh(block_matrix(want["x"], off, side,
+                                                     square_form))
                 if side > 1 and ev[-1] - ev[-2] > 1e-6 * max(abs(ev[-1]), 1.0):
                     flip = -1.0 if np.dot(g, w) < 0 else 1.0
                     np.testing.assert_allclose(flip * g, w, rtol=1e-7,

@@ -171,18 +171,17 @@ def _scaled_rows():
 
 
 @pytest.mark.parametrize("case, item", [
-    ("mesh", "B14"), ("checkpoint", "A10"), ("tp_shards", "A12")])
+    ("mesh", "B14"), ("tp_shards", "A12")])
 def test_out_of_slice_raises(case, item):
     """Every mode outside the slice raises, naming its ROADMAP item.  (The
     polar projection and the equilibration options, which raised A11 and
     A6, run since they were ported: tests/test_torch_batch_large.py; the
     COO operator, SOC blocks and any layout of blocks too:
-    tests/test_torch_batch_layouts.py.)"""
+    tests/test_torch_batch_layouts.py; checkpoint_path, A10:
+    tests/test_torch_checkpoint.py.)"""
     problems, kw = _problems(tx, B=2), {}
     if case == "mesh":
         kw["mesh"] = object()
-    elif case == "checkpoint":
-        kw["options"] = tx.Options(checkpoint_path="unused.ckpts")
     elif case == "tp_shards":
         kw["options"] = tx.Options(tp_shards=2)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -434,9 +434,10 @@ def test_hybrid_solve_on_card_matches_cpu(cuda):
     assert abs(got.objval - want.objval) <= 1e-4 * (1 + abs(want.objval))
     for name in kernels.SOLVE_KERNELS:
         # K11 runs only above full_eig_max_side (the Lanczos program),
-        # K13 only on SOC blocks, K14 only on a COO operator
+        # K13 only on SOC blocks, K14 only on a COO operator, K17 only
+        # under subspace_sign=True (test_single_solve_options_on_card_...)
         assert counts[name] > 0 or name in ("lanczos_krylov", "soc_projection",
-                                            "coo_spmv"), name
+                                            "coo_spmv", "subspace_sign"), name
 
 
 def test_solve_on_card_matches_cpu(cuda):
@@ -663,11 +664,14 @@ def test_solve_batch_on_card_matches_cpu(cuda):
         # K12 runs in the subspace mode, K16 only on per-instance dense
         # operators (test_solve_batch_per_instance_on_card_matches_cpu),
         # K9L and K12L past one block's shared memory, K5b and K6b under
-        # projection="polar" (test_solve_batch_large_on_card_matches_cpu)
+        # projection="polar" (test_solve_batch_large_on_card_matches_cpu),
+        # K13b only on SOC blocks and K14b only on a COO operator
+        # (test_solve_batch_layouts_on_card_matches_cpu)
         assert counts[name] > 0 or name in (
             "batched_subspace", "batched_gemv", "batched_psd_eigh_large",
             "batched_subspace_large", "ns_gemm_batch", "fro_scale_batch",
-            "sym_batch", "sym_guard_batch"), name
+            "sym_batch", "sym_guard_batch", "soc_projection_batch",
+            "coo_spmv_batch"), name
 
 
 # K12 against its plain version: f64 sums in other orders and Jacobi for
@@ -1581,3 +1585,191 @@ def test_solve_batch_layouts_on_card_matches_cpu(cuda, linop):
     assert counts["batched_psd_eigh"] > 0
     assert counts["soc_projection_batch"] > 0
     assert (counts["coo_spmv_batch"] > 0) == (linop == "coo")
+
+
+def _sign_inputs(rng, side, k, dev, case):
+    """Q, Z of one sign step: X with k // 2 positive eigenvalues, Q the
+    CholeskyQR2 basis of X times its top-k eigenvectors (plus noise where
+    ``unconverged``), Z = X Q; a zero column of Q (``rank_deficient``) or
+    a NaN in Z (``nan``)."""
+    U = torch.linalg.qr(torch.tensor(rng.standard_normal((side, side)),
+                                     device=dev)).Q
+    w = np.concatenate([np.linspace(40.0, 1.0, k // 2),
+                        -np.linspace(0.05, 5.0, side - k // 2)])
+    X = ((U * torch.tensor(w, device=dev)) @ U.T).float()
+    warm = U[:, :k].float()
+    if case == "unconverged":
+        warm = warm + 0.3 * torch.tensor(rng.standard_normal((side, k)),
+                                         dtype=torch.float32, device=dev)
+    Q = kernels.cholqr_plain(kernels.cholqr_plain(X @ warm, 1e-6), 1e-6)
+    if case == "rank_deficient":
+        Q[:, k // 3] = 0.0
+    Z = X @ Q
+    if case == "nan":
+        Z[3, 1] = float("nan")
+    return Q.contiguous(), Z.contiguous()
+
+
+@pytest.mark.parametrize("case", ["converged", "unconverged",
+                                  "rank_deficient", "nan"])
+@pytest.mark.parametrize("side, k", [(250, 16), (250, 24), (100, 64),
+                                     (300, 96), (500, 128)])
+def test_subspace_sign_matches_plain(cuda, side, k, case):
+    """K17 against its plain twin on the card: Bp and the statistics
+    within 1e-5 of their scale (f32 products in other orders through ~30
+    dependent k x k products), the flags equal; both sides of the shared
+    memory limit (k = 64 and 96)."""
+    rng = np.random.default_rng(side + k)
+    Q, Z = _sign_inputs(rng, side, k, cuda, case)
+    at = torch.tensor(1e-4, dtype=torch.float32, device=cuda)
+    kernels.reset_launch_counts()
+    got = kernels.subspace_sign(Q, Z, at, 1e-9, 7, 4, False)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["subspace_sign_f32"] == 1
+    want = kernels.subspace_sign_plain(Q, Z, at, 1e-9, 7, 4, False)
+    assert torch.equal(got[2].cpu(), want[2].cpu())
+    g = torch.cat([got[0].reshape(-1), got[1]]).double().cpu()
+    w = torch.cat([want[0].reshape(-1), want[1]]).double().cpu()
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    fin = torch.isfinite(w)
+    if bool(fin.any()):
+        scale = float(w[fin].abs().max())
+        assert float((g[fin] - w[fin]).abs().max()) <= 1e-5 * scale
+    # force_full rejects; no accept_tol leaves subspace_tol alone
+    forced = kernels.subspace_sign(Q, Z, None, 1e-9, 7, 4, True)
+    assert int(forced[2][0]) == 0
+
+
+def test_subspace_sign_rejects_bad_input(cuda):
+    Q = torch.zeros(40, 8, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="f32 only"):
+        kernels.subspace_sign(Q, Q, None, 1e-9, 7, 4, False)
+    Q = torch.zeros(600, 264, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="k = 264"):
+        kernels.subspace_sign(Q, Q, None, 1e-9, 7, 4, False)
+
+
+@pytest.mark.parametrize("case", ["packed", "sign", "accept_always",
+                                  "accept_always_packed"])
+def test_single_solve_options_on_card_match_cpu(cuda, case):
+    """The single solve's options at side 40 on the card against the CPU
+    plain run: the f64 programs (the packed layout, the accept-always step
+    with an f64 basis) the same status and iterations and objectives to
+    1e-6; the sign-based f32 program the same status, its objective within
+    1e-3 (1 + |obj|) (f32 products in other orders move the accepts), and
+    K17 on the path; K10, K12 on theirs."""
+    problem = maxcut_problem(random_graph_weights(3, 40))[0]
+    opts = {
+        "packed": tx.Options(hybrid_precision=False, square_form=False),
+        "sign": tx.Options(dtype="float32", hybrid_precision=False,
+                           subspace_rank=12, subspace_sign=True,
+                           subspace_fallback="polar", tol_gap=1e-3,
+                           tol_feasibility=1e-3),
+        "accept_always": tx.Options(hybrid_precision=False, subspace_rank=8,
+                                    subspace_accept_always=True,
+                                    subspace_mixed=False),
+        "accept_always_packed": tx.Options(
+            hybrid_precision=False, subspace_rank=8, square_form=False,
+            subspace_accept_always=True, subspace_mixed=False),
+    }[case]
+    kernels.reset_launch_counts()
+    got = tx.solve(problem, opts)
+    counts = kernels.kernel_launches()
+    want = tx.solve(problem, opts, device="cpu")
+    assert got.status == want.status == 1
+    if case == "sign":
+        assert abs(got.objval - want.objval) <= 1e-3 * (1 + abs(want.objval))
+        assert counts["subspace_sign"] > 0
+        return
+    assert abs(got.iter - want.iter) <= max(2, 0.02 * want.iter)
+    assert abs(got.objval - want.objval) <= 1e-6 * (1 + abs(want.objval))
+    k10 = counts["tri_to_square"] + counts["square_to_tri"]
+    # K10 unpacks the packed dense-eigh step's block and packs a square
+    # block for K12, which reads a packed block as it is
+    assert (k10 > 0) == (case in ("packed", "accept_always"))
+    if case.startswith("accept_always"):
+        assert counts["batched_subspace"] == got.iter
+        assert counts["ritz_accept"] == 0
+
+
+def test_checkpoint_on_card_resumes_on_cpu(cuda, tmp_path):
+    """A checkpoint of the f64 program written on the card resumes on the
+    CPU and on the card alike: status 1, the same iterations, objectives
+    to 1e-8."""
+    problem = maxcut_problem(random_graph_weights(0, 30))[0]
+    path = str(tmp_path / "card.npz")
+    r1 = tx.solve(problem, tx.Options(hybrid_precision=False,
+                                      checkpoint_path=path, checkpoint_freq=40,
+                                      max_iter=40, chunk_iters=40))
+    assert r1.status == 3
+    on_card = tx.solve(problem, tx.Options(hybrid_precision=False),
+                       resume_from=path)
+    on_cpu = tx.solve(problem, tx.Options(hybrid_precision=False),
+                      resume_from=path, device="cpu")
+    assert on_card.status == on_cpu.status == 1
+    assert abs(on_card.iter - on_cpu.iter) <= 2
+    assert abs(on_card.objval - on_cpu.objval) <= 1e-8 * (1 + abs(on_cpu.objval))
+
+
+def _fill_free_memory_with_nan():
+    """Hand the caching allocator's free blocks back full of NaN, as a
+    long run leaves them after a NaN guard fired."""
+    ts = [torch.full((nbytes // 8,), float("nan"), dtype=torch.float64,
+                     device="cuda")
+          for nbytes in [512 * 2 ** k for k in range(12)] * 20]
+    ts.append(torch.full((2 ** 26,), float("nan"), dtype=torch.float64,
+                         device="cuda"))
+    del ts
+
+
+@pytest.mark.parametrize("side", [4, 40, 250])
+def test_eigh_of_zero_after_nan_memory(cuda, side):
+    """The cold start's first projection is of an exact 0: cuSOLVER leaves
+    its outputs unwritten there, so the port's eigh gives LAPACK's w = 0,
+    V = I whatever the freed memory held (ops.cones._eigh and the batched
+    plain version)."""
+    from proxsdp_tpu_torch.ops.cones import _eigh
+
+    eye = torch.eye(side, dtype=torch.float64, device=cuda)
+    _fill_free_memory_with_nan()
+    w, V = _eigh(torch.zeros(side, side, dtype=torch.float64, device=cuda))
+    assert torch.equal(w, torch.zeros_like(w)) and torch.equal(V, eye)
+    X = torch.zeros(3, side, side, dtype=torch.float64, device=cuda)
+    X[1] = 2.0 * eye
+    _fill_free_memory_with_nan()
+    w, V = kernels._eigh_rows(X)
+    assert torch.equal(w[0], torch.zeros_like(w[0])) and torch.equal(V[0], eye)
+    assert torch.equal(w[2], w[0]) and torch.isfinite(V).all()
+
+
+@pytest.mark.parametrize("square_form", [True, False])
+def test_f64_program_after_nan_memory(cuda, square_form):
+    """The f64 dense-eigh program at side 40, with the freed memory full
+    of NaN before every iteration, repeats its CPU run for 40 iterations
+    (to 1e-9 of each field's scale)."""
+    problem = maxcut_problem(random_graph_weights(3, 40))[0]
+    setup = preprocess(problem)
+    if square_form:
+        setup = to_square_form(setup)
+    opts = tx.Options(hybrid_precision=False, square_form=square_form)
+    states, its = {}, {}
+    for dev in ("cpu", cuda):
+        o = convert.operands_from_numpy(
+            M=build_linop(setup.A, setup.G, torch.float64, device=dev),
+            b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
+            norm_h=setup.norm_h, norm_c=setup.norm_c,
+            obj_scale=setup.obj_scale * setup.rhs_scale, device=dev)
+        its[str(dev)] = (tsolver.make_chunk_runner(setup.layout, opts,
+                                                   device=dev)[1], o)
+        states[str(dev)] = convert.state_from_numpy(
+            tsolver.init_state(setup.layout, opts, setup), dev)
+    for k in range(40):
+        _fill_free_memory_with_nan()
+        for dev, (it, o) in its.items():
+            states[dev] = it(states[dev], o, k)
+    a = convert.state_to_numpy(states["cpu"])
+    b = convert.state_to_numpy(states[str(cuda)])
+    for name in ("x", "y", "Mx", "Mty", "min_eig"):
+        scale = max(float(np.abs(a[name]).max()), 1.0)
+        assert np.isfinite(b[name]).all(), name
+        assert float(np.abs(a[name] - b[name]).max()) <= 1e-9 * scale, name

@@ -1264,3 +1264,174 @@ def test_phase_m_reference_values():
     assert got["iters"] == k["M2_REF_ITERS"]
     assert [tuple(r) for r in got["reseeds"]] == k["M2_REF_RESEEDS"]
     assert [tuple(p) for p in got["programs"]] == k["M2_REF_PROGRAMS"]
+
+
+# Phase N (chip_smoke.py): the single solve's options on the side-250
+# max-cut.  N1 the packed layout under the default driver (chunk_iters=256)
+# and its f64 program's iterate after N_ITERS iterations; N2 the
+# sign-based subspace race; N3 the accept-always step's f64 program (mixed,
+# and with subspace_mixed=False) in both layouts, lined up for C11 -- after
+# iteration 1 the JAX run gets the basis the port's first iteration
+# computes on the CPU.
+N_CHILD = """
+import contextlib, io, json, re, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, ".")
+import chip_smoke as cs
+import proxsdp_tpu as jx
+from proxsdp_tpu import solver as jsolver
+from proxsdp_tpu.models.maxcut import maxcut_problem, random_graph_weights
+from proxsdp_tpu.ops.linop import build_linop
+from proxsdp_tpu.problem import preprocess, to_square_form
+import proxsdp_tpu_torch as tx
+from proxsdp_tpu_torch import convert
+from proxsdp_tpu_torch import solver as tsolver
+from proxsdp_tpu_torch.ops.linop import build_linop as tbuild_linop
+problem, _ = maxcut_problem(random_graph_weights(0, cs.SIDE))
+out = {}
+
+
+def events(log):
+    race = re.search(r"f32 race: subspace rank (\\d+)", log)
+    hand = re.search(r"f32 -> f64 at iter (\\d+)", log)
+    fb = re.search(r"f32 polar-reseed=(\\d+), dense-eigh=(\\d+)", log)
+    return [int(race.group(1)) if race else 0, int(hand.group(1)) if hand else 0,
+            int(fb.group(1)) if fb else -1]
+
+
+def steps(opts, square, c11):
+    setup = preprocess(problem)
+    if square:
+        setup = to_square_form(setup)
+    layout = setup.layout
+    o = jsolver.Operands(
+        M=build_linop(setup.A, setup.G, jnp.float64), b=jnp.asarray(setup.b),
+        h=jnp.asarray(setup.h), c=jnp.asarray(setup.c),
+        norm_b=jnp.asarray(setup.norm_b), norm_h=jnp.asarray(setup.norm_h),
+        norm_c=jnp.asarray(setup.norm_c), chunk_end=jnp.asarray(0, jnp.int32),
+        obj_scale=jnp.asarray(setup.obj_scale * setup.rhs_scale))
+    _, it, fetch = jsolver.make_chunk_runner(layout, opts)
+    it = jax.jit(it)
+    init = jsolver.init_state(layout, opts, setup)
+    s = jax.tree_util.tree_map(jnp.asarray, init)
+    for k in range(cs.N_ITERS):
+        s = it(s, o)
+        if k == 0 and c11:
+            host = {f: np.asarray(getattr(init, f)) for f in init._fields
+                    if f != "warm"}
+            host["warm"] = tuple(np.asarray(w) for w in init.warm)
+            topts = tx.Options(**{f: getattr(opts, f) for f in
+                                  ("hybrid_precision", "subspace_rank",
+                                   "subspace_accept_always", "square_form",
+                                   "subspace_mixed")})
+            to = convert.operands_from_numpy(
+                M=tbuild_linop(setup.A, setup.G, torch.float64, device="cpu"),
+                b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
+                norm_h=setup.norm_h, norm_c=setup.norm_c,
+                obj_scale=setup.obj_scale * setup.rhs_scale, device="cpu")
+            t_it = tsolver.make_chunk_runner(layout, topts, device="cpu")[1]
+            st = t_it(convert.state_from_numpy(host, "cpu"), to, 0)
+            s = s._replace(warm=tuple(jnp.asarray(w.numpy()) for w in st.warm))
+    x = np.asarray(s.x)
+    X = cs.block_of(x, cs.SIDE, square)
+    return {"fetch": np.asarray(fetch(s)).tolist(),
+            "norm": float(np.linalg.norm(X)),
+            "lmin": float(np.linalg.eigvalsh(X)[0])}
+
+
+for what in sys.argv[1].split(","):
+    if what in ("N1", "N2"):
+        kw = dict(square_form=False) if what == "N1" else dict(subspace_sign=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = jx.solve(problem, jx.Options(chunk_iters=256, log_verbose=True,
+                                               log_freq=10**9, timer_verbose=True,
+                                               **kw))
+        out[what] = {"status": res.status, "objval": res.objval,
+                     "iter": res.iter, "events": events(buf.getvalue())}
+    elif what == "N1f64":
+        out[what] = steps(jx.Options(hybrid_precision=False, square_form=False),
+                          False, False)
+    else:  # N3sq, N3tri (the mixed basis), N3f64sq, N3f64tri
+        square = what.endswith("sq")
+        out[what] = steps(jx.Options(**cs.N3_OPTS, square_form=square,
+                                     subspace_mixed="f64" not in what),
+                          square, True)
+print(json.dumps(out))
+"""
+
+
+def _n_child(what: str, timeout=1800) -> dict:
+    proc = subprocess.run([sys.executable, "-c", N_CHILD, what], cwd=ROOT,
+                          env={**os.environ, **ONE_THREAD},
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _n_constants() -> dict:
+    return _module_constants(SMOKE, ("N_", "N1_", "N2_", "N3_", "N4_",
+                                     "HYB_REF_", "REF_"))
+
+
+def test_phase_n_constants_are_consistent():
+    """chip_smoke.py's phase N constants hang together: the packed
+    layout's default solve within phase C's bound (1e-4 (1 + |obj|)) and 2
+    iterations of the square layout's reference, the sign race's within
+    N2's bound of it, the race entering its subspace step at phase C's
+    rank; the accept-always iterate the same in both layouts (1e-9: the
+    unitary embedding), its counters those of N_ITERS iterations without
+    a fallback; N4's saves inside the runs they cut."""
+    k = _n_constants()
+    n1, n2, n3 = k["N1_REF"], k["N2_REF"], k["N3_REF"]
+    assert n1["status"] == n2["status"] == 1
+    assert abs(n1["objval"] - k["HYB_REF_OBJ"]) <= 1e-4 * (1 + abs(k["HYB_REF_OBJ"]))
+    assert abs(n1["iter"] - k["HYB_REF_ITERS"]) <= 2
+    assert abs(n2["objval"] - k["HYB_REF_OBJ"]) <= k["N2_OBJ_RTOL"] * (
+        1 + abs(k["HYB_REF_OBJ"]))
+    assert n1["events"][0] == n2["events"][0] == k["HYB_REF_RACE_RANK"]
+    for prog in ("N3", "N3f64"):
+        sq, tri = n3[prog + "sq"], n3[prog + "tri"]
+        assert sq["fetch"][:2] == tri["fetch"][:2] == [k["N_ITERS"], 0.0]
+        assert sq["fetch"][10] == 0.0  # no fallback in the accept-always step
+        np.testing.assert_allclose(sq["fetch"][2:9], tri["fetch"][2:9],
+                                   rtol=1e-9)
+        assert abs(sq["norm"] - tri["norm"]) <= 1e-9 * sq["norm"]
+    # the mixed program's objectives and norm stay near the f64 one's
+    for i in (4, 5):
+        assert abs(n3["N3sq"]["fetch"][i] - n3["N3f64sq"]["fetch"][i]) <= (
+            1e-4 * abs(n3["N3f64sq"]["fetch"][i]))
+    f64 = k["N1_F64_REF"]["fetch"]
+    assert f64[:2] == [k["N_ITERS"], 0.0] and f64[10] == k["N_ITERS"]
+    assert 2 * k["N4_SAVE"] < k["REF_ITERS"]
+    assert n1["events"][0] and k["N4_RACE_SAVE"] < n1["events"][1]
+
+
+@pytest.mark.slow
+def test_phase_n_reference_values():
+    """chip_smoke.py's phase N constants re-derived by the JAX package on
+    one CPU thread (~1 minute): N1's and N2's statuses, objectives (1e-9
+    relative), iterations and events; the f64 and accept-always iterates
+    (the counters exactly, the rest to 1e-9 relative)."""
+    k = _n_constants()
+    out = _n_child("N1,N2,N1f64,N3sq,N3tri,N3f64sq,N3f64tri")
+    for tag in ("N1", "N2"):
+        got, want = out[tag], k[f"{tag}_REF"]
+        assert got["status"] == want["status"]
+        assert abs(got["objval"] - want["objval"]) <= 1e-9 * abs(want["objval"])
+        assert got["iter"] == want["iter"] and got["events"] == want["events"]
+    for tag in ("N1f64", "N3sq", "N3tri", "N3f64sq", "N3f64tri"):
+        got = out[tag]
+        want = k["N1_F64_REF"] if tag == "N1f64" else k["N3_REF"][tag]
+        assert got["fetch"][:2] == want["fetch"][:2]
+        assert got["fetch"][9:11] == want["fetch"][9:11]
+        np.testing.assert_allclose(got["fetch"][2:9], want["fetch"][2:9],
+                                   rtol=1e-9)
+        assert abs(got["norm"] - want["norm"]) <= 1e-9 * want["norm"]
+        assert abs(got["lmin"] - want["lmin"]) <= 1e-9 * want["norm"]

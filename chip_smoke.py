@@ -110,7 +110,7 @@
    Phase B also holds K15 and K15b (the linesearch's trial loop) to the
    K2 -> product -> sq_dist sequence they replace, bit for bit in f64,
    at the shapes of phases A, C, D, G, H, I and J; K2 and sq_dist
-   themselves are checked but on no path.
+   themselves run only on the tensor-parallel path (phase O).
 12. phase K: per-instance operators in solve_batch and the API.  K1,
    solve_batch of randsdp_problem(s, 40, 20, varbounds=False) for s < 8
    ("dense_batched") at Options(tol_gap=1e-4, tol_feasibility=1e-4),
@@ -164,6 +164,21 @@
    at M's blocks and at B = 7 instances of 4096 blocks of lengths 2-257,
    K9 at (512, 19, 19), K9L at (16, 200, 200), K12 at (16, 200, 16).
 
+15. phase O: the sharded solves and K18.  Phase O's rows hold K18 (the
+   dense-eigh reconstruction, ``kernels.psd_reconstruct``) to its plain
+   version at sides 16, 100, 250 and 1024 in f64, f32 and the mixed pair,
+   the whole product and the row slabs of 2 and 4 ranks, timed beside
+   torch.matmul of the same rows.  Then two ranks, two processes sharing
+   the card over gloo (NCCL refuses two ranks on one device;
+   ``parallel.dist.spawn``): O1, solve_batch(mesh=...) of 16 side-40
+   max-cut instances in the f64 program against the unsharded card batch
+   (equal statuses, |dobj| <= 1e-9); O2, solve_sharded of the side-250
+   max-cut under the default Options() against the unsharded solve
+   (status 1, 1e-4 (1 + |obj|)), then 300 iterations of its f64 program
+   against the unsharded card run (bit for bit, else 1e-12 relative),
+   with K18's launches a rank, collectives and ms an iteration; and one
+   solve_sharded at world size 1 over NCCL in this process.
+
     python3 chip_smoke.py --phase-h
 
 builds the kernels and runs phase H alone, then the equilibrated arm's
@@ -182,6 +197,11 @@ builds the kernels and runs phase L's phase-B rows and phase L alone.
     python3 chip_smoke.py --phase-m
 
 builds the kernels and runs phase M's phase-B rows and phase M alone.
+
+    python3 chip_smoke.py --phase-o
+
+builds the kernels and runs phase O's rows and phase O alone (each
+--phase-* run prints its own kernels line, and no device line).
 
 Each phase prints its wall time.  Any failed phase exits non-zero.  The
 last line is a JSON object with the device; the line before it lists the
@@ -1035,6 +1055,8 @@ CALL_SHAPE = {
     "batched_psd_eigh": lambda X, *a, **kw: tuple(X.shape),
     # phase N: (side, k) of K17
     "subspace_sign": lambda Q, *a, **kw: tuple(Q.shape),
+    # phases A and O: (side, rows) of K18
+    "psd_reconstruct": lambda V, w, r0, r1, *a, **kw: (V.shape[0], r1 - r0),
 }
 
 
@@ -1379,19 +1401,20 @@ def kernel_checks(torch, kernels, setup, rng, dev):
             (out_pm, out_n), 2 * (M.row_vals.numel() + M.col_vals.numel()),
             library=lambda: (torch.sparse.mm(csr_row, x[:, None]),
                              torch.sparse.mm(csr_col, y[:, None])))
-        # one trial's kernels, checked but on no path: K15 runs the trials
+        # one trial's kernels: they run only on the tensor-parallel path
+        # (phase O), where K15 cannot span the ranks
         check_entry(torch, kernels, TRIAL_ROWS, "ls_dual_update", sfx,
                     "ls_dual_update.cu", "proxsdp_tpu/solver.py:452",
                     lambda f: f(y, Mx, Mx_old, b, h, y_old, sigma, theta, p, m),
                     kernels.ls_dual_update_plain,
                     (y, Mx, Mx_old, b, h, y_old, sigma, theta), (out_pm, tau),
-                    10 * (p + m), note=" (one trial's kernel: on no path)")
+                    10 * (p + m), note=" (one trial's kernel: the tensor-parallel path only)")
         check_entry(torch, kernels, TRIAL_ROWS, "sq_dist", sfx,
                     "ls_dual_update.cu", "proxsdp_tpu/solver.py:459",
                     lambda f: (f(Mty, Mty_old),), kernels.sq_dist_plain,
                     (Mty, Mty_old), (tau,), 3 * n,
                     library=lambda: F.mse_loss(Mty, Mty_old, reduction="sum"),
-                    note=" (one trial's kernel: on no path)")
+                    note=" (one trial's kernel: the tensor-parallel path only)")
         # their own generator: the other rows keep their inputs
         linesearch_row(torch, kernels, rows, M, p, m, sfx, dt, dev,
                        np.random.default_rng(10), f"side {SIDE}, ELL")
@@ -2119,7 +2142,8 @@ def lanczos_compare(torch, kernels, X, sfx, tol, errs):
 # launch main() reads under the profiler after the phases
 LAUNCH_US: list = []
 # rows of one linesearch trial's kernels (K2, sq_dist): checked against
-# their plain versions, on no path since K15 and K15b run the trials
+# their plain versions; they run only on the tensor-parallel path (phase
+# O), K15 and K15b running the trials elsewhere
 TRIAL_ROWS: list = []
 
 
@@ -4791,31 +4815,40 @@ def _events(log: str) -> list:
             int(fb.group(1)) if fb else -1]
 
 
-def _n_steps(torch, kernels, problem, opts, square):
-    """N_ITERS iterations of an f64 program from init_state on the card,
-    counted: (fetched scalars, ||X||_F, lambda_min, counts by entry point,
-    seconds, warnings of synchronising calls after the first iteration)."""
+def _n_steps(torch, kernels, problem, opts, square=True, iters=N_ITERS,
+             axis=None):
+    """``iters`` iterations of ``opts``' program from init_state on this
+    process's card, its operator sharded over ``axis`` (an active
+    tensor-parallel axis) where given, the launch counts set to 0 just
+    before and read just after.  Returns a dict: the fetched scalars
+    ("fetch"), "x", "y", ||X||_F and lambda_min of the side-SIDE block
+    ("norm", "lmin"), counts by entry point ("entries") and by entry
+    point and shape ("shapes"), seconds ("wall") and the warnings of
+    synchronising calls after the first iteration ("syncs")."""
     import warnings
 
     from proxsdp_tpu_torch import convert
     from proxsdp_tpu_torch import solver as tsolver
-    from proxsdp_tpu_torch.ops.linop import build_linop
+    from proxsdp_tpu_torch.ops.linop import build_linop, shard_linop
     from proxsdp_tpu_torch.problem import preprocess, to_square_form
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     setup = preprocess(problem)
     if square:
         setup = to_square_form(setup)
     layout = setup.layout
+    M = build_linop(setup.A, setup.G, torch.float64, device=dev)
+    if axis is not None:
+        M = shard_linop(M, axis)
     o = convert.operands_from_numpy(
-        M=build_linop(setup.A, setup.G, torch.float64, device=dev), b=setup.b,
-        h=setup.h, c=setup.c, norm_b=setup.norm_b, norm_h=setup.norm_h,
-        norm_c=setup.norm_c, obj_scale=setup.obj_scale * setup.rhs_scale,
-        device=dev)
+        M=M, b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
+        norm_h=setup.norm_h, norm_c=setup.norm_c,
+        obj_scale=setup.obj_scale * setup.rhs_scale, device=dev)
     _, iteration, fetch = tsolver.make_chunk_runner(layout, opts, device=dev)
     s = convert.state_from_numpy(tsolver.init_state(layout, opts, setup), dev)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    SHAPES.reset()
     t0 = time.perf_counter()
     s = iteration(s, o, 0)
     torch.cuda.synchronize()
@@ -4825,19 +4858,21 @@ def _n_steps(torch, kernels, problem, opts, square):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            for k in range(1, N_ITERS):
+            for k in range(1, iters):
                 s = iteration(s, o, k)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    entries = dict(kernels.launch_counts)
-    syncs = [str(w.message).splitlines()[0] for w in caught
-             if "synchroniz" in str(w.message)]
-    got = fetch(s)
-    X = block_of(s.x.cpu().numpy(), SIDE, square)
-    return (got, float(np.linalg.norm(X)), float(np.linalg.eigvalsh(X)[0]),
-            entries, wall, syncs)
+    x = s.x.cpu().numpy()
+    X = block_of(x, SIDE, square)
+    return {"fetch": fetch(s), "x": x, "y": s.y.cpu().numpy(),
+            "norm": float(np.linalg.norm(X)),
+            "lmin": float(np.linalg.eigvalsh(X)[0]),
+            "entries": dict(kernels.launch_counts),
+            "shapes": collections.Counter(SHAPES.counts), "wall": wall,
+            "syncs": [str(w.message).splitlines()[0] for w in caught
+                      if "synchroniz" in str(w.message)]}
 
 
 def _n_iterate_check(label, got, norm, lmin, ref, smi, wall,
@@ -4917,10 +4952,11 @@ def phase_n(torch, kernels, smi):
     check(float(np.linalg.eigvalsh(X)[0]) >= -1e-6 * float(np.linalg.norm(X)),
           "N1: X not PSD")
     out["N1"] = (entries, shapes)
-    got, norm, lmin, entries_f, wall, _ = _n_steps(
-        torch, kernels, problem,
-        tx.Options(hybrid_precision=False, square_form=False), False)
-    _n_iterate_check("N1 f64 packed", got, norm, lmin, N1_F64_REF, smi, wall)
+    run = _n_steps(torch, kernels, problem,
+                   tx.Options(hybrid_precision=False, square_form=False), False)
+    entries_f = run["entries"]
+    _n_iterate_check("N1 f64 packed", run["fetch"], run["norm"], run["lmin"],
+                     N1_F64_REF, smi, run["wall"])
     check(entries_f["tri_to_square_f64"] >= N_ITERS
           and entries_f["primal_update_sym_f64"] >= N_ITERS,
           "N1 f64: K10 / K4 not launched every iteration")
@@ -4961,13 +4997,14 @@ def phase_n(torch, kernels, smi):
                           (False, False)):
         tag = ("N3" if mixed else "N3f64") + ("sq" if square else "tri")
         entry = "batched_subspace_f64_f32" if mixed else "batched_subspace_f64"
-        got, norm, lmin, entries3, wall, syncs = _n_steps(
-            torch, kernels, problem, tx.Options(
-                **N3_OPTS, square_form=square, subspace_mixed=mixed), square)
+        run = _n_steps(torch, kernels, problem, tx.Options(
+            **N3_OPTS, square_form=square, subspace_mixed=mixed), square)
+        entries3, syncs = run["entries"], run["syncs"]
         _n_iterate_check(f"{tag} (accept-always, "
                          f"{'mixed' if mixed else 'f64'}, "
-                         f"{'square' if square else 'packed'})", got, norm,
-                         lmin, N3_REF[tag], smi, wall,
+                         f"{'square' if square else 'packed'})", run["fetch"],
+                         run["norm"], run["lmin"], N3_REF[tag], smi,
+                         run["wall"],
                          *((N3_MIXED_RTOL, (4, 5)) if mixed else ()))
         k12 = entries3[entry]
         print(f"phase {tag}: K12 launches {k12}, K8 launches "
@@ -5050,6 +5087,339 @@ def phase_n_rows(rows, runs):
         kept += [r for r in a if r["launches"]]
         left += b + [r for r in a if not r["launches"]]
     return kept, left
+
+
+# ---------------------------------------------------------------------------
+# Phase O: the sharded solves (B14) and K18, the dense-eigh reconstruction
+# (B6)
+
+O_SIDES = (16, 100, 250, 1024)
+# K18 against its twin, max |err| relative to ||Xp||_F: f64 the rounding of
+# two sums of n terms in other orders (cuBLAS blocks them), f32 the same
+# at single precision
+O_RTOL = {"f64": 1e-13, "f32": 1e-6, "f64_f32": 1e-6}
+O_RANKS = 2  # two processes sharing the one card over gloo
+O1_SIZE, O1_SIDE = 16, 40
+O1_OBJ_ATOL = 1e-9
+O2_OBJ_RTOL = 1e-4  # the default solve's bound against the unsharded one
+O_F64_ITERS = 300
+# a rank's 300-iteration f64 iterate against the unsharded one where not
+# bit for bit (the CPU test's bound)
+O_F64_RTOL = 1e-12
+O_NCCL_SIDE = 16
+
+
+def reconstruct_kernel_checks(torch, kernels, rng, dev):
+    """K18 against its plain twin at sides O_SIDES in f64, f32 and the
+    mixed pair (f64 eigenpairs, f32 block): the whole product and the
+    row slabs of 2 and 4 ranks (every slab checked, the first of each
+    split timed beside the twin and torch.matmul of the same rows), on
+    the eigenpairs of a random symmetric matrix (about half of them
+    positive).  Bound: V, w read and the rows written once, against 2
+    rows n r flops for r positive eigenvalues.  Returns (rows, rows
+    checked but not timed)."""
+    from proxsdp_tpu_torch.parallel.dist import split
+
+    rows, off = [], []
+    for n in O_SIDES:
+        A = rng.standard_normal((n, n))
+        A = A + A.T
+        for pair in ("f64", "f32", "f64_f32"):
+            dt = torch.float32 if pair == "f32" else torch.float64
+            out_dt = torch.float64 if pair == "f64" else torch.float32
+            w, V = torch.linalg.eigh(torch.tensor(A, dtype=dt, device=dev))
+            V = V.contiguous()  # eigh's column-major V, copied outside the timing
+            pos = torch.clamp_min(w, 0.0)
+            npos = int(torch.sum(pos > 0))
+            fro = float(torch.linalg.norm(kernels.psd_reconstruct_plain(
+                V, w, 0, n, torch.float64)))
+
+            def cmp(got, want, fro=fro):
+                err, _ = compare(torch, got, want)
+                return err, err / max(fro, 1e-300)
+
+            for parts in (1, 2, 4):
+                for r, (r0, r1) in enumerate(split(n, parts)):
+                    if r1 == r0:
+                        continue
+                    timed = r == 0
+                    check_entry(
+                        torch, kernels, rows if timed else off,
+                        "psd_reconstruct", pair, "psd_reconstruct.cu",
+                        "proxsdp_tpu/ops/cones.py:204",
+                        lambda f, V=V, w=w, r0=r0, r1=r1, o=out_dt:
+                            (f(V, w, r0, r1, o),),
+                        kernels.psd_reconstruct_plain, (V, w),
+                        (torch.empty((r1 - r0, n), dtype=out_dt, device=dev),),
+                        2 * (r1 - r0) * n * npos,
+                        library=(lambda V=V, pos=pos, r0=r0, r1=r1:
+                                 torch.matmul(V[r0:r1] * pos[None, :], V.T)),
+                        compare_fn=cmp, tol=O_RTOL[pair], timed=timed,
+                        label=f"O0: side {n}, rows {r0}-{r1} of {parts}",
+                        note=f" ({npos} positive; error relative to "
+                        f"||Xp||_F; library: torch.matmul)")
+                    if timed and n == SIDE and pair == "f64" and parts < 4:
+                        LAUNCH_US.append((
+                            f"psd_reconstruct_f64 (side {n}, rows {r0}-{r1})",
+                            lambda V=V, w=w, r0=r0, r1=r1:
+                                kernels.psd_reconstruct(V, w, r0, r1),
+                            "psd_reconstruct_kernel"))
+    return rows, off
+
+
+def o_rank_job(mesh):
+    """One rank of phase O's two (gloo, one card): O1, solve_batch of the
+    O1 instances over the ranks; O2, solve_sharded of the side-250 max-cut
+    under the default Options(), then O_F64_ITERS iterations of its f64
+    program with the operator sharded.  Each run counted (launches set to
+    0 just before, read just after) and timed; returns host data."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from proxsdp_tpu_torch import Options, kernels, solve_batch
+    from proxsdp_tpu_torch.models.maxcut import maxcut_problem, random_graph_weights
+    from proxsdp_tpu_torch.parallel.sharded import solve_sharded, tp_context
+
+    global SHAPES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    kernels.load()
+    SHAPES = ShapeCounts(kernels)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": torch.distributed.get_rank(), "device": str(dev)}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        SHAPES.reset()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, dict(kernels.launch_counts),
+                collections.Counter(SHAPES.counts))
+
+    # ---- O1: the instances over the ranks (an axis named "batch" over
+    # the same two processes)
+    bmesh = DeviceMesh(mesh.device_type, mesh.mesh.tolist(),
+                       mesh_dim_names=("batch",))
+    probs = [maxcut_problem(random_graph_weights(s, O1_SIDE))[0]
+             for s in range(O1_SIZE)]
+    res, wall, entries, _ = counted(lambda: solve_batch(
+        probs, Options(hybrid_precision=False), mesh=bmesh, device=dev))
+    out["O1"] = {"results": [(r.status, r.objval, r.iter) for r in res],
+                 "wall": wall, "entries": entries}
+
+    # ---- O2: the side-250 max-cut, its block split over the ranks
+    problem, _ = maxcut_problem(random_graph_weights(0, SIDE))
+    with tp_context(mesh) as axis:
+        c0 = axis.collectives
+        res, wall, entries, shapes = counted(lambda: solve_sharded(
+            problem, mesh, Options()))
+        out["O2"] = {"status": res.status, "objval": res.objval,
+                     "iter": res.iter, "wall": wall, "entries": entries,
+                     "shapes": shapes, "collectives": axis.collectives - c0}
+        c0 = axis.collectives
+        run = _n_steps(torch, kernels, problem,
+                       Options(hybrid_precision=False, tp_shards=axis.size),
+                       iters=O_F64_ITERS, axis=axis)
+        out["O2f64"] = {k: run[k] for k in ("x", "y", "fetch", "wall",
+                                            "entries", "shapes")}
+        out["O2f64"]["collectives"] = axis.collectives - c0
+    return out
+
+
+def _o_nccl(torch, kernels, problem):
+    """One solve_sharded at world size 1 over NCCL in this process (the
+    path a machine with a card a rank takes), counted: (result, seconds,
+    launches by entry point and shape, collectives, the backend)."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from proxsdp_tpu_torch import Options
+    from proxsdp_tpu_torch.parallel.dist import free_port
+    from proxsdp_tpu_torch.parallel.sharded import solve_sharded, tp_context
+
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                             rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("tp",))
+        with tp_context(mesh) as axis:
+            res, wall, entries, _, shapes, _ = _solve_once(
+                torch, kernels, lambda p, o: solve_sharded(p, mesh, o),
+                problem, Options())
+            return res, wall, entries, shapes, axis.collectives, axis.backend
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase_o(torch, kernels, smi, ref_default=None):
+    """The sharded solves on the card, two ranks as two processes sharing
+    it over gloo (NCCL refuses two ranks on one device), and one NCCL run
+    at world size 1.  O1: solve_batch(mesh=...) of O1_SIZE side-40 max-cut
+    instances in the f64 program, every rank's Results against the
+    unsharded card batch (equal statuses, |dobj| <= O1_OBJ_ATOL).  O2:
+    solve_sharded of the side-250 max-cut under the default Options()
+    (status 1, within O2_OBJ_RTOL (1 + |obj|) of the unsharded card solve,
+    ``ref_default`` where phase C gave it), then O_F64_ITERS iterations of
+    its f64 program, each rank's x, y and fetched scalars against the
+    unsharded card run (bit for bit, else within O_F64_RTOL with the
+    differences printed); the NCCL run: the side-16 max-cut's default
+    solve against the unsharded one.  Prints K18's launches a rank,
+    collectives and ms an iteration.  Returns {tag: (counts by entry
+    point, by entry point and shape)} of the counted runs whose launches
+    the kernels line reads: the unsharded f64 program ("ref"), rank 0's
+    O2 runs ("O2", "O2f64") and the NCCL solve ("nccl")."""
+    from proxsdp_tpu_torch import Options, solve, solve_batch
+    from proxsdp_tpu_torch.models.maxcut import maxcut_problem, random_graph_weights
+    from proxsdp_tpu_torch.parallel.dist import spawn
+
+    runs = {}
+    problem, _ = maxcut_problem(random_graph_weights(0, SIDE))
+    # ---- the unsharded references on this card
+    t_ref = time.perf_counter()
+    probs = [maxcut_problem(random_graph_weights(s, O1_SIDE))[0]
+             for s in range(O1_SIZE)]
+    o1_ref = solve_batch(probs, Options(hybrid_precision=False))
+    if ref_default is None:
+        ref_default = solve(problem, Options())
+    ref = _n_steps(torch, kernels, problem, Options(hybrid_precision=False),
+                   iters=O_F64_ITERS)
+    x_ref, y_ref, f_ref, wall_ref = ref["x"], ref["y"], ref["fetch"], ref["wall"]
+    entries = ref["entries"]
+    runs["ref"] = (entries, ref["shapes"])
+    check(entries["psd_reconstruct_f64"] >= O_F64_ITERS,
+          "O: psd_reconstruct_f64 (K18) launched less than once an iteration "
+          "of the unsharded f64 program")
+    print(f"phase O references: {time.perf_counter() - t_ref:.1f} s (the "
+          f"unsharded f64 program {1e3 * wall_ref / O_F64_ITERS:.2f} "
+          "ms/iteration)")
+
+    # ---- the ranks (one spawn: O1 then O2)
+    t_spawn = time.perf_counter()
+    outs = spawn(o_rank_job, O_RANKS, backend="gloo", device_type="cuda",
+                 threads=0, timeout=600)
+    print(f"phase O ranks: {time.perf_counter() - t_spawn:.1f} s for "
+          f"{O_RANKS} processes on {smi} (process start included)")
+    for out in outs:
+        check(out["device"].startswith("cuda"), f"O: rank {out['rank']} on "
+              f"{out['device']}")
+
+    # O1
+    for out in outs:
+        got = out["O1"]["results"]
+        check(len(got) == O1_SIZE, f"O1: rank {out['rank']} returned "
+              f"{len(got)} Results, want {O1_SIZE}")
+        for i, ((st, obj, it), r) in enumerate(zip(got, o1_ref)):
+            check(st == r.status == 1 and abs(obj - r.objval) <= O1_OBJ_ATOL,
+                  f"O1: rank {out['rank']} instance {i}: status {st} obj "
+                  f"{obj!r} vs the unsharded {r.status} {r.objval!r}")
+    d1 = max(abs(obj - r.objval) for (_, obj, _), r in
+             zip(outs[0]["O1"]["results"], o1_ref))
+    e1 = outs[0]["O1"]["entries"]
+    walls = ", ".join(f"rank {o['rank']} {o['O1']['wall']:.2f} s" for o in outs)
+    print(f"phase O1 (solve_batch, {O1_SIZE} side-{O1_SIDE} instances over "
+          f"{O_RANKS} ranks, f64 program): all status 1, max |dobj| {d1:.3e} "
+          f"from the unsharded card batch (bound {O1_OBJ_ATOL:.0e}); {walls}; "
+          f"rank 0 launches batched_psd_eigh {e1['batched_psd_eigh_f64']}, "
+          f"linesearch_loop_batch {e1['linesearch_loop_batch_f64']}")
+    check(e1["batched_psd_eigh_f64"] > 0 and e1["linesearch_loop_batch_f64"] > 0,
+          "O1: the batch kernels did not launch on rank 0")
+
+    # O2: the default solve
+    bound = O2_OBJ_RTOL * (1 + abs(ref_default.objval))
+    for out in outs:
+        o2 = out["O2"]
+        check(o2["status"] == 1 and abs(o2["objval"] - ref_default.objval)
+              <= bound, f"O2: rank {out['rank']} status {o2['status']} objval "
+              f"{o2['objval']!r} vs the unsharded {ref_default.objval!r}")
+    check(len({(o["O2"]["objval"], o["O2"]["iter"]) for o in outs}) == 1,
+          "O2: the ranks' answers differ")
+    o2 = outs[0]["O2"]
+    e2 = o2["entries"]
+    print(f"phase O2 (solve_sharded, side {SIDE}, default Options(), "
+          f"{O_RANKS} ranks): status {o2['status']} objval {o2['objval']!r} "
+          f"(unsharded {ref_default.objval!r}, diff "
+          f"{o2['objval'] - ref_default.objval:.3e}, bound {bound:.3f}) "
+          f"iterations {o2['iter']} (unsharded {ref_default.iter}); "
+          f"{o2['wall']:.2f} s, {1e3 * o2['wall'] / o2['iter']:.2f} "
+          f"ms/iteration, {o2['collectives'] / o2['iter']:.1f} collectives an "
+          f"iteration; rank 0 launches: ns_gemm_f32 {e2['ns_gemm_f32']}, "
+          f"psd_reconstruct {e2['psd_reconstruct_f64']} f64 / "
+          f"{e2['psd_reconstruct_f32']} f32, ls_dual_update "
+          f"{e2['ls_dual_update_f32']} f32 / {e2['ls_dual_update_f64']} f64, "
+          f"linesearch_loop {e2['linesearch_loop_f32'] + e2['linesearch_loop_f64']}")
+    check(e2["ns_gemm_f32"] > 0 and e2["ls_dual_update_f32"] > 0
+          and e2["sq_dist_f32"] > 0 and e2["ell_spmv_f32"] > 0,
+          "O2: the race's row-slab K5, K2, sq_dist or K1 did not launch")
+    check(e2["linesearch_loop_f32"] == e2["linesearch_loop_f64"] == 0,
+          "O2: K15 launched under tensor parallelism")
+    runs["O2"] = (e2, o2["shapes"])
+
+    # O2: the f64 program's iterate
+    worst = 0.0
+    for out in outs:
+        f = out["O2f64"]
+        same = (np.array_equal(f["x"], x_ref) and np.array_equal(f["y"], y_ref)
+                and np.array_equal(f["fetch"], f_ref))
+        if not same:
+            rel = max(float(np.max(np.abs(a - b))) / max(float(np.max(np.abs(b))),
+                                                         1e-300)
+                      for a, b in ((f["x"], x_ref), (f["y"], y_ref),
+                                   (f["fetch"][2:9], f_ref[2:9])))
+            worst = max(worst, rel)
+            print(f"phase O2 FINDING: rank {out['rank']}'s f64 iterate is not "
+                  f"bit for bit the unsharded one: max relative difference "
+                  f"{rel:.3e} (x, y and the fetched residuals)")
+            check(rel <= O_F64_RTOL, f"O2: rank {out['rank']}'s f64 iterate "
+                  f"differs by {rel:.3e} > {O_F64_RTOL}")
+    f = outs[0]["O2f64"]
+    ef = f["entries"]
+    k18 = [o["O2f64"]["entries"]["psd_reconstruct_f64"] for o in outs]
+    print(f"phase O2 f64 program ({O_F64_ITERS} iterations from init_state, "
+          f"{O_RANKS} ranks): x, y and scalars "
+          + ("bit for bit the unsharded card run's" if worst == 0.0 else
+             f"within {worst:.3e} of the unsharded card run's")
+          + f"; {1e3 * f['wall'] / O_F64_ITERS:.2f} ms/iteration (unsharded "
+          f"{1e3 * wall_ref / O_F64_ITERS:.2f}), "
+          f"{f['collectives'] / O_F64_ITERS:.1f} collectives an iteration; "
+          f"K18 launches a rank {k18} (shapes "
+          + ", ".join(f"{list(k)} {n}" for (e, k), n in f["shapes"].items()
+                      if e.startswith("psd_reconstruct"))
+          + f"), K1 {ef['ell_spmv_f64']}, K2 {ef['ls_dual_update_f64']}, "
+          f"sq_dist {ef['sq_dist_f64']} on rank 0")
+    check(all(n >= O_F64_ITERS for n in k18),
+          "O2: K18 launched less than once an iteration on a rank")
+    runs["O2f64"] = (ef, f["shapes"])
+
+    # ---- NCCL at world size 1, in this process
+    small, _ = maxcut_problem(random_graph_weights(0, O_NCCL_SIDE))
+    want = solve(small, Options())
+    res, wall, entries, shapes, ncoll, backend = _o_nccl(torch, kernels, small)
+    bound = O2_OBJ_RTOL * (1 + abs(want.objval))
+    print(f"phase O NCCL (solve_sharded at world size 1, backend {backend}, "
+          f"side {O_NCCL_SIDE}, default Options()): status {res.status} "
+          f"objval {res.objval!r} (unsharded {want.objval!r}, diff "
+          f"{res.objval - want.objval:.3e}, bound {bound:.2e}); {wall:.2f} s, "
+          f"{ncoll} collectives in {res.iter} iterations, K18 "
+          f"{entries['psd_reconstruct_f32']} f32 / "
+          f"{entries['psd_reconstruct_f64']} f64")
+    check(backend == "nccl" and ncoll > 0, "O: the NCCL run made no collective")
+    check(res.status == 1 and abs(res.objval - want.objval) <= bound,
+          f"O NCCL: status {res.status} objval {res.objval} vs {want.objval}")
+    runs["nccl"] = (entries, shapes)
+    return runs
+
+
+def phase_o_rows(rows, runs):
+    """Each K18 row's launches at its shape in phase O's counted runs: the
+    unsharded f64 program's, rank 0's O2 runs' and the NCCL solve's;
+    (rows for the kernels line, rows left off it)."""
+    shapes = collections.Counter()
+    entries = collections.Counter()
+    for e, sh in runs.values():
+        shapes.update(sh)
+        entries.update(e)
+    return assign_launches(rows, shapes, entries)
 
 
 def main() -> int:
@@ -5159,6 +5529,25 @@ def main() -> int:
             {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
         return 0
 
+    if "--phase-o" in sys.argv[1:]:
+        # phase O's kernel rows and phase O alone
+        t_phase = time.perf_counter()
+        orows, ooff = reconstruct_kernel_checks(
+            torch, kernels, np.random.default_rng(15), torch.device("cuda"))
+        print(f"phase O rows: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        kept, left = phase_o_rows(orows, phase_o(torch, kernels, smi))
+        print(f"phase O: {time.perf_counter() - t_phase:.1f} s")
+        for label, fn, pattern in LAUNCH_US:
+            us = device_us(torch, fn, pattern, calls=10)
+            print(f"kernel {label}: device "
+                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print("phase O rows left off the line: " + ", ".join(
+            row["name"] for row in left + ooff))
+        print(json.dumps({"kernels": [
+            {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
+        return 0
+
     if "--phase-h" in sys.argv[1:]:
         # phase H alone, then the equilibrated arm's path at several caps
         t_phase = time.perf_counter()
@@ -5186,9 +5575,10 @@ def main() -> int:
           f"lambda_min(X) {lam_min:.3e}")
     print("phase A launches: " + json.dumps(
         {e: n for e, n in entries_a.items() if n}))
-    # K1 for M x; M' y inside K15, one launch an iteration
+    # K1 for M x; M' y inside K15, one launch an iteration; K18 the dense
+    # eigh's reconstruction
     for name in ("ell_spmv", "linesearch_loop", "residuals",
-                 "primal_update_sym"):
+                 "primal_update_sym", "psd_reconstruct"):
         check(counts[name] >= res.iter, f"A: {name} launched < iterations")
     check(counts["ls_dual_update"] == counts["sq_dist"] == 0,
           "A: one trial's kernels launched on the path")
@@ -5269,6 +5659,7 @@ def main() -> int:
         if line.startswith("  [") or "total" in line or "status:" in line:
             print("  | " + line.strip())
     diag_err, lam_min, fro = check_solution(res, Xidx, HYB_REF_OBJ, diag_tol, "C")
+    res_c = res  # phase O's unsharded default solve
     race = re.search(r"f32 race: subspace rank (\d+) \(observed (\d+)\)", log)
     hand = re.search(r"f32 -> f64 at iter (\d+)", log)
     pol = re.search(r"f64 polish: subspace rank (\d+) \(observed (\d+)\)", log)
@@ -5299,9 +5690,11 @@ def main() -> int:
     for name in kernels.SOLVE_KERNELS:
         # K11 runs only above full_eig_max_side (phase F), K13 only on SOC
         # blocks (phase I), K14 only on a COO operator (phases H and I),
-        # K17 only under subspace_sign=True (phase N2)
+        # K17 only under subspace_sign=True (phase N2), K18 only where a
+        # dense eigh runs (phases A and O)
         check(counts[name] > 0 or name in ("lanczos_krylov", "soc_projection",
-                                           "coo_spmv", "subspace_sign"),
+                                           "coo_spmv", "subspace_sign",
+                                           "psd_reconstruct"),
               f"C: {name} launched no kernel")
     for name in ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym"):
@@ -5360,8 +5753,8 @@ def main() -> int:
           + ", ".join(row["name"] for row in late_off))
     print_shapes("phases E and F", ran, all_rows + grows)
     print("kernels line: one trial's kernels, checked against the plain "
-          "version but on no path (K15 runs the trials): "
-          + ", ".join(row["name"] for row in TRIAL_ROWS))
+          "version; on the tensor-parallel path only (phase O: K15 runs the "
+          "trials elsewhere): " + ", ".join(row["name"] for row in TRIAL_ROWS))
     for name in ("lanczos_krylov_f64", "ns_gemm_f64"):
         check(entries_f[name] > 0, f"F: {name} launched no kernel")
 
@@ -5498,6 +5891,34 @@ def main() -> int:
           + ", ".join(row["name"] for row in n_left + noff))
     print_shapes("phase N2", runs_n["N2"][1], all_rows + nrows)
 
+    # ---- 14. phase O: the sharded solves (solve_batch(mesh=...) and
+    # solve_sharded over two ranks sharing the card, NCCL at world size 1)
+    # and K18
+    t_phase = time.perf_counter()
+    orows, ooff = reconstruct_kernel_checks(
+        torch, kernels, np.random.default_rng(15), torch.device("cuda"))
+    print(f"phase O rows: {time.perf_counter() - t_phase:.1f} s")
+    runs_o = phase_o(torch, kernels, smi, ref_default=res_c)
+    print(f"phase O: {time.perf_counter() - t_phase:.1f} s (rows included)")
+    o_kept, o_left = phase_o_rows(orows, runs_o)
+    rows += o_kept
+    # one trial's kernels run on the tensor-parallel path: their rows take
+    # rank 0's launches of their entry point in O2's runs
+    e_o2 = collections.Counter(runs_o["O2"][0])
+    e_o2.update(runs_o["O2f64"][0])
+    trial_kept = []
+    for row in TRIAL_ROWS:
+        row["launches"] = e_o2[row["name"].split(" ")[0]]
+        if row["launches"]:
+            trial_kept.append(row)
+    rows += trial_kept
+    print("kernels line: phase O's K18 rows take the launches of their shape "
+          "in the unsharded f64 program, rank 0's O2 runs and the NCCL solve, "
+          "K2's and sq_dist's rows rank 0's O2 launches; checked against the "
+          "plain version but not launched at their shape there: "
+          + ", ".join(row["name"] for row in o_left + ooff
+                      + [r for r in TRIAL_ROWS if r not in trial_kept]))
+
     for label, fn, pattern in LAUNCH_US:
         us = device_us(torch, fn, pattern, calls=10)
         print(f"kernel {label}: device "
@@ -5505,13 +5926,14 @@ def main() -> int:
     check(all(row["ms"] is not None for row in rows),
           "kernels line: a row without its times")
     names = {row["name"].split(" ")[0].rsplit("_f", 1)[0] for row in rows}
-    # one trial's kernels (TRIAL_KERNELS) are checked in phase B but run on
-    # no path: K15 and K15b run the trials
+    # one trial's kernels (TRIAL_KERNELS) are checked in phase B and run
+    # only on the tensor-parallel path (phase O): K15 and K15b run the
+    # trials everywhere else
     missing = (set(kernels.SOLVE_KERNELS + kernels.BATCH_KERNELS)
                - {n.replace("_f64", "").replace("_f32", "") for n in names})
     check(not missing, f"kernels line: no row of {sorted(missing)}")
 
-    print(f"phases A-N: {time.perf_counter() - t_start:.1f} s")
+    print(f"phases A-O: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))

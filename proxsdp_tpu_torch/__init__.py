@@ -20,9 +20,12 @@ the dense-eigh or subspace projection, one operator shared by every
 instance or one per instance), with their hot work in hand-written CUDA
 kernels (``kernels/csrc``); and the API over them: ``Optimizer`` with
 ``optimize`` and its MOI-style accessors, ``solve_sdp``, the SCS-form
-``solve_cone_program`` (``ingest``) and ``cvxpy_interface``.  Every
-entry point runs on the CUDA card unless the caller passes
-``device="cpu"``; every tensor has an explicit dtype.
+``solve_cone_program`` (``ingest``) and ``cvxpy_interface``; and the
+sharded solves over ``torch.distributed``, one process a rank
+(``parallel.dist``): ``solve_batch(mesh=...)`` and
+``parallel.sharded.solve_sharded``.  Every entry point runs on the CUDA
+card unless the caller passes ``device="cpu"``; every tensor has an
+explicit dtype.
 """
 
 from __future__ import annotations

@@ -28,6 +28,8 @@ kernels.
 | ritz_accept        | ops/cones.py:443-489 the Ritz acceptance test    |
 | subspace_sign      | ops/cones.py:349-410 the sign-based step's k x k |
 |                    |   work and acceptance test (f32 only)            |
+| psd_reconstruct    | ops/cones.py:204-211, 223-232 the dense-eigh     |
+|                    |   reconstruction V diag(w+) V^T (rows r0..r1)    |
 | lanczos_krylov     | ops/lanczos.py:56-95 the Lanczos recurrence      |
 | batched_psd_eigh   | ops/cones.py:622-675, 204-211 batched eigh proj. |
 |   (_large: K9L)    |   the same past one block's shared memory        |
@@ -85,7 +87,8 @@ from .build import KernelError
 SOLVE_KERNELS = ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym", "ns_gemm", "fro_scale", "sym",
                  "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov",
-                 "soc_projection", "coo_spmv", "subspace_sign")
+                 "soc_projection", "coo_spmv", "subspace_sign",
+                 "psd_reconstruct")
 BATCH_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch", "residuals_batch",
                  "primal_update_batch", "batched_psd_eigh", "tri_to_square",
                  "square_to_tri", "batched_subspace", "batched_gemv",
@@ -116,6 +119,7 @@ _ARGTYPES = {
     "cholqr": [_P, _P, _P, _I, _I, _D, _P],
     "ritz_accept": [_P] * 4 + [_I, _I, _D, _D, _I] + [_P] * 4,
     "subspace_sign": [_P] * 7 + [_I, _I, _D, _I, _I, _I, _P],
+    "psd_reconstruct": [_P] * 3 + [_I] * 3 + [_P],
     "lanczos_krylov": [_P] * 6 + [_I, _I, _D, _P],
     "ell_spmv_batch": [_P] * 4 + [_I] * 5 + [_P],
     "ls_dual_update_batch": [_P] * 10 + [_I] * 3 + [_P],
@@ -141,6 +145,7 @@ _ARGTYPES = {
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # entry points of mixed type pairs: (input, output) dtype suffixes
 _MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",),
+          "psd_reconstruct": ("f64_f32",),
           "batched_subspace": ("f64_f32",),
           "batched_subspace_large": ("f64_f32",)}
 # entry points of one type only
@@ -407,7 +412,7 @@ def _rmatvec_form(name: str, M, rows: int, n: int):
 
 def linesearch_loop_plain(M, y, Mx, Mx_old, b, h, y_old, Mty_old, tau,
                           tau_old, theta, beta, p: int, m: int, delta: float,
-                          decay: float, max_steps: int):
+                          decay: float, max_steps: int, decide=bool):
     ps = tau * torch.sqrt(1.0 + theta)
     sqrt_beta = torch.sqrt(beta)
     y_temp, Mty, trials = torch.zeros_like(y), torch.zeros_like(Mty_old), 0
@@ -418,8 +423,9 @@ def linesearch_loop_plain(M, y, Mx, Mx_old, b, h, y_old, Mty_old, tau,
         Mty = M.rmatvec(y_temp)
         dM = sq_dist(Mty, Mty_old)
         trials += 1
-        # one host read a trial
-        if bool(sqrt_beta * ps * torch.sqrt(dM) <= delta * torch.sqrt(dy)):
+        # one host read a trial (``decide``: a tensor-parallel solve takes
+        # rank 0's)
+        if decide(sqrt_beta * ps * torch.sqrt(dM) <= delta * torch.sqrt(dy)):
             break
         ps = ps * decay
     return (y_temp, Mty, theta, ps,
@@ -1224,6 +1230,45 @@ def subspace_sign(Q, Z, accept_tol, subspace_tol: float, aggressive: int,
             _ptr(info), side, k, float(subspace_tol), int(aggressive),
             int(polish), int(bool(force_full)))
     return Bp, stats, info
+
+
+# ---------------------------------- K18 dense-eigh PSD reconstruction
+
+
+def psd_reconstruct_plain(V, w, r0: int, r1: int, out_dtype=None):
+    Xp = torch.matmul(V * torch.clamp_min(w, 0.0)[None, :], V.T)[r0:r1]
+    return Xp.to(out_dtype or V.dtype)
+
+
+def psd_reconstruct(V, w, r0: int, r1: int, out_dtype=None):
+    """Rows [r0, r1) of V diag(max(w, 0)) V^T for a dense eigh's V (n, n)
+    and w (n,), computed in V's dtype and cast to ``out_dtype`` (default
+    V's; f64 eigenpairs may go to an f32 block): a new contiguous (r1 -
+    r0, n) tensor.  Each row equals that row of the whole product (see
+    psd_reconstruct.cu).  V may have any strides (an eigh returns it
+    column-major): the kernel reads a row-major copy."""
+    name = "psd_reconstruct"
+    n = V.shape[0]
+    out_dtype = out_dtype or V.dtype
+    if V.dim() != 2 or V.shape != (n, n):
+        raise ValueError(f"{name}: V has shape {tuple(V.shape)}, want (n, n)")
+    _check_vec(name, w, n, "w")
+    if not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"{name}: rows [{r0}, {r1}) outside [0, {n})")
+    if _on_cpu(name, V, w, strided=True):
+        return psd_reconstruct_plain(V, w, r0, r1, out_dtype)
+    V, w = V.contiguous(), w.contiguous()
+    if out_dtype == V.dtype:
+        sfx = _SUFFIX[V.dtype]
+    elif (V.dtype, out_dtype) == (torch.float64, torch.float32):
+        sfx = "f64_f32"
+    else:
+        raise TypeError(f"{name}: {V.dtype} -> {out_dtype} not supported")
+    out = torch.empty((r1 - r0, n), dtype=out_dtype, device=V.device)
+    if out.numel() == 0:  # a rank that owns no rows
+        return out
+    _launch(name, sfx, V.device, _ptr(V), _ptr(w), _ptr(out), n, r0, r1 - r0)
+    return out
 
 
 # ------------------------------------------- K11 Lanczos recurrence

@@ -7,8 +7,8 @@
   - the ``side == 1`` branch;
   - the dense-eigh ``full_path`` and ``full_path_sub`` (204-232):
     ``torch.linalg.eigh`` (LAPACK on the CPU, cuSOLVER on the card, NaN
-    for a non-finite input as in JAX) and a plain ``torch.matmul``
-    reconstruction;
+    for a non-finite input as in JAX) and the reconstruction V diag(w+)
+    V^T, kernel K18 (``kernels.psd_reconstruct``);
   - the Newton-Schulz polar projection ``polar_psd`` (62-109), kernels K5
     (the products) and K6 (scaling, symmetrisation, guard);
   - the persistent-subspace step ``_subspace_body`` (427-517) in its f32
@@ -63,6 +63,15 @@ directly.
 The SOC projection (cones.py:43-56) is kernel K13,
 ``kernels.soc_projection``, which ``solver._primal_step`` calls on all
 SOC blocks at once.
+
+Under a tensor-parallel solve (``tp_shards > 0`` inside
+``parallel.sharded.solve_sharded``; the row layout of cones.py:177-191)
+a rank reconstructs only its rows of a dense-eigh projection (K18 on rows
+``span(side)`` after the replicated eigh) and runs each Newton-Schulz
+product of the polar projection on its row slab of K5, an all_gather
+after each; the subspace, sign, accept-always and Lanczos steps run
+replicated, and their host reads (accept flags, the Lanczos residual
+test) are rank 0's.
 """
 
 from __future__ import annotations
@@ -72,6 +81,8 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..parallel.dist import LOCAL
+from ..parallel.sharded import current_tp
 from ..utils.vech import sympackeddim
 from .lanczos import lanczos_topk
 
@@ -97,28 +108,41 @@ class PsdProjResult(NamedTuple):
     sub_stats: torch.Tensor
 
 
-def _newton_schulz(X, ct, *, aggressive: int, polish: int):
+def _gemm(tp, A, B, C=None, alpha: float = 0.0, beta: float = 1.0):
+    """K5's alpha * C + beta * (A @ B); under tensor parallelism on the
+    rank's row slab of A and C, then one all_gather of the rows."""
+    if not tp.sharded:
+        return kernels.ns_gemm(A, B, C, alpha, beta)
+    r0, r1 = tp.span(A.shape[0])
+    part = kernels.ns_gemm(A[r0:r1], B, None if C is None else C[r0:r1],
+                           alpha, beta)
+    return tp.all_gather_rows(part, A.shape[0])
+
+
+def _newton_schulz(X, ct, *, aggressive: int, polish: int, tp=LOCAL):
     """(S, Xc, P) of a polar projection computed in ``ct``: Xc = X cast,
     S the Newton-Schulz sign of Xc, P = 0.5 * Xc + 0.5 * S @ Xc
-    (cones.py:82-95, 279-293)."""
+    (cones.py:82-95, 279-293); the products row-split over ``tp``."""
     Y, Xc = kernels.fro_scale(X, ct)
     for _ in range(aggressive):
-        A = kernels.ns_gemm(Y, Y)
-        B = kernels.ns_gemm(A, A, A, POLAR_QB, POLAR_QC)
-        Y = kernels.ns_gemm(Y, B, Y, POLAR_QA, 1.0)
+        A = _gemm(tp, Y, Y)
+        B = _gemm(tp, A, A, A, POLAR_QB, POLAR_QC)
+        Y = _gemm(tp, Y, B, Y, POLAR_QA, 1.0)
     for _ in range(polish):
-        A = kernels.ns_gemm(Y, Y)
-        Y = kernels.ns_gemm(Y, A, Y, 1.5, -0.5)
+        A = _gemm(tp, Y, Y)
+        Y = _gemm(tp, Y, A, Y, 1.5, -0.5)
     S = kernels.sym(Y)
-    return S, Xc, kernels.ns_gemm(S, Xc, Xc, 0.5, 0.5)
+    return S, Xc, _gemm(tp, S, Xc, Xc, 0.5, 0.5)
 
 
-def polar_psd(X, *, aggressive: int, polish: int):
+def polar_psd(X, *, aggressive: int, polish: int, opts=None):
     """PSD projection by a Newton-Schulz matrix sign (cones.py:62-109):
     (Xp, rank) with rank = round(trace((I + sign) / 2)); a non-finite
-    result passes X through with rank = side."""
+    result passes X through with rank = side.  ``opts`` of a
+    tensor-parallel solve row-split the products."""
     S, Xc, P = _newton_schulz(X, X.dtype, aggressive=aggressive,
-                              polish=polish)
+                              polish=polish,
+                              tp=LOCAL if opts is None else current_tp(opts))
     Xp, rank, _ = kernels.sym_guard(P, S, Xc)
     return Xp, rank
 
@@ -176,9 +200,17 @@ def _eig_dtype(dtype, opts):
 
 
 def _dense_eigh(X, opts):
-    """(Xp, rank, V): the positive eigenpairs of X, V ascending."""
+    """(Xp, rank, V): the positive eigenpairs of X, V ascending; Xp = V
+    diag(w+) V^T by K18, under tensor parallelism the rank's rows of it and
+    one all_gather."""
     w, V = _eigh(X.to(_eig_dtype(X.dtype, opts)))
-    Xp = torch.matmul(V * torch.clamp_min(w, 0.0)[None, :], V.T).to(X.dtype)
+    side, tp = X.shape[0], current_tp(opts)
+    if not tp.sharded:
+        Xp = kernels.psd_reconstruct(V, w, 0, side, X.dtype)
+    else:
+        r0, r1 = tp.span(side)
+        Xp = tp.all_gather_rows(
+            kernels.psd_reconstruct(V, w, r0, r1, X.dtype), side)
     return Xp, torch.sum(w > opts.tol_psd).to(torch.int32), V
 
 
@@ -199,7 +231,7 @@ def polar_reseed(X, warm, bdt, opts):
     from the sign projector applied to the old one -- P+ on the leading
     k - 1 columns, P- on the last -- orthonormalised by _cholqr2."""
     S, _, P = _newton_schulz(X, bdt, aggressive=opts.polar_aggressive,
-                             polish=opts.polar_polish)
+                             polish=opts.polar_polish, tp=current_tp(opts))
     Xp, rank, bad = kernels.sym_guard(P, S, X)
     wb = warm.to(bdt)
     Zp = kernels.ns_gemm(S, wb[:, :-1], wb[:, :-1], 0.5, 0.5)  # P+ @ warm
@@ -233,7 +265,7 @@ def _subspace_body(X, warm, k: int, opts, accept_tol, force_full: bool):
         tol = opts.subspace_tol
     lam, stats, flags = kernels.ritz_accept(W, XW, theta, accept_tol, tol,
                                             opts.tol_psd, force_full)
-    if bool(flags[0]):  # the one host read of the step
+    if current_tp(opts).flag(flags[0]):  # the one host read of the step
         Xp = torch.matmul(W * lam[None, :], W.T)
         return Xp, stats[1], flags[1], W.flip(1), False, stats
     if opts.subspace_fallback == "polar":
@@ -253,7 +285,7 @@ def _subspace_body_sign(X, warm, k: int, opts, accept_tol, force_full: bool):
     Bp, stats, info = kernels.subspace_sign(
         Q, Z, accept_tol, opts.subspace_tol, opts.polar_aggressive,
         opts.polar_polish, force_full)
-    if bool(info[0]):  # the one host read of the step
+    if current_tp(opts).flag(info[0]):  # the one host read of the step
         Xp = torch.matmul(Q, torch.matmul(Bp, Q.T))
         bad = ~torch.all(torch.isfinite(Xp))
         return (torch.where(bad, X, Xp), X.new_zeros(()), info[1],
@@ -321,7 +353,7 @@ def _lanczos_path(X, warm, target_rank: int, opts, force_full: bool):
     def fallback():
         if giant:  # polar, never a giant dense eigh
             Xp, rank = polar_psd(X, aggressive=opts.polar_aggressive,
-                                 polish=opts.polar_polish)
+                                 polish=opts.polar_polish, opts=opts)
             return Xp, X.new_zeros(()), rank, warm, True
         return (*full_path(X, opts), True)
 
@@ -333,7 +365,8 @@ def _lanczos_path(X, warm, target_rank: int, opts, force_full: bool):
     k = min(target_rank, ncv)  # >= 2: target ranks start at 2 and grow
     vals = out.vals[:k]
     thresh = torch.clamp_min(tol * torch.abs(vals), 10 * tol)
-    if not bool(torch.all(out.resid[:k] <= thresh)):  # the one host read
+    # the one host read (rank 0's under tensor parallelism)
+    if not current_tp(opts).flag(torch.all(out.resid[:k] <= thresh)):
         return fallback()
     pos = vals > 0.0
     W = out.vecs[:, :k] * torch.sqrt(torch.where(pos, vals, 0.0))[None, :]
@@ -392,7 +425,7 @@ def psd_projection_block(X, warm, *, opts, accept_tol=None,
         return PsdProjResult(*body(X, warm, k, opts, accept_tol, force_full))
     if kind == "polar":
         Xp, rank = polar_psd(X, aggressive=opts.polar_aggressive,
-                             polish=opts.polar_polish)
+                             polish=opts.polar_polish, opts=opts)
         return PsdProjResult(Xp, X.new_zeros(()), rank, warm, False, zero3)
     if kind == "lanczos":
         if target_rank is None:

@@ -20,6 +20,10 @@ operator is ``batched``; it has no single-instance products.  A batch
 whose instances share [A; G] broadcasts one operator of any form, as the
 JAX driver's vmap does (batch.py:229-231).
 
+Under a tensor-parallel solve (``parallel/sharded.py``) ``shard_linop``
+splits the operator over the ranks (linop.py:173-221): ``ShardedEll``
+and ``ShardedDense``.
+
 All are ``nn.Module``s holding their tables as buffers, so ``.to(device)``
 moves them.
 """
@@ -222,6 +226,86 @@ class CooOp(nn.Module):
     def rmatvec_tables(self):
         """M' for the linesearch kernels: (form, ptr, idx, vals, width)."""
         return kernels.LS_COO, self.col_ptr, self.col_idx, self.col_vals, 0
+
+
+class ShardedEll(nn.Module):
+    """An ``EllOp`` split over a tensor-parallel ``Axis``
+    (``parallel.dist``): the rank keeps its rows ``axis.span`` of the row
+    tables (its entries of M x) and of the column tables (its entries of
+    M' y).  Each product is K1 on the rank's slice, then one all_gather;
+    every entry is K1's sum as in the unsharded operator, so the products
+    agree with it bit for bit."""
+
+    batched = False
+
+    def __init__(self, op: EllOp, axis):
+        super().__init__()
+        self.axis = axis
+        self._shape = op.shape
+        (r0, r1), (c0, c1) = axis.span(op.shape[0]), axis.span(op.shape[1])
+        for name, t in (("row_cols", op.row_cols[r0:r1]),
+                        ("row_vals", op.row_vals[r0:r1]),
+                        ("col_rows", op.col_rows[c0:c1]),
+                        ("col_vals", op.col_vals[c0:c1])):
+            self.register_buffer(name, t.contiguous())
+
+    @property
+    def shape(self):
+        return self._shape
+
+    def _product(self, idx, vals, v, n):
+        part = (kernels.ell_spmv(idx, vals, v) if idx.shape[0]
+                else v.new_zeros(0))  # a rank that owns no rows
+        return self.axis.all_gather_rows(part, n)
+
+    def matvec(self, x):
+        return self._product(self.row_cols, self.row_vals, x, self._shape[0])
+
+    def rmatvec(self, y):
+        return self._product(self.col_rows, self.col_vals, y, self._shape[1])
+
+
+class ShardedDense(nn.Module):
+    """A ``DenseOp`` column-sharded over a tensor-parallel ``Axis``: the
+    rank keeps columns ``axis.span(n)``.  M x is the partial product over
+    those columns and one all_reduce (so its sums run in another order
+    than the unsharded product's); M' y is the rank's columns' entries
+    and one all_gather."""
+
+    batched = False
+
+    def __init__(self, op: DenseOp, axis):
+        super().__init__()
+        self.axis = axis
+        self._shape = op.shape
+        self.c0, self.c1 = axis.span(op.shape[1])
+        self.register_buffer("mat", op.mat[:, self.c0:self.c1].contiguous())
+
+    @property
+    def shape(self):
+        return self._shape
+
+    def matvec(self, x):
+        return self.axis.all_reduce(torch.matmul(self.mat,
+                                                 x[self.c0:self.c1]))
+
+    def rmatvec(self, y):
+        return self.axis.all_gather_rows(torch.matmul(self.mat.T, y),
+                                         self._shape[1])
+
+
+def shard_linop(op, axis):
+    """Lay an operator out over a tensor-parallel ``Axis`` (linop.py:
+    173-221): an ``EllOp`` row-sharded, a ``DenseOp`` column-sharded, a
+    ``CooOp`` (or a per-instance operator) returned unchanged.  Unlike the
+    JAX package, whose ``device_put`` replicates a dimension the axis size
+    does not divide, an uneven split shards too: the last ranks hold fewer
+    rows (``parallel.dist.split``)."""
+    if isinstance(op, EllOp) and not op.batched:
+        return ShardedEll(op, axis)
+    if isinstance(op, DenseOp) and not op.batched:
+        return ShardedDense(op, axis)
+    return op
 
 
 def build_linop(A, G, dtype: torch.dtype, *, device, force: str | None = None,

@@ -4,8 +4,9 @@ Every field and default is identical to the JAX package's, so one
 ``Options`` value means the same thing in both packages (a test compares
 the two field by field).  The field comments of the JAX package explain
 each knob; here they only say which ones the port honours.  The port
-honours every field but ``tp_shards``, for which ``solver.solve`` and
-``solve_batch`` raise ``NotImplementedError`` (naming ROADMAP A12).
+honours every field; ``tp_shards`` splits a solve's work only under an
+active tensor-parallel mesh (``parallel.sharded.solve_sharded``), as in
+the JAX package.
 """
 
 from __future__ import annotations

@@ -80,9 +80,26 @@ unscale (batch.py:257-269, 311-318).
 
 ``checkpoint_path`` writes no checkpoint in the batch loop, as in the
 JAX batch driver: it rides in the options of the re-entry into ``solve``
-for a declared instance (batch.py:591-603).  Not ported yet, raising
-``NotImplementedError`` with its ROADMAP item: ``mesh=`` (multi-GPU,
-B14), ``tp_shards`` (A12).
+for a declared instance (batch.py:591-603).  ``tp_shards`` splits no
+block here: the batch's engines are batched kernels, and a ``tp_shards``
+with no active tensor-parallel mesh is a plain solve in both packages.
+
+``mesh=`` lays the instances over the mesh's ``batch_axis`` (the JAX
+driver's ``shard_tree``, batch.py:291-297, 350-371): every rank of the
+axis calls ``solve_batch`` with the same problem list and runs this
+engine on its contiguous share of the instances, on its own device.  The
+decisions that span instances -- each chunk's end (the least iteration
+of the running instances), the race's ``ready.all()`` and stall test,
+the hand-over, the subspace bucket escalation, ``running.any()``, the
+iteration and time budgets -- are taken on the global per-instance
+scalars: one all_gather of ``fetch``'s (B_r, 7) array a chunk (the
+counterpart of the JAX driver's one ``any(active)`` reduction a chunk),
+with rank 0's clock riding in it.  A bucket escalation adds a max over
+the ranks' observed ranks.  Every rank returns all B Results in instance
+order (an all_gather of the ranks' Results); only rank 0 prints, and a
+declared instance's re-entry into ``solve`` writes a checkpoint only on
+rank 0.  A batch that the axis size does not divide raises
+``ValueError``, as the JAX driver's ``device_put`` does.
 """
 
 from __future__ import annotations
@@ -98,6 +115,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import convert, kernels
+from .dist import Axis
 from ..ops.cones import (polar_psd_batch, projection_kind,
                          psd_projection_small_batch)
 from ..ops.linop import DenseOp, EllOp, build_linop
@@ -117,7 +135,6 @@ from ..solver import (
     _ieee_f32_products,
     _residuals_and_gap,
     _sub_bucket,
-    _unsupported,
     block_plan,
     init_state,
     solve,
@@ -129,12 +146,6 @@ def _force_batch_options(opts: Options) -> Options:
     subspace mode turns its own step on after this."""
     return opts.replace(use_lanczos=False, certificate_search=False,
                         subspace_rank=0)
-
-
-def _check_batch(opts: Options) -> None:
-    """Options outside the port raise, naming the ROADMAP item."""
-    if opts.tp_shards:
-        _unsupported("tp_shards", "A12")
 
 
 # ---------------------------------------------------------------------------
@@ -479,8 +490,38 @@ def make_batch_runner(layout: ConeLayout, opts: Options, *, device,
 # ---------------------------------------------------------------------------
 
 
+def _search_declared(problems, results, cert_opts, dp, lo, hi, device):
+    """The ray search of each declared instance (batch.py:591-604): the
+    single-instance driver, warm-started from the batch iterate,
+    re-declares and runs its certificate search.  On a mesh each rank
+    searches the instances it owns, printing only on rank 0; with a
+    ``checkpoint_path`` rank 0 alone runs every search, in instance
+    order, so that one writer leaves the file the unsharded batch
+    leaves, whichever rank owns the instance.  Returns all B Results."""
+    re_opts = cert_opts.replace(tp_shards=0)
+    declared = [i for i, r in enumerate(results) if r.status in (5, 6)]
+    mine = declared
+    if dp is not None:
+        if re_opts.checkpoint_path:
+            mine = declared if dp.rank == 0 else []
+        else:
+            mine = [i for i in declared if lo <= i < hi]
+        if dp.rank != 0:
+            re_opts = re_opts.replace(log_verbose=False, timer_verbose=False,
+                                      timer_file=False)
+    found = {i: solve(problems[i], re_opts, warm_start=results[i],
+                      device=device) for i in mine}
+    if dp is not None:
+        if re_opts.checkpoint_path:
+            found = dp.obj(found)
+        else:
+            found = {i: r for part in dp.gather_objects(found)
+                     for i, r in part.items()}
+    return [found.get(i, r) for i, r in enumerate(results)]
+
+
 def solve_batch(problems: Sequence[ConicProblem], options: Options | None = None,
-                mesh=None, projection: str = "auto",
+                mesh=None, batch_axis: str = "batch", projection: str = "auto",
                 *, device="cuda", stats: BatchStats | None = None,
                 **kwargs) -> list[Result]:
     """Solve a batch of same-geometry problems; one Result per instance.
@@ -491,37 +532,50 @@ def solve_batch(problems: Sequence[ConicProblem], options: Options | None = None
     improvement of max(gap, feas) over 3 consecutive chunks), then the
     whole batch is cast to f64 and finished by the f64 program.
     ``device`` defaults to the CUDA card; without one it raises (pass
-    ``device="cpu"`` for the plain PyTorch path).  ``mesh`` (sharding
-    over cards, with its ``batch_axis``) is ROADMAP B14.  A ``stats``
-    object passed in is filled with what the solve did."""
+    ``device="cpu"`` for the plain PyTorch path).  ``mesh``: a
+    ``DeviceMesh`` with an axis ``batch_axis`` over which the instances are
+    split; every rank of it calls ``solve_batch`` with the same arguments
+    (``device`` its own) and gets all B Results.  Only rank 0 prints, and
+    with a ``checkpoint_path`` rank 0 runs the ray search of every
+    declared instance, so that it alone writes the file, as the unsharded
+    batch would.  A ``stats`` object passed in is filled with what the
+    solve did (``steps``: this rank's)."""
     with _ieee_f32_products():
-        return _solve_batch(problems, options, mesh, projection, device,
-                            stats if stats is not None else BatchStats(),
+        return _solve_batch(problems, options, mesh, batch_axis, projection,
+                            device, stats if stats is not None else BatchStats(),
                             kwargs)
 
 
-def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
+def _solve_batch(problems, options, mesh, batch_axis, projection, device,
+                 stats, kwargs):
     cert_opts = (options or Options()).replace(**kwargs)
     opts = _force_batch_options(cert_opts)
-    if mesh is not None:
-        _unsupported("solve_batch(mesh=...) (instances sharded over cards)",
-                     "B14")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "solve_batch: no CUDA card is available (torch.cuda.is_available()"
             " is false); pass device='cpu' for the plain PyTorch path")
-    t0 = time.time()
+    B = len(problems)
+    # the instances [lo, hi) of this rank (all of them off a mesh)
+    dp = None if mesh is None else Axis(mesh, batch_axis)
+    lo, hi = 0, B
+    if dp is not None:
+        if B % dp.size:
+            raise ValueError(
+                f"solve_batch: a batch of {B} instances does not divide over "
+                f"the {dp.size} ranks of mesh axis {batch_axis!r}")
+        lo, hi = dp.span(B)
+    verbose = opts.log_verbose and (dp is None or dp.rank == 0)
+    t0 = time.time() if dp is None else dp.now()
 
-    setups = [preprocess(p, scale_objective=opts.scale_objective,
-                         scale_rhs=opts.scale_rhs) for p in problems]
-    layout = setups[0].layout
-    for s in setups[1:]:
+    setups_all = [preprocess(p, scale_objective=opts.scale_objective,
+                             scale_rhs=opts.scale_rhs) for p in problems]
+    layout = setups_all[0].layout
+    for s in setups_all[1:]:
         if s.layout != layout:
             raise ValueError("all batched problems must share one geometry")
-    _check_batch(opts)
+    setups = setups_all[lo:hi]
 
-    B = len(setups)
     hybrid = opts.dtype == "float64" and opts.hybrid_precision
     phase_opts = opts.replace(dtype="float32") if hybrid else opts
     phase_dt = torch.float32 if phase_opts.dtype == "float32" else torch.float64
@@ -543,16 +597,31 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
     tau0 = states.primal_step.cpu().numpy().astype(np.float64)
     budget = _Budget(opts, bool(layout.sdp_sides or layout.soc_lens))
 
-    def runner(states, run_opts):
-        stats.programs.append((run_opts.dtype, int(states.iter.min()),
+    def gather(sc_local):
+        """(the (B, 7) scalars of every instance, seconds since t0 on rank
+        0's clock) from this rank's fetch: one all_gather on a mesh."""
+        if dp is None:
+            return sc_local, time.time() - t0
+        row = np.full((sc_local.shape[0], 1), time.time() - t0)
+        part = torch.tensor(np.hstack([sc_local.astype(np.float64), row]),
+                            device=dp.host_device())
+        allsc = dp.all_gather_rows(part, B).cpu().numpy()
+        return allsc[:, :-1], float(allsc[0, -1])
+
+    def runner(it_min, run_opts):
+        stats.programs.append((run_opts.dtype, int(it_min),
                                run_opts.subspace_rank))
         return make_batch_runner(layout, run_opts, device=device, stats=stats)
 
-    def reseed(states, mask):
-        states, r_max = _reseed_batch(states, layout, sub_k, mask, c_np, opts)
-        it = states.iter
+    def reseed(states, mask, iters):
+        """_reseed_batch of the instances of ``mask`` (B,) on their ranks;
+        (states, the largest rank observed on any rank)."""
+        states, r_max = _reseed_batch(states, layout, sub_k, mask[lo:hi],
+                                      c_np, opts)
+        if dp is not None:
+            r_max = int(dp.max(r_max))
         stats.reseeds.append((str(states.x.dtype).removeprefix("torch."),
-                              int(it.min()), int(it.max()), sub_k,
+                              int(iters.min()), int(iters.max()), sub_k,
                               int(np.sum(mask)), r_max))
         return states, r_max
 
@@ -566,7 +635,7 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
         need = running & (sc[:, 6] > max(10 * opts.subspace_tol, 1e-7))
         if not need.any():
             return states, None
-        states, r_max = reseed(states, need)
+        states, r_max = reseed(states, need, sc[:, 0])
         k2 = _sub_bucket(r_max + opts.polish_subspace_guard)
         if k2 == sub_k:
             return states, None
@@ -583,10 +652,10 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
             # escalation: every basis is rebuilt at the new k
             sub_k = k2
             new_opts = base_opts.replace(subspace_rank=k2)
-            states, _ = reseed(states, np.ones(B, bool))
-        return states, runner(states, new_opts)
+            states, _ = reseed(states, np.ones(B, bool), sc[:, 0])
+        return states, runner(sc[:, 0].min(), new_opts)
 
-    run_chunk, fetch = runner(states, phase_opts)
+    run_chunk, fetch = runner(0, phase_opts)
     # on-device convergence logic: the chunk only sets how often the host
     # looks (batch.py:420-424)
     chunk = opts.chunk_iters or (
@@ -597,16 +666,18 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
     # the first reseed comes early (batch.py:426-437)
     first_chunk = {"todo": bool(sub_k)}
 
-    def step(states, ops, running):
-        iters_now = states.iter.cpu().numpy()
-        k0 = int(iters_now[running].min()) if running.any() else int(
-            iters_now.min())
+    def step(states, ops, running, iters):
+        """One chunk of every rank's running instances, to the least
+        iteration of the running instances (of all, if none runs) plus a
+        chunk."""
+        k0 = int(iters[running].min()) if running.any() else int(iters.min())
         n = chunk
         if first_chunk["todo"]:
             first_chunk["todo"] = False
             n = min(chunk, 128)
         return run_chunk(states, ops, min(k0 + n, budget.max_iter))
 
+    iters = np.zeros(B)  # every instance starts at iteration 0
     # ---- phase 1 (hybrid only): the f32 race, per-instance stall tracking
     if hybrid:
         t_race = time.time()
@@ -615,8 +686,8 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
         stall = np.zeros(B, np.int64)
         ready = np.zeros(B, bool)
         while True:
-            states = step(states, ops, ~ready)
-            sc = fetch(states)
+            states = step(states, ops, ~ready, iters)
+            sc, elapsed = gather(fetch(states))
             iters = sc[:, 0].astype(int)
             status = sc[:, 1].astype(int)
             states, new_runner = maybe_reseed(states, sc, ~ready, phase_opts)
@@ -630,8 +701,7 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
             near = (gap <= F * opts.tol_gap) & (feas <= F * opts.tol_feasibility)
             ready |= (status != 0) | near | (stall >= 3) | (
                 iters >= budget.max_iter)
-            elapsed = time.time() - t0
-            if opts.log_verbose:
+            if verbose:
                 print(f"  [batch/f32] iter>={iters.min()} ready="
                       f"{int(ready.sum())}/{B} max_gap={np.nanmax(gap):.2e} "
                       f"t={elapsed:.1f}s")
@@ -641,10 +711,11 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
 
         # hand over: cast to f64, clear statuses; restart the step machinery
         # of stalled or non-finite instances (batch.py:477-542)
-        sc = fetch(states)
+        sc, _ = gather(fetch(states))
         near_now = (sc[:, 2] <= F * opts.tol_gap) & (
             sc[:, 3] <= F * opts.tol_feasibility)
-        bad = ((stall >= 3) & ~near_now) | ~np.isfinite(sc[:, 2:6]).all(axis=1)
+        bad = (((stall >= 3) & ~near_now)
+               | ~np.isfinite(sc[:, 2:6]).all(axis=1))[lo:hi]
         states = _cast_state(states, torch.float64)
         if bad.any():
             nan_rows = ~torch.isfinite(states.x).all(dim=1)
@@ -677,33 +748,33 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
         if sub_k:
             # an f64 subspace phase: re-estimate the bucket from the
             # current iterates and seed exact bases first (batch.py:523-541)
-            states, r_max = reseed(states, np.ones(B, bool))
+            states, r_max = reseed(states, np.ones(B, bool), iters)
             k2 = _sub_bucket(r_max + opts.polish_subspace_guard)
             if k2 and k2 != sub_k and any(k2 < side // 2
                                           for side in layout.sdp_sides):
                 sub_k = k2
-                states, _ = reseed(states, np.ones(B, bool))
+                states, _ = reseed(states, np.ones(B, bool), iters)
             phase_opts = opts.replace(subspace_rank=sub_k,
                                       subspace_accept_always=True)
-        run_chunk, fetch = runner(states, phase_opts)
+        run_chunk, fetch = runner(iters.min(), phase_opts)
         stats.race_seconds = time.time() - t_race
 
-    # ---- final phase: the target dtype until every instance stops
+    # ---- final phase: the target dtype until every instance stops (the
+    # hand-over cleared every status)
     t_final = time.time()
     if not hybrid:
         first_chunk["todo"] = bool(sub_k)
+    running = np.ones(B, bool)
     while True:
-        running_now = states.status.cpu().numpy() == 0
-        states = step(states, ops, running_now)
-        sc = fetch(states)
+        states = step(states, ops, running, iters)
+        sc, elapsed = gather(fetch(states))
         status = sc[:, 1].astype(int)
         iters = sc[:, 0].astype(int)
-        elapsed = time.time() - t0
         running = status == 0
         states, new_runner = maybe_reseed(states, sc, running, phase_opts)
         if new_runner is not None:
             run_chunk, fetch = new_runner
-        if opts.log_verbose:
+        if verbose:
             print(f"  [batch] iter>={iters.min()} done={int((~running).sum())}"
                   f"/{B} max_gap="
                   f"{sc[running, 2].max() if running.any() else 0:.2e} "
@@ -717,17 +788,16 @@ def _solve_batch(problems, options, mesh, projection, device, stats, kwargs):
     # finalize per instance on the host (one transfer per field)
     states_np = convert.state_to_numpy(states)
     results = []
-    for i in range(B):
+    for i in range(hi - lo):
         st = int(states_np["status"][i])
         if st == 0:
             st = 3 if int(states_np["iter"][i]) >= budget.max_iter else 2
-        res = _cache_solution(
+        results.append(_cache_solution(
             convert.index_state(states_np, i), setups[i], opts, t0,
-            status=st, status_string=STATUS_STRINGS[st], square_form=False)
-        if st in (5, 6) and cert_opts.certificate_search:
-            # the ray search of a declared instance (batch.py:591-604): the
-            # single-instance driver, warm-started from the batch iterate,
-            # re-declares and runs its certificate search
-            res = solve(problems[i], cert_opts, warm_start=res, device=device)
-        results.append(res)
+            status=st, status_string=STATUS_STRINGS[st], square_form=False))
+    if dp is not None:
+        results = [r for part in dp.gather_objects(results) for r in part]
+    if cert_opts.certificate_search:
+        results = _search_declared(problems, results, cert_opts, dp, lo, hi,
+                                   device)
     return results

@@ -31,8 +31,14 @@ race -> f64 polish with its subspace entries, watchdog and logging;
 ``hybrid_precision=False`` one program; after a status 5 or 6 the
 certificate search (the ray search on the zeroed operands, its deadlines,
 the resume after a failed search and the demotion of an unproven
-declaration).  ``tp_shards`` raises ``NotImplementedError`` naming its
-ROADMAP item (A12); nothing falls back.
+declaration).  Under ``parallel.sharded.solve_sharded`` (``tp_shards >
+0`` with an active mesh) the same driver runs on every rank of the
+tensor-parallel axis: the operator sharded (``ops.linop.shard_linop``),
+the linesearch's trials on K2 and the sharded M' y, every host decision
+and clock reading rank 0's, only rank 0 printing or writing checkpoints,
+and the ranks' iterates checked against each other at the end.
+``tp_shards > 0`` with no active mesh is a plain solve, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -56,8 +62,10 @@ from .ops.cones import (
     psd_projection_block,
     psd_projection_small_batch,
 )
-from .ops.linop import build_linop, stack_vertical
+from .ops.linop import build_linop, shard_linop, stack_vertical
 from .options import Options
+from .parallel.dist import RankDivergence
+from .parallel.sharded import current_tp
 from .problem import (
     ConeLayout,
     ConicProblem,
@@ -454,11 +462,20 @@ def _any(a, b):
 
 def _linesearch(s: State, o: Operands, layout: ConeLayout, opts: Options):
     """Malitsky-Pock backtracking dual step (pdhg.jl:532-582): every trial
-    in one launch of kernel K15 (``kernels.linesearch_loop``)."""
-    y, Mty, theta, ps, _ = kernels.linesearch_loop(
-        o.M, s.y, s.Mx, s.Mx_old, o.b, o.h, s.y_old, s.Mty_old,
-        s.primal_step, s.primal_step_old, s.theta, s.beta, layout.p, layout.m,
-        opts.delta, opts.linsearch_decay, opts.max_linsearch_steps)
+    in one launch of kernel K15 (``kernels.linesearch_loop``).  K15 reads
+    the whole M' and cannot span ranks: under tensor parallelism the trials
+    run the sequence it is held to -- K2, the sharded M' y, K2's sq_dist
+    -- with rank 0's accept decision a trial."""
+    args = (o.M, s.y, s.Mx, s.Mx_old, o.b, o.h, s.y_old, s.Mty_old,
+            s.primal_step, s.primal_step_old, s.theta, s.beta, layout.p,
+            layout.m, opts.delta, opts.linsearch_decay,
+            opts.max_linsearch_steps)
+    tp = current_tp(opts)
+    if not tp.sharded:
+        y, Mty, theta, ps, _ = kernels.linesearch_loop(*args)
+    else:
+        y, Mty, theta, ps, _ = kernels.linesearch_loop_plain(
+            *args, decide=tp.flag)
     return s.replace(
         y=y,
         Mty=Mty,
@@ -769,12 +786,14 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
     ``run_chunk(s, o, chunk_end)`` iterates until the status flips or the
     iteration count reaches ``chunk_end``; it reads the status once per
     iteration (with the target ranks of the Lanczos blocks, where there
-    are any).  ``fetch(s)`` returns the 14 host-monitored scalars as one
-    NumPy array (one device-to-host copy)."""
+    are any; under tensor parallelism rank 0's).  ``fetch(s)`` returns the
+    14 host-monitored scalars as one NumPy array (one device-to-host
+    copy)."""
     sides_arr = torch.tensor(layout.sdp_sides or (1,), dtype=torch.int32,
                              device=device)
     singles = block_plan(layout, opts).singles
     nb = max(len(layout.sdp_sides), 1)
+    tp = current_tp(opts)
 
     def lanczos_blocks(s: State) -> list:
         # the Lanczos branch's target rank is a host decision, read with
@@ -794,9 +813,10 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
         host."""
         lz = lanczos_blocks(s)
         if lz:
-            v = torch.cat([s.iter.reshape(1), s.target_rank[lz]]).tolist()
+            v = tp.values(torch.cat([s.iter.reshape(1),
+                                     s.target_rank[lz]]).tolist())
             return int(v[0]), host_ranks(lz, v[1:])
-        return int(s.iter), None
+        return int(tp.values([int(s.iter)])[0]), None
 
     def iteration(s: State, o: Operands, k: int | None = None,
                   target_ranks: tuple | None = None) -> State:
@@ -820,10 +840,11 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
             s = iteration(s, o, k, tr)
             k += 1
             if lz:
-                v = torch.cat([s.status.reshape(1), s.target_rank[lz]]).tolist()
+                v = tp.values(torch.cat([s.status.reshape(1),
+                                         s.target_rank[lz]]).tolist())
                 st, tr = int(v[0]), host_ranks(lz, v[1:])
             else:
-                st = int(s.status)
+                st = int(tp.values([int(s.status)])[0])
             if st != 0:
                 break
         return s
@@ -851,20 +872,6 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
         return vals.cpu().numpy()
 
     return run_chunk, iteration, fetch
-
-
-# ---------------------------------------------------------------------------
-# What the slice supports
-# ---------------------------------------------------------------------------
-
-
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
-def _check_slice_options(opts: Options) -> None:
-    if opts.tp_shards:
-        _unsupported("tp_shards", "A12")
 
 
 def _row_norm_spread(setup) -> float:
@@ -900,7 +907,8 @@ def _probe_score(res: Result, problem) -> float:
     return score if np.isfinite(score) else float("inf")
 
 
-def _solve_with_beq_probe(problem, opts: Options, t0: float, device) -> Result:
+def _solve_with_beq_probe(problem, opts: Options, t0: float,
+                          device) -> Result:
     """block_equilibration="auto" (solver.py:2378-2501): race the default
     and the block-equilibrated pipelines for a short probe, then finish
     with the winner, warm-started from its probe iterate.
@@ -914,7 +922,10 @@ def _solve_with_beq_probe(problem, opts: Options, t0: float, device) -> Result:
     decides.  The final solve gets the time that is left.  An arm that
     raises is dropped, as in the JAX package, unless the error is a
     ``kernels.KernelError`` (a kernel that does not build or launch),
-    which propagates."""
+    which propagates, as does a divergence of tensor-parallel ranks.  The
+    clock is ``_clock(opts)`` and the stop and winner decisions are
+    ``current_tp(opts)``'s (rank 0's under tensor parallelism)."""
+    tp, now = current_tp(opts), _clock(opts)
     margin = max(opts.block_equilibration_probe_margin, 1.0)
     probe_t = max(min(0.05 * opts.time_limit, 20.0), 2.0)
     base = dict(certificate_search=False, log_verbose=False,
@@ -923,7 +934,7 @@ def _solve_with_beq_probe(problem, opts: Options, t0: float, device) -> Result:
     scores = {False: float("inf"), True: float("inf")}
     depth = int(opts.block_equilibration_probe_iters)
     for _round in range(4):
-        round_t = max(min(probe_t, opts.time_limit - (time.time() - t0)), 1.0)
+        round_t = max(min(probe_t, opts.time_limit - (now() - t0)), 1.0)
         for variant in (False, True):
             prev = arms[variant]
             warm = prev if prev is not None and prev.status in (2, 3) else None
@@ -933,7 +944,7 @@ def _solve_with_beq_probe(problem, opts: Options, t0: float, device) -> Result:
                     opts.replace(block_equilibration=variant, max_iter=depth,
                                  time_limit=round_t, **base),
                     warm_start=warm, device=device)
-            except kernels.KernelError:
+            except (kernels.KernelError, RankDivergence):
                 raise  # a kernel that does not build or launch is a fault
             except Exception as e:  # a probe must never kill the solve
                 if opts.log_verbose:
@@ -949,9 +960,8 @@ def _solve_with_beq_probe(problem, opts: Options, t0: float, device) -> Result:
         solved = any(r is not None and r.status == 1 for r in arms.values())
         separated = (scores[True] * margin < scores[False]
                      or scores[False] * margin < scores[True])
-        if solved or separated:
-            break
-        if time.time() - t0 > 0.25 * opts.time_limit:
+        stop = solved or separated or now() - t0 > 0.25 * opts.time_limit
+        if tp.flag(stop):
             break
         depth *= 2
     # an arm that solved wins; two arms still far from converging make
@@ -965,21 +975,22 @@ def _solve_with_beq_probe(problem, opts: Options, t0: float, device) -> Result:
         winner = True
     else:
         winner = bool(scores[True] * margin < scores[False])
+    winner = tp.flag(winner)
     wres = arms[winner]
     if opts.log_verbose:
         print(f"  [beq probe] -> "
               f"{'block-equilibrated' if winner else 'default'}")
     if opts.log_verbose or opts.timer_verbose:
-        print(f"  [beq probe] probe consumed {time.time() - t0:.1f}s before "
+        print(f"  [beq probe] probe consumed {now() - t0:.1f}s before "
               "the main solve")
     if wres is not None and wres.status == 1:
-        wres.time = time.time() - t0
+        wres.time = now() - t0
         return wres
     warm = None
     if (wres is not None and wres.status in (2, 3)
             and np.isfinite(scores[winner])):
         warm = wres
-    remaining = opts.time_limit - (time.time() - t0)
+    remaining = opts.time_limit - (now() - t0)
     return solve(problem, opts.replace(block_equilibration=winner,
                                        time_limit=max(remaining, 1.0)),
                  warm_start=warm, device=device)
@@ -1004,7 +1015,9 @@ def _estimate_subspace(state: State, layout: ConeLayout, opts: Options, c_host):
     relative-threshold rank and exact basis (solver.py:1047-1096).
 
     Returns (k_bucket, r_obs, specs) with specs = [(side, V, r_blk)];
-    k_bucket == 0 means the observed rank is too large for subspace mode."""
+    k_bucket == 0 means the observed rank is too large for subspace mode.
+    Under tensor parallelism (k_bucket, r_obs) are rank 0's; each rank
+    seeds from its own replicated basis."""
     x_host = state.x.cpu().numpy().astype(np.float64) - float(state.primal_step) * (
         state.Mty.cpu().numpy().astype(np.float64) + np.asarray(c_host, np.float64)
     )
@@ -1026,7 +1039,8 @@ def _estimate_subspace(state: State, layout: ConeLayout, opts: Options, c_host):
     r_obs = max(r for _, _, r in specs)
     k = _sub_bucket(r_obs + opts.polish_subspace_guard)
     if not (k and any(k < side // 2 for side in layout.sdp_sides)):
-        return 0, r_obs, specs
+        k = 0
+    k, r_obs = (int(v) for v in current_tp(opts).values([k, r_obs]))
     return k, r_obs, specs
 
 
@@ -1160,14 +1174,18 @@ def _solve(problem, options: Options | None, device, kwargs,
     opts = options or Options()
     if kwargs:
         opts = opts.replace(**kwargs)
-    _check_slice_options(opts)
+    # a tensor-parallel solve: rank 0's clock, and only rank 0 prints
+    tp, now = current_tp(opts), _clock(opts)
+    if tp.rank != 0:
+        opts = opts.replace(log_verbose=False, timer_verbose=False,
+                            timer_file=False)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "solve: no CUDA card is available (torch.cuda.is_available() is "
             "false); pass device='cpu' for the plain PyTorch path")
 
-    t0 = time.time()
+    t0 = now()
     setup = (
         preprocess(problem, scale_objective=opts.scale_objective,
                    scale_rhs=opts.scale_rhs)
@@ -1210,6 +1228,8 @@ def _solve(problem, options: Options | None, device, kwargs,
     def make_operands(dt):
         M = build_linop(setup.A, setup.G, dt, device=device,
                         force=None if opts.linop == "auto" else opts.linop)
+        if tp.sharded:
+            M = shard_linop(M, tp)
         return convert.operands_from_numpy(
             M=M, b=setup.b, h=setup.h, c=setup.c, norm_b=setup.norm_b,
             norm_h=setup.norm_h, norm_c=setup.norm_c,
@@ -1224,6 +1244,14 @@ def _solve(problem, options: Options | None, device, kwargs,
     def runner(po: Options):
         run, _, fetch_ = make_chunk_runner(layout, po, device=device)
         return run, fetch_
+
+    # under TP: (iteration, checksums of x, y and the warm starts, and the
+    # rank's own fetched scalars) at every chunk end, held equal across the
+    # ranks at the end of the solve.  The split work is gathered into every
+    # rank's x and y; what a rank computes alone (the replicated eigh's
+    # ranks, a subspace step, the residuals on its own operands) shows in
+    # the others.
+    checks = []
 
     dtype = torch.float64 if opts.dtype == "float64" else torch.float32
     operands = make_operands(dtype)
@@ -1313,7 +1341,7 @@ def _solve(problem, options: Options | None, device, kwargs,
 
     def take_snapshot(score):
         t_snap = time.time()
-        best["t"] = t_snap
+        best["t"] = now()
         best["score"] = score
         host = convert.state_to_numpy(state)
         best["full"] = host
@@ -1348,7 +1376,7 @@ def _solve(problem, options: Options | None, device, kwargs,
     while True:
         k0 = int(state.iter)
         cap = budget.hard_cap if cert["mode"] else budget.max_iter
-        step_n = 1 if (time.time() - t0) >= budget.time_limit else chunk
+        step_n = 1 if (now() - t0) >= budget.time_limit else chunk
         target = min(k0 + step_n, cap)
         if not (target <= k0 and k0 > 0):
             target = max(target, k0 + 1)
@@ -1363,16 +1391,21 @@ def _solve(problem, options: Options | None, device, kwargs,
             chunk_counts["f32" if phase32 else "f64"] += 1
         t_sync = time.time()
         v = (fetch32 if phase32 else fetch)(state)
+        if tp.sharded:
+            # every rank decides on rank 0's scalars; its own go into the
+            # checks with its checksums
+            checks.append((int(v[0]), _checksums(state) + v.tolist()))
+        v = np.asarray(tp.values(v.tolist()))
         sc = {name: int(x) if name in _INT_SCALARS else float(x)
               for name, x in zip(_SCALARS, v)}
         timers["host sync"] += time.time() - t_sync
         k, st = sc["iter"], sc["status"]
-        elapsed = time.time() - t0
+        elapsed = now() - t0
 
         if not cert["mode"] and k > 0:
             score = max(sc["gap"], sc["feas"])
             if (np.isfinite(score) and score < 0.95 * best["score"]
-                    and time.time() - best["t"] >= 2.0):
+                    and now() - best["t"] >= 2.0):
                 take_snapshot(score)
 
         if opts.log_verbose and k >= log_next:
@@ -1387,8 +1420,9 @@ def _solve(problem, options: Options | None, device, kwargs,
         # (solver.py:1721-1735)
         if (opts.checkpoint_path and opts.checkpoint_freq > 0
                 and not cert["mode"] and k >= ckpt_next):
-            save_checkpoint(opts.checkpoint_path, state, phase32,
-                            square_form=layout.square_form)
+            if tp.rank == 0:  # one writer
+                save_checkpoint(opts.checkpoint_path, state, phase32,
+                                square_form=layout.square_form)
             ckpt_next = k + opts.checkpoint_freq
 
         if phase32:
@@ -1430,8 +1464,8 @@ def _solve(problem, options: Options | None, device, kwargs,
                 entered_polish = False
                 if (opts.polish_subspace and opts.subspace_rank == 0
                         and layout.sdp_sides):
-                    k_sub, r_obs, specs = _estimate_subspace(state, layout,
-                                                             opts, setup.c)
+                    k_sub, r_obs, specs = _estimate_subspace(
+                        state, layout, opts, setup.c)
                     if k_sub:
                         run_chunk, fetch = runner(
                             opts.replace(subspace_rank=k_sub, **polish_fb))
@@ -1456,8 +1490,8 @@ def _solve(problem, options: Options | None, device, kwargs,
                 # past the cold start: size an f32 subspace program from the
                 # observed rank and seed it with the exact top-k basis
                 sub32["tries"] += 1
-                k_sub, r_obs, specs = _estimate_subspace(state, layout, opts,
-                                                         setup.c)
+                k_sub, r_obs, specs = _estimate_subspace(
+                    state, layout, opts, setup.c)
                 if not k_sub:
                     sub32["retry_at"] = k + max(opts.race_subspace_warmup,
                                                 opts.convergence_check)
@@ -1519,8 +1553,8 @@ def _solve(problem, options: Options | None, device, kwargs,
                           "step restart")
                 k_cur = polish["k_sub"]
                 if k_cur:
-                    k_new, r_obs, specs = _estimate_subspace(state, layout,
-                                                             opts, setup.c)
+                    k_new, r_obs, specs = _estimate_subspace(
+                        state, layout, opts, setup.c)
                     if k_new > k_cur:
                         run_chunk, fetch = runner(
                             opts.replace(subspace_rank=k_new, **polish_fb))
@@ -1546,12 +1580,12 @@ def _solve(problem, options: Options | None, device, kwargs,
         # modified problem converged) resumes the solve from the state
         # before it while searches and budget remain, else demotes
         if in_cert and (k >= int(state.cert_wait_until) or st == 7):
-            done, found = _check_certificate(sc, state, setup_h, opts,
-                                             cert["mode"], st)
+            done, found = tp.obj(_check_certificate(sc, state, setup_h, opts,
+                                                    cert["mode"], st))
             ended_by = "a ray" if found else "its fail test" if done else ""
             if not done and k >= cert["deadline_k"]:
                 done, ended_by = True, f"the iteration deadline {cert['deadline_k']}"
-            elif not done and time.time() >= cert["deadline_t"]:
+            elif not done and now() >= cert["deadline_t"]:
                 done, ended_by = True, "the clock deadline"
             if done or st == 1:
                 if opts.log_verbose:
@@ -1593,7 +1627,7 @@ def _solve(problem, options: Options | None, device, kwargs,
             if opts.check_dual_feas:
                 _, dfeas = _dual_cone(_user_duals(state, equil, setup_h),
                                       setup_h, setup_h.c_orig)
-                if dfeas >= opts.tol_feasibility_dual:
+                if tp.obj(dfeas >= opts.tol_feasibility_dual):
                     # veto, and suppress re-declaration for a window
                     state = state.replace(
                         status=torch.zeros((), dtype=torch.int32, device=device),
@@ -1623,8 +1657,8 @@ def _solve(problem, options: Options | None, device, kwargs,
                 final_status, status_string = _unproven_status(
                     budget, k, cert["mode"])
                 break
-            lim_status, lim_string = _limit_status(sc, state, opts, budget, k,
-                                                   elapsed)
+            lim_status, lim_string = tp.obj(_limit_status(
+                sc, state, opts, budget, k, elapsed))
             if lim_status in (5, 6) and opts.certificate_search:
                 if cert["entries"] < _MAX_CERT_SEARCHES:
                     enter_search(lim_status, lim_string)
@@ -1650,6 +1684,8 @@ def _solve(problem, options: Options | None, device, kwargs,
             status_string = f"Iteration limit of {budget.max_iter} was hit"
             break
 
+    if tp.sharded:
+        tp.check_agreement(checks, "the checksums of x, y and the scalars")
     fields = convert.state_to_numpy(state)
     total_k = int(fields["iter"])
     if cert["found"]:
@@ -1702,6 +1738,16 @@ def _solve(problem, options: Options | None, device, kwargs,
     if opts.log_verbose:
         _log_final(res)
     return res
+
+
+def _checksums(state: State) -> list:
+    """[sum x, sum x^2, sum y, sum y^2, the sum of every warm start] in
+    f64: what the ranks of a tensor-parallel solve compare at every chunk
+    end, with their fetched scalars."""
+    x, y = state.x.double(), state.y.double()
+    warm = sum(w.double().sum() for w in state.warm)
+    return torch.stack([x.sum(), (x * x).sum(), y.sum(), (y * y).sum(),
+                        warm]).tolist()
 
 
 def _step_reset(opts: Options, device, tau_p: float, tau_d: float,
@@ -1818,14 +1864,22 @@ def _enter_certificate_mode(st: int, o: Operands, state: State,
     return o, state
 
 
+def _clock(opts: Options):
+    """The clock of a solve under ``opts``: rank 0's under tensor
+    parallelism (``Axis.now``), else this module's ``time.time``."""
+    tp = current_tp(opts)
+    return tp.now if tp.sharded else time.time
+
+
 def _set_cert_deadlines(cert: dict, state: State, opts: Options, k: int):
     """One search's deadlines (solver.py:2664-2680): twice its monitoring
     wait in iterations, and 10 % of the time limit clamped to [5, 600] s
-    (60 s without a finite limit); crossing either fails the search."""
+    (60 s without a finite limit) on the solve's clock; crossing either
+    fails the search."""
     wait = int(state.cert_wait_until)
     cert["deadline_k"] = k + 2 * max(wait - k, 1)
     span_t = 0.1 * opts.time_limit if np.isfinite(opts.time_limit) else 60.0
-    cert["deadline_t"] = time.time() + max(min(span_t, 600.0), 5.0)
+    cert["deadline_t"] = _clock(opts)() + max(min(span_t, 600.0), 5.0)
 
 
 def _check_certificate(sc, state: State, setup_h: SetupProblem,

@@ -173,19 +173,27 @@ def _scaled_rows():
 @pytest.mark.parametrize("case, item", [
     ("mesh", "B14"), ("tp_shards", "A12")])
 def test_out_of_slice_raises(case, item):
-    """Every mode outside the slice raises, naming its ROADMAP item.  (The
+    """The two modes that raised until their ROADMAP items were ported
+    (B14, A12): a mesh without the batch axis raises ValueError, as the
+    JAX driver's device_put does (instances over a real mesh:
+    tests/test_torch_batch_mesh.py); ``tp_shards`` with no active
+    tensor-parallel mesh is the plain batch, as in the JAX package.  (The
     polar projection and the equilibration options, which raised A11 and
     A6, run since they were ported: tests/test_torch_batch_large.py; the
     COO operator, SOC blocks and any layout of blocks too:
     tests/test_torch_batch_layouts.py; checkpoint_path, A10:
     tests/test_torch_checkpoint.py.)"""
-    problems, kw = _problems(tx, B=2), {}
+    problems = _problems(tx, B=2)
+    opts = tx.Options(hybrid_precision=False)
     if case == "mesh":
-        kw["mesh"] = object()
-    elif case == "tp_shards":
-        kw["options"] = tx.Options(tp_shards=2)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tx.solve_batch(problems, device="cpu", **kw)
+        with pytest.raises(ValueError, match="no axis 'batch'"):
+            tx.solve_batch(problems, opts, mesh=object(), device="cpu")
+        return
+    plain = tx.solve_batch(problems, opts, device="cpu")
+    got = tx.solve_batch(problems, opts.replace(tp_shards=2), device="cpu")
+    for g, w in zip(got, plain):
+        assert (g.status, g.iter, g.objval) == (w.status, w.iter, w.objval)
+        np.testing.assert_array_equal(g.primal, w.primal)
 
 
 def test_per_instance_operators_solve():

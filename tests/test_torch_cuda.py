@@ -1773,3 +1773,69 @@ def test_f64_program_after_nan_memory(cuda, square_form):
         scale = max(float(np.abs(a[name]).max()), 1.0)
         assert np.isfinite(b[name]).all(), name
         assert float(np.abs(a[name] - b[name]).max()) <= 1e-9 * scale, name
+
+
+@pytest.mark.parametrize("side", [5, 50, 250])
+@pytest.mark.parametrize("pair", ["f64", "f32", "f64_f32"])
+def test_psd_reconstruct_matches_plain(cuda, side, pair):
+    """K18 against its twin (max |err| within 1e-13 (f64) or 1e-6 of
+    ||Xp||_F), and its row slabs of 2 and 3 ranks the rows of its whole
+    product bit for bit."""
+    from proxsdp_tpu_torch.parallel.dist import split
+
+    dt = torch.float32 if pair == "f32" else torch.float64
+    out = torch.float64 if pair == "f64" else torch.float32
+    rng = np.random.default_rng(side)
+    A = rng.standard_normal((side, side))
+    w, V = torch.linalg.eigh(torch.tensor(A + A.T, dtype=dt, device=cuda))
+    kernels.reset_launch_counts()
+    full = kernels.psd_reconstruct(V, w, 0, side, out)
+    assert kernels.kernel_launches()["psd_reconstruct"] == 1
+    want = kernels.psd_reconstruct_plain(V, w, 0, side, out)
+    assert full.dtype == out
+    fro = float(torch.linalg.norm(want.double()))
+    err = float((full.double() - want.double()).abs().max())
+    assert err <= (1e-13 if pair == "f64" else 1e-6) * fro, err / fro
+    for parts in (2, 3):
+        slabs = [kernels.psd_reconstruct(V, w, lo, hi, out)
+                 for lo, hi in split(side, parts)]
+        assert torch.equal(torch.cat(slabs), full)
+
+
+def _sharded_job(mesh):
+    """A rank of test_sharded_solves_on_card: solve_sharded of a side-40
+    max-cut under the default Options(), and solve_batch of 8 side-10
+    instances over an axis named "batch" of the same ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from proxsdp_tpu_torch.parallel.sharded import solve_sharded
+
+    problem, _ = maxcut_problem(random_graph_weights(0, 40))
+    res = solve_sharded(problem, mesh, tx.Options())
+    bmesh = DeviceMesh(mesh.device_type, mesh.mesh.tolist(),
+                       mesh_dim_names=("batch",))
+    batch = tx.solve_batch([maxcut_problem(random_graph_weights(s, 10))[0]
+                            for s in range(8)],
+                           tx.Options(hybrid_precision=False), mesh=bmesh)
+    return res.status, res.objval, [(r.status, r.objval) for r in batch]
+
+
+def test_sharded_solves_on_card(cuda):
+    """Two ranks sharing the card over gloo: the tensor-parallel default
+    solve at the unsharded card solve's answer (1e-4 (1 + |obj|)), the
+    mesh batch at the unsharded card batch's (1e-9), on both ranks."""
+    from proxsdp_tpu_torch.parallel.dist import spawn
+
+    outs = spawn(_sharded_job, 2, device_type="cuda", backend="gloo",
+                 threads=0)
+    problem, _ = maxcut_problem(random_graph_weights(0, 40))
+    want = tx.solve(problem, tx.Options())
+    batch = tx.solve_batch([maxcut_problem(random_graph_weights(s, 10))[0]
+                            for s in range(8)],
+                           tx.Options(hybrid_precision=False))
+    assert outs[0] == outs[1]
+    st, obj, got = outs[0]
+    assert st == want.status == 1
+    assert abs(obj - want.objval) <= 1e-4 * (1 + abs(want.objval))
+    for (s, o), r in zip(got, batch):
+        assert s == r.status == 1 and abs(o - r.objval) <= 1e-9

@@ -101,6 +101,7 @@ def test_import_leaves_jax_out():
         "proxsdp_tpu_torch.equilibration, proxsdp_tpu_torch.models.randsdp, "
         "proxsdp_tpu_torch.ops.cones, proxsdp_tpu_torch.ops.linop, "
         "proxsdp_tpu_torch.ops.tri, proxsdp_tpu_torch.parallel.batch, "
+        "proxsdp_tpu_torch.parallel.sharded, proxsdp_tpu_torch.parallel.dist, "
         "proxsdp_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'proxsdp_tpu' or m.startswith('proxsdp_tpu.')]\n"
@@ -143,8 +144,15 @@ def _problem(pkg, name):
     ids=["tp_shards"],
 )
 def test_unsupported_raises(problem, options):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.solve(_problem(tx, problem), options, device="cpu")
+    """``tp_shards``, which raised until tensor parallelism was ported
+    (ROADMAP A12), is a plain solve with no active mesh, as in the JAX
+    package (the sharded solve: tests/test_torch_sharded.py)."""
+    got = tx.solve(_problem(tx, problem), options, device="cpu")
+    want = tx.solve(_problem(tx, problem), options.replace(tp_shards=0),
+                    device="cpu")
+    assert (got.status, got.iter, got.objval) == (want.status, want.iter,
+                                                  want.objval)
+    np.testing.assert_array_equal(got.primal, want.primal)
 
 
 @pytest.mark.parametrize(

@@ -79,17 +79,22 @@
    operators, K9 at I's (32, 19, 19) stack;
 9. phase H: the Lovasz-theta SDP of a random graph on 300 vertices with
    4374 edges (SDPLIB theta6's n and m; square form n = 90,000, the COO
-   operator, a row-norm spread of 24.5), two solves.  H1, the default
+   operator, a row-norm spread of 24.5), three solves.  H1, the default
    Options(chunk_iters=256): the block-equilibration probe (its arms
-   stop at the 20 s clock), then the winner's solve; the objective
-   within 2e-4 (1 + |obj|) of the JAX package's answer on the arm that
-   won (the equilibrated arm's answers span H_EQ_REF_RANGE as the clock
-   moves); the probe's rounds and winner printed beside the JAX run's.
-   H2, block_equilibration_probe_iters=500 (the arms stop at that
-   depth): the JAX run's rounds and winner (the equilibrated arm), the
-   objective within 2e-4 (1 + |obj|) of its.  Both: status 1, tr X = 1
-   and X_ij = 0 on the edges within the solver's feasibility bound, X
-   PSD, no probe arm raised; K3 launched with a row scale;
+   stop at the 20 s clock, or solve inside it), then the winner's solve;
+   the objective within 2e-4 (1 + |obj|) of the JAX package's answer on
+   the arm that won (the equilibrated arm's answers span H_EQ_REF_RANGE
+   as the clock moves; a default arm that solved inside its round, the
+   JAX answers over f32 race ends, H_UNCUT_REF_RANGE); the probe's
+   rounds and winner printed beside the JAX run's.  H2,
+   block_equilibration_probe_iters=500 (the arms stop at that depth):
+   the JAX run's rounds and winner (the equilibrated arm), the objective
+   within 2e-4 (1 + |obj|) of its.  H3, at 2000 (below both arms' solve
+   points): the objective within 2e-4 (1 + |obj|) of the JAX answer of
+   the arm that won, a winner other than the JAX run's printed.  All:
+   status 1, tr X = 1 and X_ij = 0 on the edges within the solver's
+   feasibility bound, X PSD, no probe arm raised; K3 launched with a row
+   scale;
 10. phase I: a seeded program with every block kind (32 PSD blocks of
    side 19, one of side 200, 128 SOC blocks of length 16, 400 LP
    coordinates, 600 equality rows; conic_program_data): 300 iterations
@@ -179,12 +184,36 @@
    with K18's launches a rank, collectives and ms an iteration; and one
    solve_sharded at world size 1 over NCCL in this process.
 
+16. phase P: the iteration's control.  K19 (``kernels.control``: the
+   residual formulas, the ring writes and every decision of _control),
+   K20a and K20b (``kernels.restart_average`` and ``restart_adopt``: the
+   restart's running sums and reductions, the jump to the average) and
+   K21 (``kernels.freeze_rows``: the batch's masked freeze) against
+   their plain twins on the card: on the states phases C and D recorded
+   (their solves' 1st, 100th and last iterations; K19 fed K3's pass-1
+   partials, as on the path) and on every crafted branch state of
+   ``kernels.control_cases`` (b1, b2 with and without its reset, fire3
+   and fire4 under both line_search_flag and step_balance modes,
+   statuses 1, 5, 6 and 7, a NaN dual objective, the certificate wait,
+   a restart epoch with and without the jump) on the side-250 max-cut
+   and a small program with SOC blocks and inequality rows, in f64 and
+   f32, single and as batches.  K19, K20b and K21 bit for bit, K20a's
+   averages and reductions within 1e-15 (f64) / 1e-6 (f32) relative;
+   prints the branches that fired and the CUDA kernels a call of the
+   scalar step (at most 4: K3's first pass, K20a, K19, K20b).
+
+    python3 chip_smoke.py --phase-p
+
+builds the kernels, runs phase C's default solve and phase D's batch
+solve once each to record their states, then phase P alone with its
+kernel rows.
+
     python3 chip_smoke.py --phase-h
 
 builds the kernels and runs phase H alone, then the equilibrated arm's
-path of H1 with the arm capped at 10, 15, 20, 25 and 30 s (as the probe
-runs it when that arm wins on a slower or faster host), each answer held
-to H1's bound for that arm.
+path through the default options' probe with the arm capped at 10, 15,
+20, 25 and 30 s (as the 20 s clock cuts it on a slower or faster host),
+each answer held to 2e-4 (1 + |obj|) of H_EQ_REF_RANGE.
 
     python3 chip_smoke.py --phase-k
 
@@ -633,6 +662,44 @@ H_REF_PROBE = [(6000, 4.031e-04, 5.380e-04)]
 H_REF_WINNER = "default"
 H_EQ_REF_RANGE = (-63.64084599702091, -63.60832434764272)
 H_OPT_OBJ = -63.610366670728084
+# H_UNCUT_REF_RANGE: the default arm solved inside its round (no warm
+# solve; the port's arm does on the card since B8): the JAX package's
+# answers to that arm uncut (tools/theta_uncut_arm.py --jax), each from
+# one f32 race end -- its own race's, or the hand-over of a port run
+# (--dump-race) put in place of its own (--race): the race hands over
+# where its f32 rounding sends it, and the f64 polish, whose subspace step
+# keeps an f32 basis, stops where that hand-over and its own rounding send
+# it.  From one hand-over (the card's) the card, the port on the CPU and
+# the JAX package part pairwise at one rate (their objectives 1e-8
+# relative apart at the first iteration, 1e-4 by the 73rd-77th) and stop
+# at -63.67665, -63.63542 and -63.63628 (PERF.md, PR 14; --series,
+# --compare).  tests/test_torch_theta_probe.py
+# re-derives the port's CPU race's answer; the JAX races' hand-overs move
+# with its clock (its chunks follow measured rates).
+H_UNCUT_REF_ANSWERS = {
+    "the JAX race, one thread": -63.61380147784672,
+    "the JAX race, eight threads": -63.624536732692235,
+    "the port's CPU race": -63.667417029129396,
+    "the port's card race": -63.63627938359218,
+}
+H_UNCUT_REF_RANGE = (min(H_UNCUT_REF_ANSWERS.values()),
+                     max(H_UNCUT_REF_ANSWERS.values()))
+# H3: Options(chunk_iters=256, block_equilibration_probe_iters=
+# H3_PROBE_ITERS) on a frozen clock (tests/test_torch_theta_probe.py keeps
+# these true): both arms cut at their depth, below both arms' solve points,
+# so the probe compares cut arms on every host, as H1's 20 s clock did
+# before the port's arms solved inside it.  The JAX run's equilibrated arm
+# wins; on the card the default arm scores better at the cut (its f32 race
+# rounds otherwise), so H3_REF_DEFAULT_OBJ is the JAX default arm cut at
+# H3_PROBE_ITERS, then warm-solved, as the probe does when it wins.  Cut,
+# either arm's answer barely moves: the default arm cut at 1000-4000
+# iterations then warm-solved gave -63.62448 to -63.62505.
+H3_PROBE_ITERS = 2000
+H3_REF_OBJ = -63.624413730718324
+H3_REF_ITERS = 1463
+H3_REF_PROBE = [(2000, 2.298e-03, 7.466e-04)]
+H3_REF_WINNER = "block-equilibrated"
+H3_REF_DEFAULT_OBJ = -63.62461537754403
 # H2: block_equilibration_probe_iters=H2_PROBE_ITERS, the arms stopped at
 # their depth (~14 s each in the JAX run, well under the card's): one
 # round, the equilibrated arm, and its warm solve
@@ -1954,7 +2021,7 @@ def profile_steps(torch, kernels, setups, opts, steps=PROFILE_STEPS, sub_k=0):
             wall * 1e3 / max(done, 1), per_launch)
 
 
-def phase_d(torch, kernels, smi, problems, setups, brows):
+def phase_d(torch, kernels, smi, problems, setups, brows, recorder=None):
     """One solve_batch run of the BATCH_SIZE side-16 max-cut instances at
     Options(tol_gap=1e-4, tol_feasibility=1e-4), timed, with the launch
     counts set to 0 just before it and read just after (no warm-up
@@ -1970,7 +2037,8 @@ def phase_d(torch, kernels, smi, problems, setups, brows):
     kernels.reset_launch_counts()
     stats = tbatch.BatchStats()
     t0 = time.perf_counter()
-    res = solve_batch(probs, opts, stats=stats)
+    with recorder or contextlib.nullcontext():
+        res = solve_batch(probs, opts, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     entries = dict(kernels.launch_counts)
@@ -2033,6 +2101,15 @@ def phase_d(torch, kernels, smi, problems, setups, brows):
     for row in brows:
         row["launches"] = entries[row["name"].split(" ")[0]]
         check(row["launches"] > 0, f"{row['name']} launched no kernel in D")
+    for name in ("control_batch", "restart_average_batch",
+                 "restart_adopt_batch", "freeze_rows"):
+        check(sum(n for e, n in entries.items()
+                  if e.rsplit("_", 1)[0] == name) > 0,
+              f"D: {name} launched no kernel")
+    print(f"phase D: K19's batch entry point {entries['control_batch_f32']} "
+          f"f32 / {entries['control_batch_f64']} f64 launches in "
+          f"{stats.steps} program steps")
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -3018,30 +3095,42 @@ def theta_checks(label, res, log, X, edges, opts, ref, bound_desc, ok_obj):
 
 
 def phase_h(torch, kernels, smi):
-    """The Lovasz-theta SDP at SDPLIB theta6's shape, two solves.  H1: the
-    default Options(chunk_iters=256): the row-norm spread 24.5 sends it
-    through the block-equilibration probe (both arms, each round capped
+    """The Lovasz-theta SDP at SDPLIB theta6's shape, three solves.  H1:
+    the default Options(chunk_iters=256): the row-norm spread 24.5 sends
+    it through the block-equilibration probe (both arms, each round capped
     at 20 s, so the clock picks the depths and the winner; a winner other
     than the JAX run's is printed as a finding), then the winner's solve,
     warm-started from its arm.  The objective is held to the JAX package's
     answer on the arm that won: the default arm's within 2e-4 (1 + |obj|)
-    of H_REF_OBJ; the equilibrated arm's, whose JAX answers move with the
+    of H_REF_OBJ, or, where that arm solved inside its round, of
+    H_UNCUT_REF_RANGE (its JAX answers move with where its f32 race
+    hands over); the equilibrated arm's, whose JAX answers move with the
     depth its arm stops at, within 2e-4 (1 + |obj|) of H_EQ_REF_RANGE.
     H2: block_equilibration_probe_iters=H2_PROBE_ITERS, shallow enough
     that the arms stop at their depth, not the clock, here and in the JAX
     run: the probe's rounds and winner (the equilibrated arm) equal to
     the JAX run's and the objective within 2e-4 (1 + |obj|) of H2_REF_OBJ.
-    Both: status 1, tr X = 1 and X_ij = 0 on the edges within the solver's
+    H3: H3_PROBE_ITERS, both arms cut below their solve points (see
+    H3_PROBE_ITERS): the objective within 2e-4 (1 + |obj|) of the JAX
+    answer of the arm that won (H3_REF_OBJ, the equilibrated arm's, or
+    H3_REF_DEFAULT_OBJ, the default arm's), a winner other than the JAX
+    run's printed as a finding (the arms' scores at the cut move with
+    the f32 race's rounding).
+    All: status 1, tr X = 1 and X_ij = 0 on the edges within the solver's
     feasibility bound, lambda_min(X) >= -1e-6 ||X||_F, no probe arm
     raised.  Returns (launches by entry point, by entry point and shape,
-    K3's launches with a row scale by dtype), H1's and H2's summed."""
+    K3's launches with a row scale by dtype), the three solves' summed."""
     import proxsdp_tpu_torch as tx
 
     edges = theta_graph()
     problem, Xidx = build_theta(tx, edges)
     entries, shapes, rs = collections.Counter(), collections.Counter(), {}
+    refs = {"H1": (H_REF_PROBE, H_REF_WINNER, H_REF_ITERS),
+            "H2": (H2_REF_PROBE, H2_REF_WINNER, H2_REF_ITERS),
+            "H3": (H3_REF_PROBE, H3_REF_WINNER, H3_REF_ITERS)}
     for label, kw in (("H1", {}),
-                      ("H2", {"block_equilibration_probe_iters": H2_PROBE_ITERS})):
+                      ("H2", {"block_equilibration_probe_iters": H2_PROBE_ITERS}),
+                      ("H3", {"block_equilibration_probe_iters": H3_PROBE_ITERS})):
         opts = tx.Options(chunk_iters=256, log_verbose=True, log_freq=10 ** 9,
                           timer_verbose=True, **kw)
         res, wall, log, ent, shp, rsl = theta_solve(torch, kernels, tx,
@@ -3054,9 +3143,7 @@ def phase_h(torch, kernels, smi):
             if line.startswith("  [") or "total" in line or "status:" in line:
                 print("  | " + line.strip())
         rounds, winner = _probe_lines(log)
-        ref_probe, ref_winner, ref_iters = (
-            (H_REF_PROBE, H_REF_WINNER, H_REF_ITERS) if label == "H1"
-            else (H2_REF_PROBE, H2_REF_WINNER, H2_REF_ITERS))
+        ref_probe, ref_winner, ref_iters = refs[label]
         print(f"phase {label} (Lovasz theta, n = {THETA_N}, {THETA_EDGES} "
               f"edges, Options(chunk_iters=256"
               + "".join(f", {k}={v}" for k, v in kw.items())
@@ -3065,24 +3152,42 @@ def phase_h(torch, kernels, smi):
               f"wall {wall:.3f} s; "
               f"probe rounds (depth, default score, equilibrated score) "
               f"{rounds}, winner {winner}; JAX: {ref_probe}, winner "
-              f"{ref_winner}; K3 launches with a row scale {rsl}")
+              f"{ref_winner}; K3 launches with a row scale {rsl}; "
+              f"{res.objval - H_OPT_OBJ:+.3e} from the optimum")
         check(winner is not None, f"{label}: the probe did not run")
-        if label == "H1":
-            if winner != H_REF_WINNER or [r[0] for r in rounds] != [
-                    r[0] for r in H_REF_PROBE]:
-                print("phase H1 FINDING: the probe's rounds or winner differ "
-                      "from the JAX run's (each arm's round is capped at "
-                      "20 s: the clock decides where the arms stop)")
-            if winner == "default":
+        same = (winner == ref_winner
+                and [r[0] for r in rounds] == [r[0] for r in ref_probe])
+        if label == "H2":
+            check(same, f"H2: probe rounds {rounds}, winner {winner}; JAX: "
+                  f"{ref_probe}, winner {ref_winner}")
+            ref, lo, hi = H2_REF_OBJ, H2_REF_OBJ, H2_REF_OBJ
+        else:
+            if not same:
+                print(f"phase {label} FINDING: the probe's rounds or winner "
+                      "differ from the JAX run's "
+                      + ("(each arm's round is capped at 20 s: the clock "
+                         "decides where the arms stop)" if label == "H1" else
+                         "(the arms' scores at their cut move with the f32 "
+                         "race's rounding)")
+                      + "; the objective is held to the JAX answer of the "
+                      "arm that won")
+            # the default arm solved inside its round: no warm solve after
+            # the probe, the arm's own answer (H_UNCUT_REF_RANGE)
+            arm_its = re.findall(r"\(iterations (\d+) / ", log)
+            uncut = (winner == "default" and res.status == 1 and arm_its
+                     and int(arm_its[-1]) == res.iter
+                     and res.iter < rounds[-1][0])
+            if label == "H3":
+                ref = H3_REF_DEFAULT_OBJ if winner == "default" else H3_REF_OBJ
+                lo = hi = ref
+            elif uncut:
+                print("phase H1: the default arm solved inside its round "
+                      f"({res.iter} iterations), held to H_UNCUT_REF_RANGE")
+                ref, (lo, hi) = H_UNCUT_REF_RANGE, H_UNCUT_REF_RANGE
+            elif winner == "default":
                 ref, lo, hi = H_REF_OBJ, H_REF_OBJ, H_REF_OBJ
             else:
                 ref, (lo, hi) = H_EQ_REF_RANGE, H_EQ_REF_RANGE
-        else:
-            check(winner == H2_REF_WINNER
-                  and [r[0] for r in rounds] == [r[0] for r in H2_REF_PROBE],
-                  f"H2: probe rounds {rounds}, winner {winner}; JAX: "
-                  f"{H2_REF_PROBE}, winner {H2_REF_WINNER}")
-            ref, lo, hi = H2_REF_OBJ, H2_REF_OBJ, H2_REF_OBJ
         bound = 2e-4 * (1 + max(abs(lo), abs(hi)))
         theta_checks(label, res, log, res.primal[Xidx], edges, opts, ref,
                      f"{lo - bound!r} .. {hi + bound!r}, 2e-4 (1 + |obj|) "
@@ -3095,11 +3200,12 @@ def phase_h(torch, kernels, smi):
 
 
 def phase_h_arms(torch, kernels, smi, caps=(10.0, 15.0, 20.0, 25.0, 30.0)):
-    """The equilibrated arm's path through phase H1 as the probe runs it
+    """The equilibrated arm's path through the default options' probe
     when that arm wins -- the arm at depth 6000 capped at a clock, then the
     winner's warm solve -- once for each cap in ``caps`` (the 20 s of the
     probe, and the depths a slower or faster host would reach); each
-    answer against H1's bound for that arm and beside H_REF_OBJ and the
+    answer within 2e-4 (1 + |obj|) of H_EQ_REF_RANGE, the JAX arm's
+    answers as the clock moves, and printed beside H_REF_OBJ and the
     optimum.  Run by ``chip_smoke.py --phase-h``; fails if an answer
     misses the bound."""
     import proxsdp_tpu_torch as tx
@@ -3124,7 +3230,7 @@ def phase_h_arms(torch, kernels, smi, caps=(10.0, 15.0, 20.0, 25.0, 30.0)):
               f"then {res.iter if res is not arm else 0} in its warm solve: "
               f"status {res.status} objval {res.objval!r}, "
               f"{res.objval - H_REF_OBJ:+.3e} from H_REF_OBJ, "
-              f"{res.objval - H_OPT_OBJ:+.3e} from the optimum; H1's bound "
+              f"{res.objval - H_OPT_OBJ:+.3e} from the optimum; the bound "
               f"{lo - bound!r} .. {hi + bound!r}; "
               f"{time.perf_counter() - t0:.1f} s")
         check(res.status == 1 and lo - bound <= res.objval <= hi + bound,
@@ -5422,6 +5528,467 @@ def phase_o_rows(rows, runs):
     return assign_launches(rows, shapes, entries)
 
 
+# ---------------------------------------------------------------------------
+# Phase P: the iteration's control (K19), the restart-to-average (K20a,
+# K20b) and the batch's masked freeze (K21) -- B8
+
+P_AVG_RTOL = {"f64": 1e-15, "f32": 1e-6}  # K20a against its twin, relative
+P_STEPS = 20  # _scalar_step calls in a profiled window
+P_SOURCES = {"control": "control.cu", "restart_average": "restart_avg.cu",
+             "restart_adopt": "restart_avg.cu", "freeze_rows": "freeze_rows.cu"}
+P_REPLACES = {
+    "control": "proxsdp_tpu/solver.py:563-807 (_residuals_and_gap's "
+               "formulas and ring writes, _control)",
+    "restart_average": "proxsdp_tpu/solver.py:809-860 (the restart's sums "
+                       "and its test's reductions)",
+    "restart_adopt": "proxsdp_tpu/solver.py:862-897 (the jump to the average)",
+    "freeze_rows": "proxsdp_tpu/parallel/batch.py:149-155 (the masked freeze)",
+}
+
+
+class ScalarStepRecorder:
+    """While installed (``with``), keeps the arguments of
+    ``solver._scalar_step``'s 1st, 100th and last whole calls (residuals
+    and control) of the single solve and of the batch: references, since
+    no step writes a state in place."""
+
+    def __init__(self):
+        self.calls = {"single": 0, "batch": 0}
+        self.kept = {"single": {}, "batch": {}}
+
+    def __enter__(self):
+        from proxsdp_tpu_torch import solver as tsolver
+        from proxsdp_tpu_torch.parallel import batch as tbatch
+
+        orig = self._orig = tsolver._scalar_step
+
+        def recorded(s, o, layout, opts, step, residuals=True,
+                     control=True):
+            if residuals and control:
+                kind = "batch" if s.x.dim() == 2 else "single"
+                self.calls[kind] += 1
+                args = (s, o, layout, opts, step)
+                if self.calls[kind] in (1, 100):
+                    self.kept[kind][self.calls[kind]] = args
+                self.kept[kind]["last"] = args
+            return orig(s, o, layout, opts, step, residuals, control)
+
+        tsolver._scalar_step = tbatch._scalar_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from proxsdp_tpu_torch import solver as tsolver
+        from proxsdp_tpu_torch.parallel import batch as tbatch
+
+        tsolver._scalar_step = tbatch._scalar_step = self._orig
+
+
+def _exact(torch, label):
+    """compare_fn for a bit-for-bit row: NaN pairs and equal values count
+    as equal; any other difference fails the row (tolerance 0)."""
+    def fn(got, want):
+        err, rel = compare(torch, got, want)
+        check(err == 0.0, f"{label}: differs from its twin by {err:.3e}")
+        return err, rel
+    return fn
+
+
+def _fold_red(torch, parts):
+    """K20a's (P, 5) f64 partials of one instance folded (sums, then the
+    two maxima); the plain twin's (5,) as it is."""
+    if parts.dim() == 1:
+        return parts
+    return torch.cat([parts[:, :3].sum(0), parts[:, 3:].amax(0)])
+
+
+def _red_scale(torch, kernels, args, p, m):
+    """The magnitude each of K20a's reductions is held against: the sum of
+    |terms| of each dot, the largest |value| of each maximum."""
+    x, y, Mx, Mty, ax, ay, amx, amty, aw, ps, c, b, h = args
+    *avgs, _ = kernels.restart_average_plain(*args, p, m)
+    wsum = torch.clamp_min(aw + ps, 1e-30).unsqueeze(-1)
+    xa, ya, mxa = avgs[0] / wsum, avgs[1] / wsum, avgs[2] / wsum
+
+    def dsum(a, v):
+        return (a.abs() * v.abs()).sum(-1)
+    one = torch.ones_like(aw)
+    return torch.stack([
+        dsum(c, xa), dsum(b, ya[..., :p]) if p else one,
+        dsum(h, ya[..., p:]) if m else one,
+        torch.amax((mxa[..., :p] - b).abs(), -1) if p else one,
+        torch.amax((mxa[..., p:] - h).abs(), -1) if m else one,
+    ], dim=-1).double().clamp_min(1e-300)
+
+
+def _flat_control(upd, stalled, wsum):
+    keys = sorted(upd)
+    out = [upd[k] for k in keys]
+    if stalled is not None:
+        out += [stalled.to(upd["status"].dtype), wsum]
+    return tuple(out)
+
+
+def control_checks(torch, kernels, label, s, o, layout, opts, step, out,
+                   fired=None, timed=False):
+    """Hold K20a, K19 and K20b to their twins on the card on one state (the
+    single solve's or a batch's): K20a's averages within P_AVG_RTOL and its
+    reductions within it of their sums of |terms|; K19 (given K3's pass-1
+    partials where ``s`` is a pre-residual state: the iteration's path;
+    else its decisions alone) and K20b bit for bit, on the same inputs as
+    their twins.  ``step``: the runner's kernels.ControlStep (the kernels
+    run through it, as on the iteration's path).  ``fired(input,
+    output)``: the crafted case's branch test, on the kernel's output.  With ``timed``, the rows go to ``out``
+    (check_entry: times, bound).  Returns (the branch fired, stalled)."""
+    from proxsdp_tpu_torch import convert
+
+    batched = s.x.dim() == 2
+    dt = s.x.dtype
+    sfx = "f32" if dt == torch.float32 else "f64"
+    p, m = layout.p, layout.m
+    cfg, sides = step.cfg, step.sides_arr
+    adaptive = opts.restart == "adaptive"
+    residual = fired is None  # a recorded state: the iteration's path
+    r_k = r_p = None
+    if residual:
+        args3 = (s.x, s.x_old, s.Mty, s.Mty_old, s.primal_step, s.y, s.y_old,
+                 s.Mx, s.Mx_old, s.dual_step, o.b, o.h, o.c, p, m)
+        if batched:
+            r_k = r_p = kernels.residuals_batch(*args3)
+        else:
+            sq = layout.sdp_sides if layout.square_form else ()
+            r_k = kernels.residuals(*args3, sq, row_scale=o.row_unscale,
+                                    fold=False)
+            r_p = kernels.residuals(*args3, sq, row_scale=o.row_unscale)
+        s = s.replace(x_old=s.x, y_old=s.y, Mty_old=s.Mty, Mx_old=s.Mx)
+    tag = f"{label}, {sfx}"
+    red_t = avgs = None
+    if adaptive:
+        a_args = (s.x, s.y, s.Mx, s.Mty, s.avg_x, s.avg_y, s.avg_Mx,
+                  s.avg_Mty, s.avg_w, s.primal_step, o.c, o.b, o.h)
+        entry = "restart_average_batch" if batched else "restart_average"
+        got = step.restart_average(s, o)
+        want = kernels.restart_average_plain(*a_args, p, m)
+        torch.cuda.synchronize()
+        err, rel = compare(torch, got[:4], want[:4])
+        check(rel <= P_AVG_RTOL[sfx], f"{entry} ({tag}): averages {rel:.3e}")
+        red_k = got[4] if batched else _fold_red(torch, got[4])
+        scale = _red_scale(torch, kernels, a_args, p, m)
+        used = [0] + [1, 3] * bool(p) + [2, 4] * bool(m)  # read by K19
+        red_err = float(((red_k - want[4].double()).abs()
+                         / scale)[..., used].max())
+        check(red_err <= P_AVG_RTOL[sfx],
+              f"{entry} ({tag}): reductions {red_err:.3e} of their scale")
+        print(f"phase P {entry} ({tag}): averages max_abs_err {err:.3e} "
+              f"rel {rel:.3e}, reductions {red_err:.3e} of their |terms| "
+              f"(tolerance {P_AVG_RTOL[sfx]:g})")
+        red_t = red_k.to(dt)
+        avgs = got[:4]
+        if timed:
+            check_entry(torch, kernels, out, entry, sfx, P_SOURCES[
+                "restart_average"], P_REPLACES["restart_average"],
+                lambda fn: tuple((step.restart_average(s, o)
+                                  if fn is kernels.restart_average
+                                  else fn(*a_args, p, m))[:4]),
+                kernels.restart_average_plain, a_args, got, 0,
+                compare_fn=lambda g, w: compare(torch, g, w),
+                tol=P_AVG_RTOL[sfx], label=label, wrapper="restart_average")
+            _p_device_us(torch, f"{entry}_{sfx} ({label})",
+                         lambda: step.restart_average(s, o),
+                         "restart_average_kernel")
+
+    # K19 reads K20a's values as f64 rows: the partials' (1, 5) fold here
+    red_f64 = None if red_t is None else red_t.double().reshape(-1, 5)
+
+    def call(fn):
+        if fn is kernels.control:
+            return _flat_control(*step.control(s, o, r=r_k, red=red_f64))
+        return _flat_control(*fn(s, o, cfg, sides, r=r_p, red=red_t))
+
+    entry = "control_batch" if batched else "control"
+    got_c = step.control(s, o, r=r_k, red=red_f64)
+    want_c = kernels.control_plain(s, o, cfg, sides, r=r_p, red=red_t)
+    torch.cuda.synchronize()
+    err, _ = compare(torch, _flat_control(*got_c), _flat_control(*want_c))
+    check(err == 0.0, f"{entry} ({tag}): differs from its twin by {err:.3e}")
+    if timed:
+        inputs = [getattr(s, f) for f in kernels.iteration_control.RINGS]
+        check_entry(torch, kernels, out, entry, sfx, P_SOURCES["control"],
+                    P_REPLACES["control"], call, kernels.control_plain,
+                    inputs + [r_k, red_t], _flat_control(*got_c), 0,
+                    compare_fn=_exact(torch, entry), tol=0.0, label=label,
+                    wrapper="control")
+        _p_device_us(torch, f"{entry}_{sfx} ({label})",
+                     lambda: call(kernels.control),
+                     "control_batch_kernel" if batched else "control_kernel")
+    upd, stalled, wsum = got_c
+    ok = True
+    if fired is not None:
+        new = s.replace(**upd)
+        ok = fired(convert.state_to_numpy(s), convert.state_to_numpy(new))
+    if adaptive:
+        b_args = (s.x, s.y, s.Mx, s.Mty, *avgs, stalled, wsum)
+        entry = "restart_adopt_batch" if batched else "restart_adopt"
+        got = step.restart_adopt(s, avgs, stalled, wsum)
+        want = kernels.restart_adopt_plain(*b_args[:8], stalled.bool(), wsum)
+        torch.cuda.synchronize()
+        err, _ = compare(torch, got, want)
+        check(err == 0.0, f"{entry} ({tag}): differs from its twin by {err:.3e}")
+        if timed:
+            check_entry(torch, kernels, out, entry, sfx, P_SOURCES[
+                "restart_adopt"], P_REPLACES["restart_adopt"],
+                lambda fn: tuple(step.restart_adopt(s, avgs, stalled, wsum)
+                                 if fn is kernels.restart_adopt
+                                 else fn(*b_args[:8], stalled.bool(), wsum)),
+                kernels.restart_adopt_plain, b_args, got, 0,
+                compare_fn=_exact(torch, entry), tol=0.0, label=label,
+                wrapper="restart_adopt")
+            _p_device_us(torch, f"{entry}_{sfx} ({label})",
+                         lambda: step.restart_adopt(s, avgs, stalled, wsum),
+                         "restart_adopt_kernel")
+        stalled = stalled.bool()
+    return ok, stalled
+
+
+def _p_program(pkg):
+    """A small program with every row kind K19 reads: a PSD block of side
+    4, an SOC block of length 3, five equality and two inequality rows."""
+    o = pkg.Optimizer()
+    X = o.add_psd_var(4)
+    sv = o.add_soc_var(3)
+    for i in range(4):
+        o.add_eq_constraint({int(X[i, i]): 1.0}, 1.0)
+    o.add_eq_constraint({int(sv[0]): 1.0}, 2.0)
+    o.add_ineq_constraint({int(X[0, 1]): 1.0}, 0.3)
+    o.add_ineq_constraint({int(X[1, 2]): 1.0, int(sv[1]): 1.0}, 0.2)
+    W = np.arange(16.0).reshape(4, 4)
+    obj = o.psd_inner_product_coeffs(X, (W + W.T) / 10.0)
+    obj[int(sv[2])] = 0.5
+    o.set_objective(obj)
+    return o.build_problem()
+
+
+def _card_operands(torch, setup, dt, dev, B=None):
+    """The Operands of ``setup`` on the card (``B``: a batch of B copies,
+    the operator shared)."""
+    from proxsdp_tpu_torch import convert
+    from proxsdp_tpu_torch.ops.linop import build_linop
+
+    o = convert.operands_from_numpy(
+        M=build_linop(setup.A, setup.G, dt, device=dev), b=setup.b,
+        h=setup.h, c=setup.c, norm_b=setup.norm_b, norm_h=setup.norm_h,
+        norm_c=setup.norm_c, obj_scale=setup.obj_scale * setup.rhs_scale,
+        device=dev, dtype=dt)
+    if B is None:
+        return o
+    import dataclasses
+
+    return dataclasses.replace(o, **{f: getattr(o, f).expand(
+        (B,) + getattr(o, f).shape).contiguous() for f in (
+        "b", "h", "c", "norm_b", "norm_h", "norm_c", "obj_scale")})
+
+
+def crafted_checks(torch, kernels, dev):
+    """Every crafted branch case (kernels.control_cases) on two layouts --
+    the side-SIDE max-cut (square form) and _p_program (PSD, SOC,
+    inequality rows) -- in f64 and f32, single; and each layout's
+    default-options cases as one batch (the packed layout): K19 and K20b
+    bit for bit, K20a within P_AVG_RTOL.  Prints which branches fired."""
+    from proxsdp_tpu_torch import Options, convert
+    from proxsdp_tpu_torch.kernels import control_cases
+    from proxsdp_tpu_torch.models.maxcut import maxcut_problem, random_graph_weights
+    from proxsdp_tpu_torch.problem import preprocess, to_square_form
+    from proxsdp_tpu_torch.solver import init_state
+
+    import proxsdp_tpu_torch as tx
+
+    fired_all = collections.Counter()
+    names = set()
+    problems = {"max-cut": maxcut_problem(random_graph_weights(0, SIDE))[0],
+                "conic": _p_program(tx)}
+    for lname, prob in problems.items():
+        for dtype in ("float64", "float32"):
+            dt = torch.float64 if dtype == "float64" else torch.float32
+            opts = Options(hybrid_precision=False, dtype=dtype)
+            for square in (True, False):
+                setup = preprocess(prob)
+                if square:
+                    setup = to_square_form(setup)
+                layout = setup.layout
+                host = init_state(layout, opts, setup)
+                cases = control_cases.branch_cases(host, opts, setup.c,
+                                                   setup.b, setup.h)
+                names.update(c.name for c in cases)
+                if square:
+                    o = _card_operands(torch, setup, dt, dev)
+                    for c in cases:
+                        s = convert.state_from_numpy(c.state, dev)
+                        ok, _ = control_checks(
+                            torch, kernels, c.name, s, o, layout, c.opts,
+                            kernels.control_step(layout, c.opts, dev), [],
+                            fired=c.fired)
+                        check(ok, f"P: {c.name} ({lname}, {dtype}) did not "
+                              "fire its branch on the card")
+                        fired_all[c.name] += 1
+                else:  # the default-options cases as one batch
+                    same = [c for c in cases if c.opts == opts]
+                    st = convert.state_from_numpy(convert.stack_states(
+                        [c.state for c in same]), dev)
+                    o = _card_operands(torch, setup, dt, dev, B=len(same))
+                    step = kernels.control_step(layout, opts, dev)
+                    control_checks(torch, kernels, f"{lname} batch of "
+                                   f"{len(same)} cases", st, o, layout, opts,
+                                   step, [], fired=lambda i, o_: True)
+                    got = convert.state_to_numpy(_card_step(
+                        torch, st, o, layout, opts, step, residuals=False))
+                    for i, c in enumerate(same):
+                        check(c.fired(c.state, convert.index_state(got, i)),
+                              f"P: batched {c.name} ({lname}, {dtype}) did "
+                              "not fire its branch")
+    check(set(fired_all) == names, "P: a crafted branch was not checked")
+    print("phase P branches fired on the card (single, both layouts, f64 and "
+          "f32; the default-options ones also as batches): "
+          + "; ".join(f"{n} x{k}" for n, k in sorted(fired_all.items())))
+
+
+def _card_step(torch, s, o, layout, opts, step, residuals=True):
+    from proxsdp_tpu_torch import solver as tsolver
+
+    return tsolver._scalar_step(s, o, layout, opts, step, residuals=residuals)
+
+
+def freeze_checks(torch, kernels, label, s, o, layout, opts, step, out):
+    """K21 against its twin and against the torch.where per field it
+    replaces (the library row), bit for bit, on a batch state and the
+    state one step later (x_old is x there), every other instance
+    frozen."""
+    from proxsdp_tpu_torch import solver as tsolver
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+
+    new = _card_step(torch, s, o, layout, opts, step)
+    B = s.x.shape[0]
+    mask = torch.arange(B, device=s.x.device) % 2 == 0
+    flat_n, flat_o = [], []
+    for name in tsolver.STATE_FIELDS:
+        a, b = getattr(new, name), getattr(s, name)
+        pairs = list(zip(a, b)) if name == "warm" else [(a, b)]
+        for x, y in pairs:
+            if x is not y:
+                flat_n.append(x)
+                flat_o.append(y)
+    sfx = "u32"  # K21's one entry point, whatever the fields' dtypes
+
+    def where_all():
+        """parallel/batch.py's _where_rows before K21: one torch.where a
+        field (46 and the warm vectors)."""
+        return [torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o_)
+                for n, o_ in zip(flat_n, flat_o)]
+
+    got = tbatch._where_rows(mask, new, s)
+    torch.cuda.synchronize()
+    print(f"phase P freeze_rows ({label}): {len(flat_n)} fields "
+          f"differ of {len(tsolver.STATE_FIELDS) - 1} + {len(s.warm)} warm")
+    check(got.x_old is not got.x, "P: the freeze aliased x and x_old")
+    check_entry(torch, kernels, out, "freeze_rows", sfx,
+                P_SOURCES["freeze_rows"], P_REPLACES["freeze_rows"],
+                lambda fn: tuple(fn(mask, flat_n, flat_o)),
+                kernels.freeze_rows_plain, flat_n + flat_o + [mask],
+                kernels.freeze_rows(mask, flat_n, flat_o), 0,
+                library=where_all, compare_fn=_exact(torch, "freeze_rows"),
+                tol=0.0, label=label)
+    _p_device_us(torch, f"freeze_rows_{sfx} ({label})",
+                 lambda: kernels.freeze_rows(mask, flat_n, flat_o),
+                 "freeze_rows_kernel")
+
+
+def _p_device_us(torch, label, fn, pattern):
+    us = device_us(torch, fn, pattern, calls=10)
+    print(f"kernel {label}: device "
+          f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+
+
+def scalar_step_kernels(torch, kernels, s, o, layout, opts, step):
+    """(the port's launches a call, CUDA kernels a call, µs of device time
+    a call) of solver._scalar_step (K3's first pass, K20a, K19, K20b)
+    over P_STEPS calls on one state under torch.profiler; the last two
+    None where the profiler shows no device events (late profiler
+    sessions of a run may record some or none of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _card_step(torch, s, o, layout, opts, step)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(P_STEPS):
+            _card_step(torch, s, o, layout, opts, step)
+        torch.cuda.synchronize()
+    ours = sum(kernels.launch_counts.values()) / P_STEPS
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_ev:
+        return ours, None, None
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) for e in dev_ev)
+    return ours, sum(e.count for e in dev_ev) / P_STEPS, us / P_STEPS
+
+
+def phase_p(torch, kernels, smi, rec_c, rec_d):
+    """Phase P: K19, K20a, K20b and K21 against their twins on the states
+    recorded from phase C's and D's card solves (calls 1, 100 and the
+    last of each) and on every crafted branch state; the kernels an
+    iteration of the scalar step, by profiler; the kernel rows."""
+    rows = []
+    for kind, rec in (("single", rec_c), ("batch", rec_d)):
+        kept = rec.kept[kind]
+        check({1, 100, "last"} <= set(kept),
+              f"P: phase {'C' if kind == 'single' else 'D'} recorded only "
+              f"{sorted(map(str, kept))}")
+        # the rows' times: call 100 (f32 race) and the last call (f64)
+        for when in (1, 100, "last"):
+            s, o, layout, opts, step = kept[when]
+            label = (f"phase {'C' if kind == 'single' else 'D'} call {when}, "
+                     f"{opts.dtype}")
+            control_checks(torch, kernels, label, s, o, layout, opts, step,
+                           rows, timed=when in (100, "last"))
+            ours, n_k, us = scalar_step_kernels(torch, kernels, s, o, layout,
+                                                opts, step)
+            print(f"phase P {label}: _scalar_step {ours:g} launches of the "
+                  f"port's kernels a call, "
+                  f"{'not measured' if n_k is None else f'{n_k:g}'} CUDA "
+                  f"kernels a call by the profiler "
+                  f"({'not measured' if us is None else f'{us:.1f} us'} of "
+                  "device time)")
+            check(ours == 4, f"P: _scalar_step launched {ours} of the port's "
+                  "kernels a call, want 4")
+            if n_k is not None:
+                check(n_k <= 4, f"P: _scalar_step launched {n_k} kernels")
+            if kind == "batch" and when != 1:
+                freeze_checks(torch, kernels, label, s, o, layout, opts,
+                              step, rows)
+    crafted_checks(torch, kernels, torch.device("cuda"))
+    return rows
+
+
+def p_rows(rows, entries_a, entries_c, entries_d):
+    """Each phase-P row's launches: the f64 single rows phase A's (the
+    f64 program), the f32 ones phase C's, the batch rows phase D's; a row
+    of an entry point already on the line, or not launched there, is left
+    off.  (rows for the kernels line, rows left off it)."""
+    kept, left, seen = [], [], set()
+    for row in rows:
+        entry = row["name"].split(" ")[0]
+        batch = "_batch" in entry or entry.startswith("freeze_rows")
+        src = entries_d if batch else (entries_a if entry.endswith("_f64")
+                                       else entries_c)
+        row["launches"] = src.get(entry, 0)
+        if row["launches"] and entry not in seen:
+            seen.add(entry)
+            kept.append(row)
+        else:
+            left.append(row)
+    return kept, left
+
+
 def main() -> int:
     import torch
 
@@ -5548,6 +6115,39 @@ def main() -> int:
             {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
         return 0
 
+    if "--phase-p" in sys.argv[1:]:
+        # phase P alone: phase C's default solve and phase D's batch solve
+        # run (once each, untimed) to record their states, then phase P
+        from proxsdp_tpu_torch import solve_batch
+
+        t_phase = time.perf_counter()
+        problem, _ = maxcut_problem(random_graph_weights(0, SIDE))
+        bprobs = [maxcut_problem(random_graph_weights(s, BATCH_SIDE))[0]
+                  for s in range(BATCH_SIZE)]
+        rec_c, rec_d = ScalarStepRecorder(), ScalarStepRecorder()
+        kernels.reset_launch_counts()
+        with rec_c:
+            solve(problem, Options())
+        torch.cuda.synchronize()
+        entries_c = dict(kernels.launch_counts)
+        kernels.reset_launch_counts()
+        with rec_d:
+            solve_batch(bprobs, Options(tol_gap=1e-4, tol_feasibility=1e-4))
+        torch.cuda.synchronize()
+        entries_d = dict(kernels.launch_counts)
+        print(f"phase P: the recording solves {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        prows = phase_p(torch, kernels, smi, rec_c, rec_d)
+        print(f"phase P: {time.perf_counter() - t_phase:.1f} s")
+        # the f64 single rows' launches from C's polish here (phase A's in
+        # the whole run)
+        kept, left = p_rows(prows, entries_c, entries_c, entries_d)
+        print("phase P rows left off the line: " + ", ".join(
+            row["name"] for row in left))
+        print(json.dumps({"kernels": [
+            {k: v for k, v in row.items() if k != "_shape"} for row in kept]}))
+        return 0
+
     if "--phase-h" in sys.argv[1:]:
         # phase H alone, then the equilibrated arm's path at several caps
         t_phase = time.perf_counter()
@@ -5578,7 +6178,8 @@ def main() -> int:
     # K1 for M x; M' y inside K15, one launch an iteration; K18 the dense
     # eigh's reconstruction
     for name in ("ell_spmv", "linesearch_loop", "residuals",
-                 "primal_update_sym", "psd_reconstruct"):
+                 "primal_update_sym", "psd_reconstruct", "control",
+                 "restart_average", "restart_adopt"):
         check(counts[name] >= res.iter, f"A: {name} launched < iterations")
     check(counts["ls_dual_update"] == counts["sq_dist"] == 0,
           "A: one trial's kernels launched on the path")
@@ -5653,8 +6254,10 @@ def main() -> int:
     # ---- 4. phase C: the default Options() -- hybrid race and polish
     t_phase = time.perf_counter()
     opts = Options(log_verbose=True, timer_verbose=True)
-    res, wall, entries, counts, shapes_c, log = solve_timed(
-        torch, kernels, solve, problem, opts, capture=True)
+    rec_c = ScalarStepRecorder()  # phase P's states (references only)
+    with rec_c:
+        res, wall, entries, counts, shapes_c, log = solve_timed(
+            torch, kernels, solve, problem, opts, capture=True)
     for line in log.splitlines():
         if line.startswith("  [") or "total" in line or "status:" in line:
             print("  | " + line.strip())
@@ -5725,7 +6328,9 @@ def main() -> int:
 
     # ---- 5. phase D: the batched sweep (solve_batch)
     t_phase = time.perf_counter()
-    phase_d(torch, kernels, smi, bproblems, bsetups, brows)
+    rec_d = ScalarStepRecorder()  # phase P's states (references only)
+    entries_d = phase_d(torch, kernels, smi, bproblems, bsetups, brows,
+                        recorder=rec_d)
     print(f"phase D: {time.perf_counter() - t_phase:.1f} s")
     rows += brows
     print("kernels line: the batch rows' launches from phase D's warm solve; "
@@ -5919,21 +6524,38 @@ def main() -> int:
           + ", ".join(row["name"] for row in o_left + ooff
                       + [r for r in TRIAL_ROWS if r not in trial_kept]))
 
+    # ---- 15. phase P: the iteration's control (K19), the restart (K20a,
+    # K20b) and the batch's freeze (K21) on phase C's and D's recorded
+    # states and on every crafted branch state
+    t_phase = time.perf_counter()
+    prows = phase_p(torch, kernels, smi, rec_c, rec_d)
+    print(f"phase P: {time.perf_counter() - t_phase:.1f} s")
+    p_kept, p_left = p_rows(prows, entries_a, entries, entries_d)
+    rows += p_kept
+    print("kernels line: phase P's rows take the launches of their entry "
+          "point in phase A (the f64 single rows), C (the f32 ones) or D "
+          "(the batch rows); checked against the plain version but left off "
+          "the line (a second row of an entry point): "
+          + ", ".join(row["name"] for row in p_left))
+    rec_c.kept.clear()
+    rec_d.kept.clear()
+
     for label, fn, pattern in LAUNCH_US:
         us = device_us(torch, fn, pattern, calls=10)
         print(f"kernel {label}: device "
               f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
     check(all(row["ms"] is not None for row in rows),
           "kernels line: a row without its times")
-    names = {row["name"].split(" ")[0].rsplit("_f", 1)[0] for row in rows}
+    on_line = {row["name"].split(" ")[0] for row in rows}
     # one trial's kernels (TRIAL_KERNELS) are checked in phase B and run
     # only on the tensor-parallel path (phase O): K15 and K15b run the
     # trials everywhere else
-    missing = (set(kernels.SOLVE_KERNELS + kernels.BATCH_KERNELS)
-               - {n.replace("_f64", "").replace("_f32", "") for n in names})
+    missing = {k for k in kernels.SOLVE_KERNELS + kernels.BATCH_KERNELS
+               if not any(f"{k}_{sfx}" in on_line
+                          for sfx in kernels._suffixes(k))}
     check(not missing, f"kernels line: no row of {sorted(missing)}")
 
-    print(f"phases A-O: {time.perf_counter() - t_start:.1f} s")
+    print(f"phases A-P: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {k: v for k, v in row.items() if k != "_shape"} for row in rows]}))

@@ -32,6 +32,9 @@ import time
 
 # kernel name pattern -> group (first match wins)
 GROUPS = (
+    ("K19 control", r"control_kernel|control_batch_kernel"),
+    ("K20 restart_average/adopt", r"restart_average_kernel|restart_adopt_kernel"),
+    ("K21 freeze_rows", r"freeze_rows_kernel"),
     ("K4 primal_update_sym", r"update_sym_kernel"),
     ("K5 ns_gemm", r"gemm_axpby"),
     ("K6 polar_sym", r"sumsq_kernel|scale_kernel|sym_kernel|sym_flag|guard_kernel"),

@@ -41,6 +41,13 @@ kernels.
 | tri_to_square      | ops/tri.py:39-44 (batched)                       |
 | square_to_tri      | ops/tri.py:47-52 (batched)                       |
 | batched_gemv(_t)   | ops/linop.py:44-48 DenseOp products, vmapped     |
+| control (_batch)   | solver.py:563-637 the residual formulas and ring |
+|                    |   writes, 653-807 _control's decisions (K19)     |
+| restart_average    | solver.py:809-860 the running sums and the       |
+|   (_batch: K20a)   |   restart test's reductions over their average   |
+| restart_adopt      | solver.py:862-897 the jump to the average (K20b) |
+|   (_batch)         |                                                  |
+| freeze_rows        | parallel/batch.py:149-155 the masked freeze (K21)|
 
 The batch driver (``parallel/batch.py``) runs K1, K3, K4, K13, K14 and
 the linesearch loop through their ``*_batch`` entry points: a leading
@@ -88,13 +95,16 @@ SOLVE_KERNELS = ("ell_spmv", "linesearch_loop", "residuals",
                  "primal_update_sym", "ns_gemm", "fro_scale", "sym",
                  "sym_guard", "cholqr", "ritz_accept", "lanczos_krylov",
                  "soc_projection", "coo_spmv", "subspace_sign",
-                 "psd_reconstruct")
+                 "psd_reconstruct", "control", "restart_average",
+                 "restart_adopt")
 BATCH_KERNELS = ("ell_spmv_batch", "linesearch_loop_batch", "residuals_batch",
                  "primal_update_batch", "batched_psd_eigh", "tri_to_square",
                  "square_to_tri", "batched_subspace", "batched_gemv",
                  "batched_psd_eigh_large", "batched_subspace_large",
                  "ns_gemm_batch", "fro_scale_batch", "sym_batch",
-                 "sym_guard_batch", "soc_projection_batch", "coo_spmv_batch")
+                 "sym_guard_batch", "soc_projection_batch", "coo_spmv_batch",
+                 "control_batch", "restart_average_batch",
+                 "restart_adopt_batch", "freeze_rows")
 TRIAL_KERNELS = ("ls_dual_update", "sq_dist", "ls_dual_update_batch",
                  "sq_dist_batch", "batched_gemv_t")
 KERNELS = SOLVE_KERNELS + BATCH_KERNELS + TRIAL_KERNELS
@@ -140,6 +150,13 @@ _ARGTYPES = {
     "sym_guard_batch": [_P] * 7 + [_I, _I, _P],
     "soc_projection_batch": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
     "coo_spmv_batch": [_P] * 4 + [_I, _P, _I, _I, _P],
+    "control": [_P, _I, _P, _P] + [_I] * 6 + [_P],
+    "control_batch": [_P, _I, _P, _P] + [_I] * 6 + [_P],
+    "restart_average": [_P] * 16 + [_I] * 4 + [_P],
+    "restart_average_batch": [_P] * 16 + [_I] * 4 + [_P],
+    "restart_adopt": [_P] * 12 + [_I] * 3 + [_P],
+    "restart_adopt_batch": [_P] * 12 + [_I] * 3 + [_P],
+    "freeze_rows": [_P, _P, _I, _I, _P],
 }
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -148,8 +165,9 @@ _MIXED = {"fro_scale": ("f64_f32",), "sym_guard": ("f32_f64",),
           "psd_reconstruct": ("f64_f32",),
           "batched_subspace": ("f64_f32",),
           "batched_subspace_large": ("f64_f32",)}
-# entry points of one type only
-_ONLY = {"subspace_sign": ("f32",)}
+# entry points of one type only (freeze_rows copies 32-bit words, whatever
+# the fields' dtypes)
+_ONLY = {"subspace_sign": ("f32",), "freeze_rows": ("u32",)}
 
 
 def _suffixes(name: str) -> tuple[str, ...]:
@@ -203,16 +221,26 @@ def load() -> None:
     _library()
 
 
-def _launch(name: str, dtype, device: torch.device, *args):
-    """Launch ``proxsdp_{name}_{suffix}``; ``dtype`` is a torch dtype or an
-    entry-point suffix such as "f64_f32"."""
+def _entry(name: str, dtype) -> tuple:
+    """(name, the function ``proxsdp_{name}_{suffix}``, its launch_counts
+    key); ``dtype`` is a torch dtype or an entry-point suffix such as
+    "f64_f32"."""
     sfx = dtype if isinstance(dtype, str) else _SUFFIX[dtype]
-    fn = getattr(_library(), f"proxsdp_{name}_{sfx}")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, stream)
+    return name, getattr(_library(), f"proxsdp_{name}_{sfx}"), f"{name}_{sfx}"
+
+
+def _call(entry: tuple, device: torch.device, *args) -> None:
+    """Launch an ``_entry`` on the current stream of ``device``."""
+    name, fn, key = entry
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise KernelError(f"{name}: CUDA launch failed (cudaError {rc})")
-    launch_counts[f"{name}_{sfx}"] += 1
+    launch_counts[key] += 1
+
+
+def _launch(name: str, dtype, device: torch.device, *args):
+    """Launch ``proxsdp_{name}_{suffix}`` (see ``_entry``)."""
+    _call(_entry(name, dtype), device, *args)
 
 
 # reduce.cuh: pass-1 grid of a two-pass reduction over n elements
@@ -572,13 +600,16 @@ def residuals_plain(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
 
 
 def residuals(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
-              b, h, c, p: int, m: int, sides: tuple, row_scale=None):
+              b, h, c, p: int, m: int, sides: tuple, row_scale=None,
+              fold: bool = True):
     """The nine reductions of residuals.cu (see its header) as a (9,) f64
     tensor.  ``sides``: the square PSD blocks laid end to end from offset
     0 of x (their off-diagonal entries weigh sqrt(2) in the x-space
     maxima); ``row_scale``: None or the (p + m,) scale of the equality and
     inequality residuals (an equilibrated problem's 1/E).  For f32 inputs
-    the maxima are f32 values and the dots two-stage sums."""
+    the maxima are f32 values and the dots two-stage sums.  ``fold=False``
+    skips the second pass on the card and returns pass 1's (P, 9) f64
+    partials, which K19 (``control``) folds in the same order."""
     name = "residuals"
     n = x.shape[0]
     sides = tuple(int(s) for s in sides)
@@ -608,16 +639,17 @@ def residuals(x, x_old, Mty, Mty_old, tau, y, y_old, Mx, Mx_old, sigma,
         grid = _reduce_grid(32 * chunks)
     partials = torch.empty(grid * RESIDUAL_SLOTS, dtype=torch.float64,
                            device=x.device)
-    out = torch.empty(RESIDUAL_SLOTS, dtype=torch.float64, device=x.device)
+    out = (torch.empty(RESIDUAL_SLOTS, dtype=torch.float64, device=x.device)
+           if fold else None)
     offs, sds = _block_table(sides, x.device)
     _launch(name, x.dtype, x.device, *map(_ptr, args),
             None if row_scale is None else _ptr(row_scale),
             None if offs is None else _ptr(offs),
-            None if sds is None else _ptr(sds), _ptr(partials), _ptr(out),
-            n, p, m, len(sides))
+            None if sds is None else _ptr(sds), _ptr(partials),
+            _ptr(out) if fold else None, n, p, m, len(sides))
     if row_scale is not None:
         row_scale_launches[_SUFFIX[x.dtype]] += 1
-    return out
+    return out if fold else partials.view(grid, RESIDUAL_SLOTS)
 
 
 # ------------------------------------------ K4 primal update + symmetrise
@@ -1962,3 +1994,12 @@ def batched_subspace(v, warm, side: int, tol_psd: float, mixed: bool = False):
         ws = _workspace(name + "_large", B * stride, torch.uint8, dev)
         _launch(name + "_large", sfx, dev, *head, _ptr(ws), stride, *tail)
     return out, me, rank, warm_out, bad, stats
+
+
+# K19-K21 (the control, the restart, the batch's freeze) live in their own
+# module, which uses the helpers above
+from .iteration_control import (  # noqa: E402
+    ControlConfig, ControlStep, control, control_config, control_plain,
+    control_step, freeze_rows,
+    freeze_rows_plain, restart_adopt, restart_adopt_plain, restart_average,
+    restart_average_plain)

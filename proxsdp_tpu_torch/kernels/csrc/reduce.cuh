@@ -69,23 +69,33 @@ __device__ void block_reduce(T (&acc)[K]) {
   for (int k = 0; k < K; ++k) acc[k] = sh[k][0];
 }
 
-// Pass 2: fold nparts partials (laid out part-major, K per part) into
-// out[0..K).  Launched with one block of kThreads threads.
+// Pass 2 in one block of kThreads threads: fold nparts partials (laid
+// out part-major, K per part) into acc, valid in thread 0.  Every thread
+// of the block must call it.  K19 (control.cu) folds K3's and K20a's
+// partials with it, so its sums are finalize_kernel's bit for bit.
 template <typename T, int K, unsigned MaxMask>
-__global__ void finalize_kernel(const T* __restrict__ partials, int nparts,
-                                T* __restrict__ out) {
-  T acc[K];
+__device__ void fold_partials(const T* __restrict__ partials, int64_t nparts,
+                              T (&acc)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k)
     acc[k] = ((MaxMask >> k) & 1u) ? static_cast<T>(-INFINITY) : T(0);
-  for (int i = threadIdx.x; i < nparts; i += kThreads) {
+  for (int64_t i = threadIdx.x; i < nparts; i += kThreads) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const T v = partials[static_cast<int64_t>(i) * K + k];
+      const T v = partials[i * K + k];
       acc[k] = ((MaxMask >> k) & 1u) ? nan_max(acc[k], v) : acc[k] + v;
     }
   }
   block_reduce<T, K, MaxMask>(acc);
+}
+
+// Pass 2: fold nparts partials into out[0..K).  Launched with one block
+// of kThreads threads.
+template <typename T, int K, unsigned MaxMask>
+__global__ void finalize_kernel(const T* __restrict__ partials, int nparts,
+                                T* __restrict__ out) {
+  T acc[K];
+  fold_partials<T, K, MaxMask>(partials, nparts, acc);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) out[k] = acc[k];

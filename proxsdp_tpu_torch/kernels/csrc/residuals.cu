@@ -236,14 +236,17 @@ int launch(const void* x, const void* x_old, const void* Mty,
       static_cast<const int64_t*>(blk_off),
       static_cast<const int64_t*>(blk_side), static_cast<T*>(partials), n, p,
       m, nblk);
-  proxsdp::finalize_kernel<T, kSlots, kMaxMask><<<1, kThreads, 0, s>>>(
-      static_cast<const T*>(partials), grid, static_cast<T*>(out));
+  if (out)  // else K19 folds the partials (control.cu)
+    proxsdp::finalize_kernel<T, kSlots, kMaxMask><<<1, kThreads, 0, s>>>(
+        static_cast<const T*>(partials), grid, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// partials holds reduce_grid(max(n, p + m)) * 9 entries; out holds 9.
+// partials holds reduce_grid(max(n, p + m)) * 9 entries; out holds 9, or
+// is null: then the second pass is left to the caller (K19 folds the
+// partials in the same order).
 // rs: null or p + m row scales; blk_off: nblk + 1 int64 offsets and
 // blk_side: nblk int64 sides of the square blocks (null when nblk = 0).
 extern "C" int proxsdp_residuals_f64(
@@ -280,8 +283,10 @@ extern "C" int proxsdp_residuals_f32(
       static_cast<const int64_t*>(blk_off),
       static_cast<const int64_t*>(blk_side), static_cast<double*>(partials),
       n, p, m, nblk);
-  proxsdp::finalize_kernel<double, kSlots, kMaxMask><<<1, kThreads, 0, s>>>(
-      static_cast<const double*>(partials), grid, static_cast<double*>(out));
+  if (out)  // else K19 folds the partials (control.cu)
+    proxsdp::finalize_kernel<double, kSlots, kMaxMask><<<1, kThreads, 0, s>>>(
+        static_cast<const double*>(partials), grid,
+        static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

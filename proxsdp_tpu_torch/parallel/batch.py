@@ -49,10 +49,11 @@ Here the instance axis is written out:
   (``_batch_operands``): stacked ELL values over shared index tables (K1's
   and K15b's value stride) or a (B, p+m, n) stack of dense matrices (K16
   ``batched_gemv`` for M x, K15b's own per-instance M' y);
-* ``solver._residuals_and_gap`` (K3's batched entry point) and
-  ``solver._control`` run on the batched state as they are;
+* ``solver._scalar_step`` (K3's batched entry point, then K20a, K19 and
+  K20b's batch forms: a CTA an instance for the reductions, a warp an
+  instance for the decisions) runs on the batched state as it is;
 * ``run_chunk`` reads one flag pair per iteration (any / all instances
-  active) and freezes the inactive instances with ``torch.where`` over
+  active) and freezes the inactive instances in one launch of K21 over
   every field.  Nothing loops over instances on the host.
 
 Like the JAX driver this runs, under the default ``Options()``, an f32
@@ -131,9 +132,8 @@ from ..solver import (
     _Budget,
     _cache_solution,
     _cast_state,
-    _control,
     _ieee_f32_products,
-    _residuals_and_gap,
+    _scalar_step,
     _sub_bucket,
     block_plan,
     init_state,
@@ -238,15 +238,26 @@ def _stack_states(layout, opts, setups, device) -> State:
 
 
 def _where_rows(mask, new: State, old: State) -> State:
-    """Per instance: ``new`` where ``mask`` (B,) holds, else ``old``."""
-    def pick(n, o):
-        return torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
-
-    kw = {}
+    """Per instance: ``new`` where ``mask`` (B,) holds, else ``old`` -- one
+    launch of K21 (``kernels.freeze_rows``) over every field whose new and
+    old are different tensors (a field that is one tensor in both is kept
+    as it is)."""
+    flat = []  # (field, new, old), warm's vectors one entry each
     for name in STATE_FIELDS:
         n, o = getattr(new, name), getattr(old, name)
-        kw[name] = (tuple(pick(a, b) for a, b in zip(n, o)) if name == "warm"
-                    else pick(n, o))
+        flat += ([(name, a, b) for a, b in zip(n, o)] if name == "warm"
+                 else [(name, n, o)])
+    todo = [(n, o) for _, n, o in flat if n is not o]
+    outs = iter(kernels.freeze_rows(mask, [n for n, _ in todo],
+                                    [o for _, o in todo]))
+    kw = {"warm": []}
+    for name, n, o in flat:
+        v = n if n is o else next(outs)
+        if name == "warm":
+            kw["warm"].append(v)
+        else:
+            kw[name] = v
+    kw["warm"] = tuple(kw["warm"])
     return State(**kw)
 
 
@@ -451,7 +462,9 @@ def make_batch_runner(layout: ConeLayout, opts: Options, *, device,
     step to ``stats.steps``; ``fetch(s)`` returns a (B, 7) array of
     [iter, status, gap, feas, prim_obj, dual_obj, sub_worst] per instance
     (one device-to-host copy)."""
-    sides_arr = torch.tensor(layout.sdp_sides, dtype=torch.int32, device=device)
+    # the block sides (1,) without PSD blocks, as the single solve's and the
+    # JAX batch's
+    step = kernels.control_step(layout, opts, device)
 
     def iteration(s: State, o: Operands, active: torch.Tensor) -> State:
         s = _primal_step(s, o, layout, opts)
@@ -459,8 +472,7 @@ def make_batch_runner(layout: ConeLayout, opts: Options, *, device,
             s = _linesearch(s, o, layout, opts, active)
         else:
             s = _dual_step(s, o, layout, opts)
-        s = _residuals_and_gap(s, o, layout, opts)
-        return _control(s, o, layout, opts, sides_arr)
+        return _scalar_step(s, o, layout, opts, step)
 
     def run_chunk(s: State, o: Operands, chunk_end: int) -> State:
         while True:

@@ -20,7 +20,10 @@ or f32; per iteration
 3. ``_residuals_and_gap``: kernel K3's nine f64 reductions, the scalar
    formulas in f64, a cast to the program's dtype at the ring writes;
 4. ``_control``: the branch-free scalar control with adaptive
-   restart-to-average, plain torch on 0-d device tensors (no sync).
+   restart-to-average, on the device with no sync.  Steps 3 and 4 run as
+   ``_scalar_step``: K3's first pass, K20a (the restart's running sums and
+   reductions), K19 (the formulas, ring writes and decisions) and K20b
+   (the jump to the average), ``kernels.control``.
 
 The iteration is plain functions on a ``State`` dataclass of tensors.
 ``solve`` is the host driver (solver.py:1209-2357): Ruiz or block
@@ -56,6 +59,7 @@ import torch
 from torch import nn
 
 from . import convert, kernels
+from .kernels.iteration_control import _at
 from .equilibration import block_equilibrate_host, equilibrate_host
 from .ops.cones import (
     projection_kind,
@@ -287,38 +291,8 @@ def _power_norm_host(M, n, iters):
 
 # The scalar steps (_residuals_and_gap, _control) also run on a batched
 # State (parallel/batch.py): a leading instance axis on every field, the
-# scalars (B,) and the ring buffers (B, L).  These helpers take either; on
-# the single-instance State they issue the same operations as before.
-
-
-def _at(buf, i):
-    """buf[..., i] for an integer tensor i (0-d, or (B,) for (B, L)
-    buffers), without a host sync."""
-    if i.dim() == 0:
-        return buf.index_select(0, i.reshape(1).long())[0]
-    return torch.gather(buf, -1, i.long().unsqueeze(-1)).squeeze(-1)
-
-
-def _set(buf, i, v):
-    if i.dim() == 0:
-        return buf.index_copy(0, i.reshape(1).long(), v.reshape(1))
-    return buf.scatter(-1, i.long().unsqueeze(-1), v.unsqueeze(-1))
-
-
-def _col(v):
-    """A scalar per instance as a column against (B, n) rows; a 0-d
-    scalar becomes a 1-element vector (the same broadcast)."""
-    return v.unsqueeze(-1)
-
-
-def _dot(a, b):
-    return torch.dot(a, b) if a.dim() == 1 else torch.sum(a * b, dim=-1)
-
-
-def _max_abs_cyclic_diff(buf):
-    """max_i |v[i] - v[i-1]| over the cyclic buffer (structs.jl:14-20)."""
-    return torch.amax(torch.abs(buf - torch.roll(buf, 1, -1)), -1)
-
+# scalars (B,) and the ring buffers (B, L); ``_at``
+# (kernels/iteration_control.py) takes either.
 
 class BlockPlan(NamedTuple):
     """How ``_primal_step`` projects the PSD blocks (solver.py:343-368):
@@ -497,286 +471,60 @@ def _dual_step(s: State, o: Operands, layout: ConeLayout, opts: Options):
                      primal_step_old=s.primal_step)
 
 
+def _scalar_step(s: State, o: Operands, layout: ConeLayout, opts: Options,
+                 step, residuals: bool = True, control: bool = True) -> State:
+    """The residuals' scalar tail and the control of one iteration (on a
+    CUDA state at most four launches: K3's first pass, K20a, K19, K20b).
+
+    ``step``: the runner's ``kernels.ControlStep`` (its ControlConfig and
+    block sides).  ``residuals``: K3's nine f64 reductions
+    (``kernels.residuals`` / ``residuals_batch``), then K19's formulas and
+    ring writes (solver.py:563-637); ``control``: K19's decisions
+    (solver.py:653-807) and, under the adaptive restart, K20a before K19
+    and K20b after it (solver.py:809-897).  ``kernels.control_plain`` and
+    its neighbours are the CPU path."""
+    r = None
+    if residuals:
+        args = (s.x, s.x_old, s.Mty, s.Mty_old, s.primal_step, s.y, s.y_old,
+                s.Mx, s.Mx_old, s.dual_step, o.b, o.h, o.c, layout.p, layout.m)
+        if s.x.dim() == 2:  # a batch of packed-triangle instances
+            r = kernels.residuals_batch(*args)
+        else:
+            # the sqrt(2) off-diagonal weight of the square-form blocks
+            # (solver.py:539-557); feasibility in user units (582-597); K19
+            # folds the partials
+            r = kernels.residuals(*args, layout.sdp_sides if layout.square_form
+                                  else (), row_scale=o.row_unscale, fold=False)
+        s = s.replace(x_old=s.x, y_old=s.y, Mty_old=s.Mty, Mx_old=s.Mx)
+    avgs = red = None
+    if control and opts.restart == "adaptive":
+        *avgs, red = step.restart_average(s, o)
+    upd, stalled, wsum = step.control(s, o, r=r, red=red, control=control)
+    if stalled is not None:
+        xa, ya, Mxa, Mtya, *sums = step.restart_adopt(s, avgs, stalled, wsum)
+        upd.update(x=xa, x_old=xa, y=ya, y_old=ya, Mx=Mxa, Mx_old=Mxa,
+                   Mty=Mtya, Mty_old=Mtya,
+                   **dict(zip(("avg_x", "avg_y", "avg_Mx", "avg_Mty"), sums)))
+    return s.replace(**upd)
+
+
 def _residuals_and_gap(s: State, o: Operands, layout: ConeLayout, opts: Options):
     """compute_residual! + compute_gap! (residuals.jl:2-71): K3's nine f64
     reductions, the scalar formulas of solver.py:563-612 in f64, and the
     ring writes in the program's dtype (an f32 program casts there, as
     the JAX f32 program does)."""
-    p, m = layout.p, layout.m
-    L = s.buf_gap.shape[-1]
-    idx = torch.remainder(s.iter, L)  # (k - 1) % L with k = iter + 1
-    args = (s.x, s.x_old, s.Mty, s.Mty_old, s.primal_step, s.y, s.y_old,
-            s.Mx, s.Mx_old, s.dual_step, o.b, o.h, o.c, p, m)
-    if s.x.dim() == 2:  # a batch of packed-triangle instances
-        r = kernels.residuals_batch(*args).unbind(-1)
-    else:
-        # the sqrt(2) off-diagonal weight of the square-form blocks
-        # (solver.py:539-557); feasibility in user units (582-597)
-        r = kernels.residuals(*args, layout.sdp_sides if layout.square_form
-                              else (), row_scale=o.row_unscale)
-    norm_b, norm_h, norm_c = o.norm_b.double(), o.norm_h.double(), o.norm_c.double()
-    # primal PPA residual (sqrt of the tri-equivalent coordinate count,
-    # residuals.jl:46-55)
-    pres = (
-        math.sqrt(float(layout.n_tri)) * r[0]
-        / torch.clamp_min(torch.maximum(r[1], torch.maximum(norm_b, norm_h)), 1.0)
-    )
-    dres = (
-        math.sqrt(float(p + m)) * r[2]
-        / torch.clamp_min(torch.maximum(r[3], norm_c), 1.0)
-    )
-    comb = torch.maximum(pres, dres)
-    zero = torch.zeros(s.iter.shape, dtype=torch.float64, device=s.x.device)
-    equa = r[4] / (1.0 + norm_b) if p else s.equa_feas.double()
-    ineq = r[5] / (1.0 + norm_h) if m else s.ineq_feas.double()
-    feas = torch.maximum(equa if p else zero, ineq if m else zero)
-    dual_obj = zero
-    if p:
-        dual_obj = dual_obj - r[7]
-    if m:
-        dual_obj = dual_obj - r[8]
-    obj_scale = o.obj_scale.double()
-    prim_obj = r[6] * obj_scale
-    dual_obj = dual_obj * obj_scale
-    gap = torch.abs(prim_obj - dual_obj) / (
-        1.0 + torch.abs(prim_obj) + torch.abs(dual_obj)
-    )
-    v = torch.stack([pres, dres, comb, feas, gap, prim_obj, dual_obj, equa,
-                     ineq], dim=-1).to(s.x.dtype).unbind(-1)
-    return s.replace(
-        x_old=s.x,
-        y_old=s.y,
-        Mty_old=s.Mty,
-        Mx_old=s.Mx,
-        buf_pres=_set(s.buf_pres, idx, v[0]),
-        buf_dres=_set(s.buf_dres, idx, v[1]),
-        buf_comb=_set(s.buf_comb, idx, v[2]),
-        buf_feas=_set(s.buf_feas, idx, v[3]),
-        buf_gap=_set(s.buf_gap, idx, v[4]),
-        buf_prim_obj=_set(s.buf_prim_obj, idx, v[5]),
-        buf_dual_obj=_set(s.buf_dual_obj, idx, v[6]),
-        equa_feas=v[7] if p else s.equa_feas,
-        ineq_feas=v[8] if m else s.ineq_feas,
-    )
-
-
-def _bump_ranks(target, current, min_eig, sides_arr, opts: Options):
-    """Adaptive target-rank increment (pdhg.jl:270-280, 289-303)."""
-    eligible = ((current + opts.rank_slack) >= target) & (min_eig > opts.tol_psd)
-    if opts.rank_increment == 0:
-        new = target * opts.rank_increment_factor
-    else:
-        new = target + opts.rank_increment_factor
-    return torch.where(eligible, torch.minimum(new, sides_arr), target)
+    step = kernels.control_step(layout, opts, s.x.device)
+    return _scalar_step(s, o, layout, opts, step, control=False)
 
 
 def _control(s: State, o: Operands, layout: ConeLayout, opts: Options,
              sides_arr: torch.Tensor):
     """Convergence / rank-update / divergence / adaptive-step branching,
     in-loop infeasibility detection (pdhg.jl:246-332, 390-483) and
-    adaptive restart-to-average (solver.py:653-911).  Branch-free on 0-d
-    tensors: no host sync."""
-    k = s.iter + 1
-    L = s.buf_gap.shape[-1]
-    idx = torch.remainder(k - 1, L)
-    w = opts.convergence_window
-
-    gap_k = _at(s.buf_gap, idx)
-    feas_k = _at(s.buf_feas, idx)
-    pres_k = _at(s.buf_pres, idx)
-    dres_k = _at(s.buf_dres, idx)
-    comb_k = _at(s.buf_comb, idx)
-    prim_k = _at(s.buf_prim_obj, idx)
-    dual_k = _at(s.buf_dual_obj, idx)
-    # floor modulo, as jnp's %: k - w - 1 is negative early on
-    comb_back = _at(s.buf_comb, torch.remainder(k - w - 1, L))
-
-    def i32(b):
-        return b.to(torch.int32)
-
-    active = ~((s.cert_kind != 0) & (k < s.cert_wait_until))
-    rank_update = s.rank_update + i32(active)
-
-    if layout.sdp_sides:
-        blk_conv = (
-            (sides_arr < opts.min_size_krylov_eigs)
-            | (s.target_rank > opts.max_target_rank_krylov_eigs)
-            | (s.min_eig < opts.tol_psd)
-        )
-        rank_conv = torch.all(blk_conv, dim=-1)
-    else:
-        rank_conv = torch.ones_like(active)
-    if layout.soc_lens:  # the SOC gap of the projection (solver.py:689-691)
-        rank_conv = rank_conv & (s.max_soc_gap < opts.tol_soc)
-
-    conv = (gap_k <= opts.tol_gap) & (feas_k <= opts.tol_feasibility)
-    opt_ok = conv & rank_conv & (k > opts.min_iter)
-    status = torch.where(
-        active & opt_ok & (s.status == 0) & (k >= s.opt_block_until),
-        1, s.status,
-    )
-
-    b1 = active & conv & ~opt_ok & (rank_update > w)
-    b2 = active & ~conv & (k > w) & (comb_back < comb_k) & (rank_update > w)
-    update_cont = s.update_cont + i32(b1 | b2)
-    do_bump1 = b1
-    do_bump2 = b2 & (update_cont > opts.divergence_min_update)
-    new_target = _bump_ranks(s.target_rank, s.current_rank, s.min_eig,
-                             sides_arr, opts)
-    target_rank = torch.where(_col(do_bump1 | do_bump2), new_target,
-                              s.target_rank)
-    any_not_full = (torch.any(s.target_rank < sides_arr, dim=-1)
-                    if layout.sdp_sides else torch.zeros_like(active))
-    reset = do_bump1 | (do_bump2 & any_not_full)
-    rank_update = torch.where(reset, 0, rank_update)
-    update_cont = torch.where(reset, 0, update_cont)
-
-    if opts.step_balance == "ratio":
-        r_ = opts.step_balance_ratio
-        b3 = active & ~conv & ~b2 & (pres_k > r_ * dres_k) & (k > w)
-        b4 = active & ~conv & ~b2 & ~b3 & (dres_k > r_ * pres_k) & (k > w)
-    else:
-        b3 = (active & ~conv & ~b2 & (pres_k > opts.tol_primal)
-              & (dres_k < opts.tol_dual) & (k > w))
-        b4 = (active & ~conv & ~b2 & ~b3 & (pres_k < opts.tol_primal)
-              & (dres_k > opts.tol_dual) & (k > w))
-    ada_count = s.ada_count + i32(b3 | b4)
-    fire3 = b3 & (ada_count > opts.adapt_window)
-    fire4 = b4 & (ada_count > opts.adapt_window)
-    ada_count = torch.where(fire3 | fire4, 0, ada_count)
-    al = s.adapt_level
-    if opts.line_search_flag:
-        beta = torch.where(fire3, s.beta * (1.0 - al), s.beta)
-        beta = torch.where(fire4, beta / (1.0 - al), beta)
-        primal_step = torch.where(fire3, s.primal_step / torch.sqrt(1.0 - al),
-                                  s.primal_step)
-        primal_step = torch.where(fire4, primal_step * torch.sqrt(1.0 - al),
-                                  primal_step)
-        dual_step = s.dual_step
-    else:
-        beta = s.beta
-        primal_step = torch.where(fire3, s.primal_step / (1.0 - al), s.primal_step)
-        primal_step = torch.where(fire4, primal_step * (1.0 - al), primal_step)
-        dual_step = torch.where(fire3, s.dual_step * (1.0 - al), s.dual_step)
-        dual_step = torch.where(fire4, dual_step / (1.0 - al), dual_step)
-    adapt_level = torch.where(fire3 | fire4, al * opts.adapt_decay, al)
-
-    # in-loop infeasibility / unboundedness detection (not in cert mode)
-    det = active & (s.cert_kind == 0) & (status == 0)
-    after_min = k > opts.min_iter_max_obj
-    c_inf1 = (after_min & (dual_k > opts.max_obj)) | torch.isnan(dual_k)
-    c_unb1 = (after_min & (prim_k < -opts.max_obj)) | torch.isnan(prim_k)
-    stalled_feas = (
-        after_min
-        & (gap_k > opts.infeas_limit_gap_tol)
-        & (feas_k > opts.infeas_feasibility_tol)
-        & (_max_abs_cyclic_diff(s.buf_feas) < opts.infeas_stable_feasibility_tol)
-    )
-    stall100 = (
-        after_min
-        & (gap_k > 1.0 - opts.infeas_gap_tol)
-        & (_max_abs_cyclic_diff(s.buf_gap) < opts.infeas_stable_gap_tol)
-    )
-    c_inf3 = stall100 & (torch.abs(dual_k) > torch.abs(prim_k)) & (
-        feas_k > opts.infeas_feasibility_tol
-    )
-    c_unb2 = stall100 & (torch.abs(prim_k) > torch.abs(dual_k)) & (
-        feas_k <= opts.tol_feasibility
-    )
-    det_stall = det & (k >= s.infeas_block_until)
-    status = torch.where(det & c_inf1, 6, status)
-    status = torch.where(det & (status == 0) & c_unb1, 5, status)
-    status = torch.where(det_stall & (status == 0) & stalled_feas, 6, status)
-    status = torch.where(det_stall & (status == 0) & c_inf3, 6, status)
-    status = torch.where(det_stall & (status == 0) & c_unb2, 5, status)
-    ray5 = (
-        (s.cert_kind == 5)
-        & (status == 0)
-        & (prim_k < -opts.certificate_obj_tol)
-        & (feas_k < opts.tol_feasibility * torch.clamp_min(torch.abs(prim_k), 1.0))
-    )
-    status = torch.where(ray5, 7, status)
-
-    restart_updates = {}
-    if opts.restart == "adaptive":
-        p, m = layout.p, layout.m
-        ps = s.primal_step
-        avg_x = s.avg_x + _col(ps) * s.x
-        avg_y = s.avg_y + _col(ps) * s.y
-        avg_Mx = s.avg_Mx + _col(ps) * s.Mx
-        avg_Mty = s.avg_Mty + _col(ps) * s.Mty
-        avg_w = s.avg_w + ps
-        epoch = (
-            active
-            & (status == 0)
-            & (s.cert_kind == 0)
-            & ((k - s.last_restart_iter) >= opts.restart_window)
-        )
-        metric_k = (torch.maximum(gap_k, feas_k)
-                    if opts.restart_trigger == "kkt" else gap_k)
-        stalled = (
-            epoch
-            & (metric_k > min(opts.tol_gap, opts.tol_feasibility))
-            & (metric_k > opts.restart_decay * s.last_restart_gap)
-            & torch.isfinite(metric_k)
-        )
-        wsum = torch.clamp_min(avg_w, 1e-30)
-        xa_ = avg_x / _col(wsum)
-        ya_ = avg_y / _col(wsum)
-        Mxa_ = avg_Mx / _col(wsum)
-        po_a = _dot(o.c, xa_) * o.obj_scale
-        do_a = torch.zeros_like(po_a)
-        if p:
-            do_a = do_a - _dot(o.b, ya_[..., :p])
-        if m:
-            do_a = do_a - _dot(o.h, ya_[..., p:])
-        do_a = do_a * o.obj_scale
-        gap_a = torch.abs(po_a - do_a) / (1.0 + torch.abs(po_a) + torch.abs(do_a))
-        feas_a = torch.zeros_like(gap_a)
-        if p:
-            feas_a = torch.maximum(
-                feas_a,
-                torch.amax(torch.abs(Mxa_[..., :p] - o.b), -1) / (1.0 + o.norm_b)
-            )
-        if m:
-            feas_a = torch.maximum(
-                feas_a, torch.amax(Mxa_[..., p:] - o.h, -1) / (1.0 + o.norm_h)
-            )
-        metric_now = torch.maximum(gap_k, feas_k)
-        metric_avg = torch.maximum(gap_a, feas_a)
-        stalled = stalled & (metric_avg < 0.9 * metric_now)
-
-        def mix(avg, cur):
-            return torch.where(_col(stalled), avg, cur)
-
-        xa = mix(xa_, s.x)
-        ya = mix(ya_, s.y)
-        Mxa = mix(Mxa_, s.Mx)
-        Mtya = mix(avg_Mty / _col(wsum), s.Mty)
-        keep = (~stalled).to(avg_w.dtype)
-        restart_updates = dict(
-            x=xa, x_old=xa, y=ya, y_old=ya,
-            Mx=Mxa, Mx_old=Mxa, Mty=Mtya, Mty_old=Mtya,
-            avg_x=avg_x * _col(keep), avg_y=avg_y * _col(keep),
-            avg_Mx=avg_Mx * _col(keep), avg_Mty=avg_Mty * _col(keep),
-            avg_w=avg_w * keep,
-            last_restart_iter=torch.where(epoch, k, s.last_restart_iter),
-            last_restart_gap=torch.where(epoch, metric_k, s.last_restart_gap),
-        )
-
-    return s.replace(
-        status=status,
-        rank_update=rank_update,
-        update_cont=update_cont,
-        ada_count=ada_count,
-        target_rank=target_rank,
-        beta=beta,
-        primal_step=primal_step,
-        dual_step=dual_step,
-        adapt_level=adapt_level,
-        iter=k,
-        **restart_updates,
-    )
+    adaptive restart-to-average (solver.py:653-911).  Branch-free: no host
+    sync."""
+    step = kernels.ControlStep(kernels.control_config(layout, opts), sides_arr)
+    return _scalar_step(s, o, layout, opts, step, residuals=False)
 
 
 def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
@@ -789,8 +537,7 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
     are any; under tensor parallelism rank 0's).  ``fetch(s)`` returns the
     14 host-monitored scalars as one NumPy array (one device-to-host
     copy)."""
-    sides_arr = torch.tensor(layout.sdp_sides or (1,), dtype=torch.int32,
-                             device=device)
+    step = kernels.control_step(layout, opts, device)
     singles = block_plan(layout, opts).singles
     nb = max(len(layout.sdp_sides), 1)
     tp = current_tp(opts)
@@ -830,8 +577,7 @@ def make_chunk_runner(layout: ConeLayout, opts: Options, *, device):
             s = _linesearch(s, o, layout, opts)
         else:
             s = _dual_step(s, o, layout, opts)
-        s = _residuals_and_gap(s, o, layout, opts)
-        return _control(s, o, layout, opts, sides_arr)
+        return _scalar_step(s, o, layout, opts, step)
 
     def run_chunk(s: State, o: Operands, chunk_end: int) -> State:
         lz = lanczos_blocks(s)

@@ -1839,3 +1839,207 @@ def test_sharded_solves_on_card(cuda):
     assert abs(obj - want.objval) <= 1e-4 * (1 + abs(want.objval))
     for (s, o), r in zip(got, batch):
         assert s == r.status == 1 and abs(o - r.objval) <= 1e-9
+
+
+# ------------------------------------------- K19, K20, K21: the control
+
+
+def _control_program():
+    """A PSD block of side 4, an SOC block, equality and inequality rows
+    (every row kind K19 and K20a read)."""
+    o = tx.Optimizer()
+    X = o.add_psd_var(4)
+    sv = o.add_soc_var(3)
+    for i in range(4):
+        o.add_eq_constraint({int(X[i, i]): 1.0}, 1.0)
+    o.add_eq_constraint({int(sv[0]): 1.0}, 2.0)
+    o.add_ineq_constraint({int(X[0, 1]): 1.0}, 0.3)
+    o.add_ineq_constraint({int(X[1, 2]): 1.0, int(sv[1]): 1.0}, 0.2)
+    W = np.arange(16.0).reshape(4, 4)
+    obj = o.psd_inner_product_coeffs(X, (W + W.T) / 10.0)
+    obj[int(sv[2])] = 0.5
+    o.set_objective(obj)
+    return o.build_problem()
+
+
+def _card_operands(setup, dtype, dev, B=None):
+    import dataclasses
+
+    o = convert.operands_from_numpy(
+        M=build_linop(setup.A, setup.G, dtype, device=dev), b=setup.b,
+        h=setup.h, c=setup.c, norm_b=setup.norm_b, norm_h=setup.norm_h,
+        norm_c=setup.norm_c, obj_scale=setup.obj_scale * setup.rhs_scale,
+        device=dev, dtype=dtype)
+    if B is None:
+        return o
+    return dataclasses.replace(o, **{f: getattr(o, f).expand(
+        (B,) + getattr(o, f).shape).contiguous() for f in (
+        "b", "h", "c", "norm_b", "norm_h", "norm_c", "obj_scale")})
+
+
+def _bits_equal(got, want):
+    for g, w in zip(got, want):
+        g, w = g.double().reshape(-1), w.double().reshape(-1)
+        assert bool(((g == w) | (g.isnan() & w.isnan())).all())
+
+
+def _flat(upd, stalled, wsum):
+    out = [upd[k] for k in sorted(upd)]
+    if stalled is not None:
+        out += [stalled.to(torch.int32), wsum]
+    return out
+
+
+def _check_control(s, o, layout, opts, sides, r_k=None, r_p=None):
+    """K20a within 1e-15 / 1e-6 (averages), K19 and K20b bit for bit
+    against their twins on the same inputs; the kernels' new state."""
+    dt = s.x.dtype
+    p, m = layout.p, layout.m
+    cfg = kernels.control_config(layout, opts)
+    a_args = (s.x, s.y, s.Mx, s.Mty, s.avg_x, s.avg_y, s.avg_Mx, s.avg_Mty,
+              s.avg_w, s.primal_step, o.c, o.b, o.h)
+    got_a = kernels.restart_average(*a_args, p, m)
+    want_a = kernels.restart_average_plain(*a_args, p, m)
+    tol = 1e-15 if dt == torch.float64 else 1e-6
+    for g, w in zip(got_a[:4], want_a[:4]):
+        scale = w.double().abs().max().clamp_min(1e-300)
+        assert float((g - w).double().abs().max() / scale) <= tol
+    batched = s.x.dim() == 2
+    red = got_a[4] if batched else torch.cat(
+        [got_a[4][:, :3].sum(0), got_a[4][:, 3:].amax(0)])
+    # each reduction against its sum of |terms| (its largest |value| for
+    # a maximum): the kernel sums exact f64 products, the twin in dt
+    wsum = torch.clamp_min(s.avg_w + s.primal_step, 1e-30).unsqueeze(-1)
+    xa, ya, mxa = (v / wsum for v in want_a[:3])
+    scale = torch.stack([
+        (o.c.abs() * xa.abs()).sum(-1),
+        (o.b.abs() * ya[..., :p].abs()).sum(-1),
+        (o.h.abs() * ya[..., p:].abs()).sum(-1),
+        (mxa[..., :p] - o.b).abs().amax(-1),
+        (mxa[..., p:] - o.h).abs().amax(-1) if m else wsum[..., 0],
+    ], dim=-1).double().clamp_min(1e-300)
+    used = [0] + [1, 3] * bool(p) + [2, 4] * bool(m)  # read by K19
+    err = (red - want_a[4].double()).abs() / scale
+    assert float(err[..., used].max()) <= tol
+    red = red.to(dt)
+    got = kernels.control(s, o, cfg, sides, r=r_k,
+                          red=red.double().reshape(-1, 5))
+    want = kernels.control_plain(s, o, cfg, sides, r=r_p, red=red)
+    _bits_equal(_flat(*got), _flat(*want))
+    upd, stalled, wsum = got
+    b_args = (s.x, s.y, s.Mx, s.Mty, *got_a[:4])
+    _bits_equal(kernels.restart_adopt(*b_args, stalled, wsum),
+                kernels.restart_adopt_plain(*b_args, stalled.bool(), wsum))
+    return s.replace(**upd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_control_kernels_match_plain_on_branch_states(cuda, dtype):
+    """Every crafted branch state of kernels.control_cases, single and
+    (the default options' ones) as a batch."""
+    from proxsdp_tpu_torch.kernels import control_cases
+
+    name = "float64" if dtype == torch.float64 else "float32"
+    opts = tx.Options(hybrid_precision=False, dtype=name)
+    for square in (True, False):
+        setup = preprocess(_control_program())
+        if square:
+            setup = to_square_form(setup)
+        layout = setup.layout
+        sides = torch.tensor(layout.sdp_sides, dtype=torch.int32, device=cuda)
+        cases = control_cases.branch_cases(
+            tsolver.init_state(layout, opts, setup), opts, setup.c, setup.b,
+            setup.h)
+        if square:
+            o = _card_operands(setup, dtype, cuda)
+            for c in cases:
+                s = convert.state_from_numpy(c.state, cuda)
+                new = _check_control(s, o, layout, c.opts, sides)
+                assert c.fired(c.state, convert.state_to_numpy(new)), c.name
+        else:
+            same = [c for c in cases if c.opts == opts]
+            st = convert.state_from_numpy(convert.stack_states(
+                [c.state for c in same]), cuda)
+            o = _card_operands(setup, dtype, cuda, B=len(same))
+            new = convert.state_to_numpy(_check_control(st, o, layout, opts,
+                                                        sides))
+            for i, c in enumerate(same):
+                assert c.fired(c.state, convert.index_state(new, i)), c.name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_control_folds_k3_partials_bit_for_bit(cuda, dtype):
+    """K19 fed K3's pass-1 partials (the iteration's path) gives what the
+    twin gives on K3's own second pass, bit for bit; _scalar_step is four
+    launches (K3, K20a, K19, K20b), the batch's as well."""
+    problem, _ = maxcut_problem(random_graph_weights(0, 60))
+    name = "float64" if dtype == torch.float64 else "float32"
+    opts = tx.Options(hybrid_precision=False, dtype=name)
+    for square in (True, False):
+        setup = preprocess(problem)
+        if square:
+            setup = to_square_form(setup)
+        layout = setup.layout
+        host = tsolver.init_state(layout, opts, setup)
+        rng = np.random.default_rng(3)
+        for f in ("x", "x_old", "y", "y_old", "Mx", "Mx_old", "Mty",
+                  "Mty_old", "avg_x", "avg_y", "avg_Mx", "avg_Mty"):
+            host[f] = rng.standard_normal(host[f].shape).astype(host[f].dtype)
+        B = None if square else 5
+        if B:
+            host = convert.stack_states([host] * B)
+        s = convert.state_from_numpy(host, cuda)
+        o = _card_operands(setup, dtype, cuda, B=B)
+        sides = torch.tensor(layout.sdp_sides, dtype=torch.int32, device=cuda)
+        args = (s.x, s.x_old, s.Mty, s.Mty_old, s.primal_step, s.y, s.y_old,
+                s.Mx, s.Mx_old, s.dual_step, o.b, o.h, o.c, layout.p,
+                layout.m)
+        if square:
+            r_k = kernels.residuals(*args, layout.sdp_sides, fold=False)
+            r_p = kernels.residuals(*args, layout.sdp_sides)
+            assert r_k.shape[0] > 1
+        else:
+            r_k = r_p = kernels.residuals_batch(*args)
+        s1 = s.replace(x_old=s.x, y_old=s.y, Mty_old=s.Mty, Mx_old=s.Mx)
+        _check_control(s1, o, layout, opts, sides, r_k=r_k, r_p=r_p)
+        kernels.reset_launch_counts()
+        step = kernels.ControlStep(kernels.control_config(layout, opts), sides)
+        for _ in range(2):  # the call that makes the step's plans, and one after
+            kernels.reset_launch_counts()
+            tsolver._scalar_step(s, o, layout, opts, step)
+            torch.cuda.synchronize()
+            assert sum(kernels.launch_counts.values()) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_freeze_rows_matches_where(cuda, dtype):
+    """K21 against torch.where per field, bit for bit, on a batch step
+    whose x_old is its x; one launch for every differing field."""
+    from proxsdp_tpu_torch.parallel import batch as tbatch
+
+    problems = [maxcut_problem(random_graph_weights(s, 10))[0]
+                for s in range(6)]
+    name = "float64" if dtype == torch.float64 else "float32"
+    opts = tbatch._force_batch_options(tx.Options(hybrid_precision=False,
+                                                  dtype=name))
+    setups = [preprocess(p) for p in problems]
+    o = tbatch._batch_operands(setups, dtype, cuda, "auto")
+    s = tbatch._stack_states(setups[0].layout, opts, setups, cuda)
+    run = tbatch.make_batch_runner(setups[0].layout, opts, device=cuda)[0]
+    s = run(s, o, 3)
+    new = tsolver._scalar_step(s, o, setups[0].layout, opts,
+                               kernels.control_step(setups[0].layout, opts,
+                                                    cuda))
+    mask = torch.tensor([True, False, True, False, False, True], device=cuda)
+    kernels.reset_launch_counts()
+    got = tbatch._where_rows(mask, new, s)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts.values()) == 1
+    for f in tsolver.STATE_FIELDS:
+        n, old = getattr(new, f), getattr(s, f)
+        pairs = zip(n, old, getattr(got, f)) if f == "warm" else [
+            (n, old, getattr(got, f))]
+        for a, b, g in pairs:
+            w = torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+            _bits_equal([g], [w])
+    assert got.x is not got.x_old

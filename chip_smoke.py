@@ -44,7 +44,8 @@
    the same X; and K5-K8 at the side-2000 shapes: K7 at k = 32, 128,
    192, 256, K8 at the race's buckets and the polish's, K5 on square
    products, on the reseed's column slices and as the Ritz rotation, K6
-   in every type pair;
+   in every type pair; then K5 and K7 at ragged, unaligned and
+   degenerate shapes, checked and not timed (edge_kernel_checks);
 6. phase E: the default Options(chunk_iters=256) solve of
    maxcut_problem(random_graph_weights(0, 2000)) (maxG32's side), once:
    status 1, the objective within 2e-4 (1 + |obj|) of the JAX package's,
@@ -727,6 +728,8 @@ I_REF_LP_NORM = 0.2538993817603355
 # in another order than the plain version's (2e-5 of the output's scale);
 # K3's f32 program and K8's Ritz sums in the mixed polish are f64 slots.
 RTOL = {"f64": 1e-12, "f32": 2e-5}
+# K5's ragged and unaligned dimensions (edge_kernel_checks)
+EDGE_DIMS = (1, 31, 33, 127, 250)
 REPS = 20  # timed calls a row, within the script's time limit
 SLOW_MS = 20.0
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and the fastest
@@ -1416,6 +1419,16 @@ def linesearch_batch_row(torch, kernels, out, o, p, m, sfx, dt, dev, rng,
                       "ls_loop_batch_kernel"))
 
 
+def k10_take_index(torch, kernels, B, side, width, dt, dev):
+    """Flat indices for K10's library column: torch.take of the gather
+    tri_to_square makes from B rows of ``width`` (its scale left out), and
+    of the one square_to_tri makes from B (side, side) matrices."""
+    gidx, _, sq_of_tri, _ = kernels._tri_maps(side, dt, dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    return (rows * width + gidx.long()[None, :],
+            rows * (side * side) + sq_of_tri.long()[None, :])
+
+
 def kernel_checks(torch, kernels, setup, rng, dev):
     """Each entry point of the default path against its plain version at
     the path's shapes on ``dev``; (rows of the kernels line, launches
@@ -1519,6 +1532,9 @@ def kernel_checks(torch, kernels, setup, rng, dev):
         lambda f: (f(A, A, A, POLAR_QB, POLAR_QC),), kernels.ns_gemm_plain,
         (A,), (mat,), cube + 3 * SIDE * SIDE,
         library=lambda: torch.addmm(A, A, A, beta=POLAR_QB, alpha=POLAR_QC))
+    LAUNCH_US.append((f"ns_gemm_f32 (side {SIDE}, QB A + QC A A)",
+                      lambda: kernels.ns_gemm(A, A, A, POLAR_QB, POLAR_QC),
+                      "gemm_axpby_kernel"))
     add("ns_gemm", "f32", "ns_gemm.cu", "proxsdp_tpu/ops/cones.py:90",
         lambda f: (f(Y, A, Y, POLAR_QA, 1.0),), kernels.ns_gemm_plain,
         (Y, A), (mat,), cube + 3 * SIDE * SIDE,
@@ -1566,6 +1582,9 @@ def kernel_checks(torch, kernels, setup, rng, dev):
             # G = Y^T Y (symmetric), its Cholesky, the solve Y L^-T
             2 * SIDE * k * k + k ** 3 // 3, label=f"k={k}",
             library=lambda Yk=Yk: torch.linalg.qr(Yk))
+        # a launch runs one CUDA function (the small pass) or three
+        LAUNCH_US.append((f"cholqr_f32 (side {SIDE}, k={k})",
+                          lambda Yk=Yk: kernels.cholqr(Yk), "cholqr_", True))
     # K8: the race's f32 test (theta from the eigh) at k = 24, and the
     # mixed polish's f64 test (f64 Rayleigh quotients) at k = 16
     for sfx, k, dt in (("f32", 24, f32), ("f64", 16, f64)):
@@ -1758,12 +1777,18 @@ def batch_kernel_checks(torch, kernels, setups, rng, dev, eigh_sides=EIGH_SIDES,
             lambda f: (f(x, Mty, o.c, tau),), kernels.primal_update_batch_plain,
             (x, Mty, o.c, tau), (out_n,), 3 * B * n)
         S = kernels.tri_to_square_plain(x, side)
+        # the library column: the same gather (without the scale) by one
+        # torch.take on flat indices made beforehand
+        take_in, take_out = k10_take_index(torch, kernels, B, side, x.shape[1],
+                                           dt, dev)
         add("tri_to_square", sfx, "tri_gather.cu", "proxsdp_tpu/ops/tri.py:39",
             lambda f: (f(x, side),), kernels.tri_to_square_plain,
-            (x, *kernels._tri_maps(side, dt, dev)[:2]), (S,), B * side * side)
+            (x, *kernels._tri_maps(side, dt, dev)[:2]), (S,), B * side * side,
+            library=lambda: torch.take(x, take_in))
         add("square_to_tri", sfx, "tri_gather.cu", "proxsdp_tpu/ops/tri.py:47",
             lambda f: (f(S, side),), kernels.square_to_tri_plain,
-            (S, *kernels._tri_maps(side, dt, dev)[2:]), (x[:, :tl],), B * tl)
+            (S, *kernels._tri_maps(side, dt, dev)[2:]), (x[:, :tl],), B * tl,
+            library=lambda: torch.take(S, take_out))
     return rows, off_path
 
 
@@ -2215,8 +2240,9 @@ def lanczos_compare(torch, kernels, X, sfx, tol, errs):
     return fn
 
 
-# (row label, call, CUDA function name) of the rows whose device time a
-# launch main() reads under the profiler after the phases
+# (row label, call, CUDA function name[, True: the time a call of all
+# the functions matched]) of the rows whose device time a launch main()
+# reads under the profiler after the phases
 LAUNCH_US: list = []
 # rows of one linesearch trial's kernels (K2, sq_dist): checked against
 # their plain versions; they run only on the tensor-parallel path (phase
@@ -2224,10 +2250,12 @@ LAUNCH_US: list = []
 TRIAL_ROWS: list = []
 
 
-def device_us(torch, fn, name, calls=3):
+def device_us(torch, fn, name, calls=3, per_call=False):
     """Device µs per launch of the CUDA functions whose names contain
     ``name``, over ``calls`` calls of fn under torch.profiler (None where
-    the profiler shows no device events)."""
+    the profiler shows no device events); ``per_call``: their device time
+    a call of fn, one launch of ours that may run several of them (K7: G,
+    the factor and the solve, or the one small-pass kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2246,7 +2274,15 @@ def device_us(torch, fn, name, calls=3):
         return None
     return sum(getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-               for e in hits) / count
+               for e in hits) / (calls if per_call else count)
+
+
+def print_launch_us(torch) -> None:
+    """Each LAUNCH_US row's device µs a launch, under the profiler."""
+    for label, fn, pattern, *per_call in LAUNCH_US:
+        us = device_us(torch, fn, pattern, calls=10, per_call=bool(per_call))
+        print(f"kernel {label}: device "
+              f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
 
 
 def giant_kernel_checks(torch, kernels, rng, dev):
@@ -2322,6 +2358,10 @@ def giant_kernel_checks(torch, kernels, rng, dev):
                 # G = Y^T Y (symmetric), its Cholesky, the solve Y L^-T
                 2 * side * k * k + k ** 3 // 3, label=f"side {side} k={k}",
                 library=lambda Yk=Yk: torch.linalg.qr(Yk))
+            if k in (128, 256):
+                LAUNCH_US.append((f"cholqr_{sfx} (side {side}, k={k})",
+                                  lambda Yk=Yk: kernels.cholqr(Yk), "cholqr_",
+                                  True))
         # K5: one Newton-Schulz product at side 2000 (the f32 race's polar
         # projection and reseeds; the f64 program's polar fallback)
         Y = (Xs / torch.linalg.norm(Xs)).to(dt)
@@ -2333,6 +2373,9 @@ def giant_kernel_checks(torch, kernels, rng, dev):
             kernels.ns_gemm_plain, (Y, A), (A,), 2 * side ** 3 + 3 * side ** 2,
             library=lambda Y=Y, A=A: torch.addmm(Y, Y, A, beta=POLAR_QA),
             label=f"side {side}")
+        LAUNCH_US.append((f"ns_gemm_{sfx} (side {side}, QA Y + Y A)",
+                          lambda Y=Y, A=A: kernels.ns_gemm(Y, A, Y, POLAR_QA, 1.0),
+                          "gemm_axpby_kernel"))
     # a side-2000 matrix with 90 positive eigenvalues (the rank the port's
     # race observes) and a negative bulk, its Newton-Schulz iterate and
     # sign, and its leading eigenvectors as the subspace basis (as phase
@@ -2443,6 +2486,78 @@ def giant_kernel_checks(torch, kernels, rng, dev):
         2 * ncv * ncv * side, library=lambda: torch.matmul(St, Vl),
         label=f"Ritz rotation, n={side} ncv={ncv}")
     return rows
+
+
+def edge_kernel_checks(torch, kernels, rng, dev):
+    """K5 and K7 at the ragged, unaligned and degenerate shapes of their
+    designs against the plain versions (RTOL), checked and not timed: K5
+    at M, N, K in EDGE_DIMS (every M, N pair, K cycling through them), the
+    strided P+ / P- slices of k = 33 and 128 bases, a row slab from an odd
+    row, batches of 3 (K5b); K7 at k = 1, 33, 200, at the f64 shared-memory
+    edge of its factor and one past it (side 2000), on a zero Y (jitter
+    -1) and on a Y with a zero column (no jitter), both NaN everywhere."""
+    for sfx, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        def mat(*shape, dt=dt):
+            return torch.tensor(rng.standard_normal(shape), dtype=dt,
+                                device=dev)
+
+        worst = {"ns_gemm": 0.0, "cholqr": 0.0}
+        count = {"ns_gemm": 0, "cholqr": 0}
+
+        def one(name, args, label, kind):
+            kernels.reset_launch_counts()
+            got = getattr(kernels, name)(*args)
+            torch.cuda.synchronize()
+            check(kernels.launch_counts[f"{name}_{sfx}"] == 1,
+                  f"{name}_{sfx} ({label}): not one launch")
+            _, rel = compare(torch, (got,), (getattr(kernels, name + "_plain")(*args),))
+            check(rel <= RTOL[sfx], f"{name}_{sfx} ({label}): relative error "
+                  f"{rel:.3e} > {RTOL[sfx]}")
+            worst[kind] = max(worst[kind], rel)
+            count[kind] += 1
+            return got
+
+        for i, M in enumerate(EDGE_DIMS):
+            for j, N in enumerate(EDGE_DIMS):
+                K = EDGE_DIMS[(i + 2 * j) % len(EDGE_DIMS)]
+                one("ns_gemm", (mat(M, K), mat(K, N), mat(M, N), -0.75, 1.25),
+                    f"{M}x{K}x{N}", "ns_gemm")
+        S = mat(SIDE, SIDE)
+        for k in (33, 128):
+            W = mat(SIDE, k)
+            for cols, sign in ((slice(None, -1), 0.5), (slice(-1, None), -0.5)):
+                Wc = W[:, cols]
+                one("ns_gemm", (S, Wc, Wc, 0.5, sign), f"k={k} slice", "ns_gemm")
+        one("ns_gemm", (S[125:], S, S[125:], 0.5, 0.5), "rows 125-250",
+            "ns_gemm")
+        Xb, Zb = mat(3, SIDE, SIDE), mat(3, SIDE, SIDE)
+        for args in ((Xb, Zb, Xb, 0.5, -1.5), (Xb, Zb),
+                     (mat(3, 33, 31), mat(3, 31, 127))):
+            one("ns_gemm_batch", args, "B = 3", "ns_gemm")
+        edge = max(k for k in range(1, kernels.CHOLQR_MAX_K + 1)
+                   if kernels.cholqr_shared_columns(k, dt) == 0)
+        shapes = [(SIDE, 1), (SIDE, 33), (LZ_SIDE, 200)]
+        if edge < kernels.CHOLQR_MAX_K:
+            shapes += [(LZ_SIDE, edge), (LZ_SIDE, edge + 1)]
+        X = mat(LZ_SIDE, LZ_SIDE)
+        for side, k in shapes:
+            Y = torch.matmul(X[:side, :side], mat(side, k))
+            one("cholqr", (Y, kernels.CHOLQR_EPS[dt]), f"side {side} k={k}",
+                "cholqr")
+        Yz = torch.zeros(SIDE, 24, dtype=dt, device=dev)
+        Yc = mat(SIDE, 24)
+        Yc[:, 5] = 0.0
+        for label, Y, eps in (("zero Y", Yz, -1.0), ("zero column", Yc, 0.0)):
+            Q = one("cholqr", (Y, eps), label, "cholqr")
+            check(bool(torch.isnan(Q).all()), f"cholqr_{sfx} ({label}): "
+                  "Q not NaN everywhere")
+        print(f"kernel ns_gemm_{sfx} edges: {count['ns_gemm']} products (M, N, "
+              f"K in {EDGE_DIMS}, strided slices, a row slab, B = 3) max rel "
+              f"err {worst['ns_gemm']:.3e} (tol {RTOL[sfx]:.2g}); not timed")
+        print(f"kernel cholqr_{sfx} edges: {count['cholqr']} passes (side, k "
+              f"{shapes}; shared-memory edge k = {edge}; zero Y and zero "
+              f"column NaN everywhere) max rel err {worst['cholqr']:.3e} "
+              f"(tol {RTOL[sfx]:.2g}); not timed")
 
 
 class HostTimer:
@@ -4873,15 +4988,18 @@ def option_kernel_checks(torch, kernels, rng, dev):
         v = torch.tensor(rng.standard_normal((1, tl)), dtype=dt, device=dev)
         Xs = kernels.tri_to_square_plain(v, side).contiguous()
         gather = (torch.empty(side * side, dtype=torch.int32, device=dev),)
+        take_in, take_out = k10_take_index(torch, kernels, 1, side, tl, dt, dev)
         check_entry(torch, kernels, rows, "tri_to_square", sfx, "tri_gather.cu",
                     "proxsdp_tpu/ops/tri.py:39", lambda f, v=v: (f(v, side),),
                     kernels.tri_to_square_plain, (v,) + gather, (Xs,),
-                    side * side, tol=0.0, label=f"N1: B = 1, side {side}")
+                    side * side, tol=0.0, label=f"N1: B = 1, side {side}",
+                    library=lambda v=v, i=take_in: torch.take(v, i))
         check_entry(torch, kernels, rows, "square_to_tri", sfx, "tri_gather.cu",
                     "proxsdp_tpu/ops/tri.py:47", lambda f, Xs=Xs: (f(Xs, side),),
                     kernels.square_to_tri_plain, (Xs,) + gather[:0]
                     + (torch.empty(tl, dtype=torch.int32, device=dev),), (v,),
-                    tl, tol=0.0, label=f"N1: B = 1, side {side}")
+                    tl, tol=0.0, label=f"N1: B = 1, side {side}",
+                    library=lambda Xs=Xs, i=take_out: torch.take(Xs, i))
         x, Mty, c = (torch.tensor(rng.standard_normal(tl), dtype=dt, device=dev)
                      for _ in range(3))
         tau = torch.tensor(0.37, dtype=dt, device=dev)
@@ -6046,10 +6164,7 @@ def main() -> int:
         t_phase = time.perf_counter()
         kept, left = phase_l_rows(lrows, phase_l(torch, kernels, smi))
         print(f"phase L: {time.perf_counter() - t_phase:.1f} s")
-        for label, fn, pattern in LAUNCH_US:
-            us = device_us(torch, fn, pattern, calls=10)
-            print(f"kernel {label}: device "
-                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print_launch_us(torch)
         print("phase L rows left off the line (not launched at their shape "
               "in L): " + ", ".join(row["name"] for row in left))
         print(json.dumps({"kernels": [
@@ -6066,10 +6181,7 @@ def main() -> int:
         t_phase = time.perf_counter()
         kept, left = phase_m_rows(mrows, phase_m(torch, kernels, smi))
         print(f"phase M: {time.perf_counter() - t_phase:.1f} s")
-        for label, fn, pattern in LAUNCH_US:
-            us = device_us(torch, fn, pattern, calls=10)
-            print(f"kernel {label}: device "
-                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print_launch_us(torch)
         print("phase M rows left off the line: " + ", ".join(
             row["name"] for row in left + moff))
         print(json.dumps({"kernels": [
@@ -6086,10 +6198,7 @@ def main() -> int:
         t_phase = time.perf_counter()
         kept, left = phase_n_rows(nrows, phase_n(torch, kernels, smi))
         print(f"phase N: {time.perf_counter() - t_phase:.1f} s")
-        for label, fn, pattern in LAUNCH_US:
-            us = device_us(torch, fn, pattern, calls=10)
-            print(f"kernel {label}: device "
-                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print_launch_us(torch)
         print("phase N rows left off the line: " + ", ".join(
             row["name"] for row in left + noff))
         print(json.dumps({"kernels": [
@@ -6105,10 +6214,7 @@ def main() -> int:
         t_phase = time.perf_counter()
         kept, left = phase_o_rows(orows, phase_o(torch, kernels, smi))
         print(f"phase O: {time.perf_counter() - t_phase:.1f} s")
-        for label, fn, pattern in LAUNCH_US:
-            us = device_us(torch, fn, pattern, calls=10)
-            print(f"kernel {label}: device "
-                  f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+        print_launch_us(torch)
         print("phase O rows left off the line: " + ", ".join(
             row["name"] for row in left + ooff))
         print(json.dumps({"kernels": [
@@ -6203,6 +6309,8 @@ def main() -> int:
     t_b = time.perf_counter()
     grows = giant_kernel_checks(torch, kernels, np.random.default_rng(2),
                                 torch.device("cuda"))
+    edge_kernel_checks(torch, kernels, np.random.default_rng(15),
+                       torch.device("cuda"))
     t_g = time.perf_counter()
     # phase G's shapes: K12 in its three modes, K9 past side 64, K10 and
     # the batched K1-K4 at G1's and G2's instances
@@ -6540,10 +6648,7 @@ def main() -> int:
     rec_c.kept.clear()
     rec_d.kept.clear()
 
-    for label, fn, pattern in LAUNCH_US:
-        us = device_us(torch, fn, pattern, calls=10)
-        print(f"kernel {label}: device "
-              f"{'not measured' if us is None else f'{us:.1f} us'} a launch")
+    print_launch_us(torch)
     check(all(row["ms"] is not None for row in rows),
           "kernels line: a row without its times")
     on_line = {row["name"].split(" ")[0] for row in rows}

@@ -221,18 +221,29 @@ def load() -> None:
     _library()
 
 
+_ENTRIES: dict = {}
+
+
 def _entry(name: str, dtype) -> tuple:
     """(name, the function ``proxsdp_{name}_{suffix}``, its launch_counts
     key); ``dtype`` is a torch dtype or an entry-point suffix such as
-    "f64_f32"."""
-    sfx = dtype if isinstance(dtype, str) else _SUFFIX[dtype]
-    return name, getattr(_library(), f"proxsdp_{name}_{sfx}"), f"{name}_{sfx}"
+    "f64_f32".  Looked up once a pair."""
+    entry = _ENTRIES.get((name, dtype))
+    if entry is None:
+        sfx = dtype if isinstance(dtype, str) else _SUFFIX[dtype]
+        entry = _ENTRIES[name, dtype] = (
+            name, getattr(_library(), f"proxsdp_{name}_{sfx}"),
+            f"{name}_{sfx}")
+    return entry
 
 
 def _call(entry: tuple, device: torch.device, *args) -> None:
     """Launch an ``_entry`` on the current stream of ``device``."""
     name, fn, key = entry
-    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    # the current stream's handle (torch.cuda.current_stream builds a Stream
+    # object a call, ~10 us of host time)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise KernelError(f"{name}: CUDA launch failed (cudaError {rc})")
     launch_counts[key] += 1
@@ -832,15 +843,15 @@ def _soc_table(lens: tuple, device):
 # ---------------------------------------------- K5 GEMM with axpby epilogue
 
 
-def _check_matrix(name: str, t: torch.Tensor, what: str) -> None:
-    """2-d with unit column stride (a column slice of a row-major matrix
-    is fine: the kernel takes the row stride)."""
-    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+def _matrix_row_stride(name: str, t: torch.Tensor, what: str) -> int:
+    """The row stride of a 2-d ``t`` with unit column stride (a column
+    slice of a row-major matrix is fine: the kernel takes the row stride)."""
+    if t.dim() != 2:
         raise ValueError(f"{name}: {what} must be 2-d with contiguous rows")
-
-
-def _row_stride(t: torch.Tensor) -> int:
-    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+    (rows, cols), (s0, s1) = t.shape, t.stride()
+    if cols > 1 and s1 != 1:
+        raise ValueError(f"{name}: {what} must be 2-d with contiguous rows")
+    return s0 if rows > 1 else cols
 
 
 def ns_gemm_plain(A, B, C=None, alpha: float = 0.0, beta: float = 1.0):
@@ -854,22 +865,19 @@ def ns_gemm(A, B, C=None, alpha: float = 0.0, beta: float = 1.0):
     is rounded, then the two are added."""
     name = "ns_gemm"
     mats = (A, B) if C is None else (A, B, C)
-    for t, what in zip(mats, ("A", "B", "C")):
-        _check_matrix(name, t, what)
-    M, K = A.shape
-    if B.shape[0] != K or (C is not None and C.shape != (M, B.shape[1])):
+    lds = [_matrix_row_stride(name, t, what) for t, what in zip(mats, "ABC")]
+    (M, K), N = A.shape, B.shape[1]
+    if B.shape[0] != K or (C is not None and tuple(C.shape) != (M, N)):
         raise ValueError(f"{name}: shapes {tuple(A.shape)} @ {tuple(B.shape)}"
                          f" + {None if C is None else tuple(C.shape)}")
     if _on_cpu(name, *mats, strided=True):
         return ns_gemm_plain(A, B, C, alpha, beta)
-    N = B.shape[1]
     out = torch.empty((M, N), dtype=A.dtype, device=A.device)
     if out.numel() == 0:  # nothing to compute (a zero-sized grid)
         return out
-    _launch(name, A.dtype, A.device, _ptr(A), _row_stride(A), _ptr(B),
-            _row_stride(B), None if C is None else _ptr(C),
-            0 if C is None else _row_stride(C), _ptr(out), M, N, K,
-            float(alpha), float(beta))
+    _launch(name, A.dtype, A.device, _ptr(A), lds[0], _ptr(B), lds[1],
+            None if C is None else _ptr(C), 0 if C is None else lds[2],
+            _ptr(out), M, N, K, float(alpha), float(beta))
     return out
 
 
@@ -1092,9 +1100,23 @@ def sym_guard_batch(P, S, X):
 
 # the jitter of _cholqr2, keyed on the compute dtype (cones.py:249-256)
 CHOLQR_EPS = {torch.float32: 1e-6, torch.float64: 1e-12}
-# shared memory for G (k * k words) in cholqr.cu's single block; a larger
-# G goes to a scratch in device memory
-CHOLQR_SMEM_BYTES = 200 * 1024
+# cholqr.cu's factor keeps the packed lower triangle of G (k (k + 1) / 2
+# words) in shared memory up to this many bytes (kFactorSmem): f32 to
+# k = 256, f64 to k = 240; past that the leading columns stay in the
+# workspace and the trailing triangle that fits is on chip
+CHOLQR_SMEM_BYTES = 231424
+# the widest basis the kernel takes (K8's RITZ_MAX_K)
+CHOLQR_MAX_K = 256
+
+
+def cholqr_shared_columns(k: int, dtype) -> int:
+    """The first column of cholqr.cu's factor held in shared memory (0:
+    all of them) for a (side, k) basis of ``dtype``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    cs = 0
+    while (k - cs) * (k - cs + 1) // 2 * size > CHOLQR_SMEM_BYTES:
+        cs += 1
+    return cs
 
 
 def cholqr_plain(Y, eps: float):
@@ -1111,7 +1133,10 @@ def cholqr_plain(Y, eps: float):
 
 def cholqr(Y, eps: float | None = None):
     """One CholeskyQR pass: Q = Y L^{-T} with L = chol(Y^T Y + eps *
-    (tr(Y^T Y) / k + 1) I); NaN everywhere if a pivot is not positive."""
+    (tr(Y^T Y) / k + 1) I); NaN everywhere if a pivot is not positive.  On
+    the card k <= CHOLQR_MAX_K: one C entry point (one launch count) runs
+    G's, the factor's and the solve's kernels, or at k <= 32 and side <=
+    512 one kernel for all three."""
     name = "cholqr"
     if Y.dim() != 2:
         raise ValueError(f"{name}: Y must be 2-d")
@@ -1119,11 +1144,17 @@ def cholqr(Y, eps: float | None = None):
     if _on_cpu(name, Y):
         return cholqr_plain(Y, eps)
     side, k = Y.shape
-    gws = (torch.empty((k, k), dtype=Y.dtype, device=Y.device)
-           if k * k * Y.element_size() > CHOLQR_SMEM_BYTES else None)
-    Q = torch.empty_like(Y)
-    _launch(name, Y.dtype, Y.device, _ptr(Y), _ptr(Q),
-            None if gws is None else _ptr(gws), side, k, float(eps))
+    if k > CHOLQR_MAX_K:
+        raise ValueError(f"{name}: k = {k} > {CHOLQR_MAX_K}")
+    if Y.numel() == 0:
+        return torch.empty_like(Y)
+    # Q, then the workspace: the packed G (then L) and the flag of a
+    # non-positive pivot (one allocation)
+    buf = torch.empty(side * k + k * (k + 1) // 2 + 1, dtype=Y.dtype,
+                      device=Y.device)
+    Q = buf[:side * k].view(side, k)
+    _launch(name, Y.dtype, Y.device, _ptr(Y), _ptr(Q), _ptr(buf) +
+            side * k * Y.element_size(), side, k, float(eps))
     return Q
 
 

@@ -175,9 +175,49 @@ def test_new_kernels_match_plain(cuda, dtype, side, k):
             g, w = g[~nan], w[~nan]
             if w.numel():
                 _close((g,), (w,), w.dtype)
-    # a non-positive pivot gives NaN, as jnp.linalg.cholesky does
+    # a non-positive pivot gives NaN, as jnp.linalg.cholesky does: an
+    # all-zero Y (C27) with a negative jitter, a rank-deficient Y (a zero
+    # column) with none
     Q = kernels.cholqr(torch.zeros(side, k, dtype=dtype, device=cuda), -1.0)
     assert torch.isnan(Q).all()
+    Yd = W[:, :k].contiguous()
+    Yd[:, k // 2] = 0.0
+    Q = kernels.cholqr(Yd, 0.0)
+    assert torch.isnan(Q).all() and torch.isnan(kernels.cholqr_plain(Yd, 0.0)).all()
+
+
+EDGE_DIMS = [1, 31, 33, 127, 250]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", EDGE_DIMS)
+@pytest.mark.parametrize("N", EDGE_DIMS)
+def test_ns_gemm_ragged_matches_plain(cuda, dtype, M, N):
+    """K5's shape table and load paths at ragged and unaligned shapes (K in
+    EDGE_DIMS too), a column slice at an odd offset (row stride N + 1), a
+    row slab from an odd row, and K5b over a batch of 3, against the plain
+    version at RTOL."""
+    rng = np.random.default_rng(1000 * M + N)
+
+    def mat(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
+
+    cases = []
+    for K in EDGE_DIMS:
+        A, B, C = mat(M, K), mat(K, N), mat(M, N)
+        cases += [(kernels.ns_gemm, (A, B)), (kernels.ns_gemm, (A, B, C, -0.75, 1.25))]
+    Bw = mat(33, N + 1)
+    cases.append((kernels.ns_gemm, (mat(M, 33), Bw[:, 1:], None, 0.0, 0.5)))
+    A2 = mat(M + 1, 31)
+    cases.append((kernels.ns_gemm, (A2[1:], mat(31, N), mat(M + 1, N)[1:], 0.5, 0.5)))
+    cases.append((kernels.ns_gemm_batch, (mat(3, M, 33), mat(3, 33, N),
+                                          mat(3, M, N), 0.5, -1.5)))
+    for wrapper, args in cases:
+        kernels.reset_launch_counts()
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts.values()) == 1
+        _close((got,), (getattr(kernels, wrapper.__name__ + "_plain")(*args),), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1027,10 +1067,15 @@ def test_lanczos_krylov_matches_plain(cuda, n, dtype, kind):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [192, 256])
+@pytest.mark.parametrize("k", [192, 256, 1, 33, 200, 240, 241])
 def test_cholqr_wide_matches_plain(cuda, dtype, k):
-    """K7 at the subspace buckets of a side-2000 solve: G in shared memory
-    (f32, k = 192) or in the global scratch (the others)."""
+    """K7 at the subspace buckets of a side-2000 solve and at k = 1, 33,
+    200: the factor's packed triangle all in shared memory (f32 to k = 256,
+    f64 to 240, the edge) or its leading columns in the workspace (f64 from
+    241)."""
+    assert (kernels.cholqr_shared_columns(240, torch.float64),
+            kernels.cholqr_shared_columns(241, torch.float64),
+            kernels.cholqr_shared_columns(256, torch.float32)) == (0, 1, 0)
     rng = np.random.default_rng(k)
     X = torch.tensor(rng.standard_normal((2000, 2000)), dtype=dtype, device=cuda)
     Y = torch.matmul(X, torch.tensor(rng.standard_normal((2000, k)),

@@ -152,6 +152,24 @@ def test_polar_and_subspace_wrappers_reject_bad_input():
                             1e-7, False)
 
 
+def test_cholqr_and_ns_gemm_layout_rules():
+    """K7's factor keeps G's packed triangle in shared memory up to
+    CHOLQR_SMEM_BYTES: f32 at every k to CHOLQR_MAX_K, f64 to k = 240 (the
+    edge the card tests take), past it the leading columns stay in the
+    workspace.  K5 reads a column slice or a row slab at its row stride
+    (one row: the row's length)."""
+    f32 = torch.float32
+    assert kernels.cholqr_shared_columns(kernels.CHOLQR_MAX_K, f32) == 0
+    assert [kernels.cholqr_shared_columns(k, F64)
+            for k in (1, 240, 241, 256)] == [0, 0, 1, 16]
+    W = torch.zeros(7, 9, dtype=f32)
+    assert kernels._matrix_row_stride("ns_gemm", W[:, 1:], "B") == 9
+    assert kernels._matrix_row_stride("ns_gemm", W[3:], "A") == 9
+    assert kernels._matrix_row_stride("ns_gemm", W[2:3, :4], "C") == 4
+    with pytest.raises(ValueError, match="contiguous rows"):
+        kernels._matrix_row_stride("ns_gemm", W.T, "A")
+
+
 def test_ns_gemm_plain_matches_jax_polar_steps():
     """The plain version of K5 repeats the JAX expressions' rounding: each
     of alpha * C and beta * (A @ B) is rounded, then they are added."""
